@@ -1,0 +1,144 @@
+"""Wrappers around the port's CUDA kernels.
+
+Each wrapper checks device, dtype, shape and contiguity, then
+
+* for tensors on the CPU runs the kernel's plain PyTorch version
+  (:mod:`repro_torch.kernels.ref`);
+* for tensors on a CUDA device launches the kernel on PyTorch's current
+  stream, or raises: when the library does not build, or when the launch
+  reports an error. Nothing falls back.
+
+Each wrapper carries a plain integer ``launches``, raised by one where it
+launches its kernel and nowhere else, so that a run can show which kernels
+its path went through (:func:`reset_launch_counts`, :func:`launch_counts`).
+Outputs and scratch are allocated here; the kernels allocate nothing.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import ref
+
+_F32, _I32 = torch.float32, torch.int32
+
+
+def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a torch.Tensor, got {type(t).__name__}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name}: expected device {device}, got {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def _route(device: torch.device) -> bool:
+    """True for the CUDA kernel, False for the plain version on the CPU."""
+    if device.type == "cpu":
+        return False
+    if device.type == "cuda":
+        return True
+    raise ValueError(f"no kernel or plain version for device {device}")
+
+
+def _launch(fn_name: str, device: torch.device, *args) -> None:
+    from .build import load
+
+    lib = load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, fn_name)(*args, stream)
+    if err != 0:
+        msg = lib.repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"{fn_name}: CUDA error {err}: {msg}")
+
+
+def spmv_ell(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """y = A x for sentinel-padded ELL ``cols``/``vals`` (n, W) and x (n,)."""
+    dev = x.device
+    n, w = cols.shape
+    _check("spmv_ell cols", cols, _I32, (n, w), dev)
+    _check("spmv_ell vals", vals, _F32, (n, w), dev)
+    _check("spmv_ell x", x, _F32, (n,), dev)
+    if not _route(dev):
+        return ref.spmv_ell_ref(cols, vals, x)
+    y = torch.empty(n, dtype=_F32, device=dev)
+    if n == 0:
+        return y
+    _launch("spmv_ell_launch", dev, cols.data_ptr(), vals.data_ptr(), x.data_ptr(),
+            y.data_ptr(), n, w)
+    spmv_ell.launches += 1
+    return y
+
+
+def factor_wavefront(op_row, op_lane, op_piv, op_dlane, op_dst, dst_flat,
+                     a_vals_ext: torch.Tensor) -> torch.Tensor:
+    """Round-major pivot-op ILU(k) factorization: (n+1, W) A values on the
+    pattern (plus a zero scratch row) -> (n, W) factor values."""
+    dev = a_vals_ext.device
+    nr, mo = op_row.shape
+    n1, w = a_vals_ext.shape
+    for name, t in (("op_row", op_row), ("op_lane", op_lane), ("op_piv", op_piv),
+                    ("op_dlane", op_dlane), ("op_dst", op_dst)):
+        _check(f"factor_wavefront {name}", t, _I32, (nr, mo), dev)
+    _check("factor_wavefront dst_flat", dst_flat, _I32, (dst_flat.shape[0], w), dev)
+    _check("factor_wavefront a_vals_ext", a_vals_ext, _F32, (n1, w), dev)
+    if not _route(dev):
+        return ref.factor_wavefront_ref(op_row, op_lane, op_piv, op_dlane, op_dst,
+                                        dst_flat, a_vals_ext)
+    x = a_vals_ext.clone()  # the kernel factors in place
+    if nr and mo:
+        _launch("factor_wavefront_launch", dev, op_row.data_ptr(), op_lane.data_ptr(),
+                op_piv.data_ptr(), op_dlane.data_ptr(), op_dst.data_ptr(),
+                dst_flat.data_ptr(), x.data_ptr(), nr, mo, n1 - 1, w)
+        factor_wavefront.launches += 1
+    return x[: n1 - 1]
+
+
+def tri_solve_wavefront(l_cols, l_vals, l_rhs_idx, u_cols, u_vals, u_diag, u_rhs_idx,
+                        out_perm, b: torch.Tensor) -> torch.Tensor:
+    """x = (LU)^{-1} b over the level-major arrays of a TriangularPlan."""
+    dev = b.device
+    n = b.shape[0]
+    nl, ml, wl = l_cols.shape
+    nu, mu, wu = u_cols.shape
+    _check("tri_solve_wavefront l_cols", l_cols, _I32, (nl, ml, wl), dev)
+    _check("tri_solve_wavefront l_vals", l_vals, _F32, (nl, ml, wl), dev)
+    _check("tri_solve_wavefront l_rhs_idx", l_rhs_idx, _I32, (nl, ml), dev)
+    _check("tri_solve_wavefront u_cols", u_cols, _I32, (nu, mu, wu), dev)
+    _check("tri_solve_wavefront u_vals", u_vals, _F32, (nu, mu, wu), dev)
+    _check("tri_solve_wavefront u_diag", u_diag, _F32, (nu, mu), dev)
+    _check("tri_solve_wavefront u_rhs_idx", u_rhs_idx, _I32, (nu, mu), dev)
+    _check("tri_solve_wavefront out_perm", out_perm, _I32, (n,), dev)
+    _check("tri_solve_wavefront b", b, _F32, (n,), dev)
+    if not _route(dev):
+        return ref.tri_solve_wavefront_ref(l_cols, l_vals, l_rhs_idx, u_cols, u_vals,
+                                           u_diag, u_rhs_idx, out_perm, b)
+    x_l = torch.zeros(nl * ml + 1, dtype=_F32, device=dev)  # scratch slot reads 0
+    x_u = torch.zeros(nu * mu + 1, dtype=_F32, device=dev)
+    out = torch.empty(n, dtype=_F32, device=dev)
+    if n == 0:
+        return out
+    _launch("tri_solve_wavefront_launch", dev, l_cols.data_ptr(), l_vals.data_ptr(),
+            l_rhs_idx.data_ptr(), u_cols.data_ptr(), u_vals.data_ptr(), u_diag.data_ptr(),
+            u_rhs_idx.data_ptr(), out_perm.data_ptr(), b.data_ptr(), x_l.data_ptr(),
+            x_u.data_ptr(), out.data_ptr(), n, nl, ml, wl, nu, mu, wu)
+    tri_solve_wavefront.launches += 1
+    return out
+
+
+KERNELS = (spmv_ell, factor_wavefront, tri_solve_wavefront)
+for _fn in KERNELS:
+    _fn.launches = 0
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in KERNELS}

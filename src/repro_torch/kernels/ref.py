@@ -1,0 +1,93 @@
+"""Plain PyTorch versions of the port's CUDA kernels.
+
+Each function here computes what its kernel computes, with the same float32
+operations in the same order, in eager PyTorch. The wrappers in
+:mod:`repro_torch.kernels.ops` run them for tensors that lie on the CPU, the
+tests hold them bitwise against the JAX package, and ``chip_smoke.py`` holds
+each kernel bitwise against its plain version on the GPU.
+
+They are translations of the JAX references (``repro.kernels.ref`` and the
+jnp bodies the Pallas kernels share), one eager operation per JAX operation.
+Index arrays are int32, as the kernels take them, and are widened to int64
+only for PyTorch's indexing.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.bitmath import masked_lane_sum
+from repro_torch.core.planner import COL_SENTINEL
+
+
+def spmv_ell_ref(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """y = A x over sentinel-padded ELL rows, lane-ordered with rounded
+    products (``repro.kernels.ref.spmv_ell_ref``)."""
+    n = x.shape[0]
+    xg = torch.cat([x, x.new_zeros(1)])
+    gathered = xg[torch.clamp(cols, max=n).long()]
+    return masked_lane_sum(cols, vals, gathered, int(COL_SENTINEL))
+
+
+def factor_wavefront_ref(op_row, op_lane, op_piv, op_dlane, op_dst, dst_flat,
+                         a_vals_ext: torch.Tensor) -> torch.Tensor:
+    """Round-major pivot-op ILU(k) factorization
+    (``repro.core.numeric_jax.factor_wavefront_sweeps_jnp``).
+
+    ``a_vals_ext``: (n+1, W) A on the pattern plus a zero scratch row; the
+    schedule arrays as in :class:`repro_torch.core.factor_plan.FactorPlan`.
+    Each round applies at most one pivot to each row; pad ops (row ``n``)
+    read and rewrite the scratch row, which stays zero. Lane ``W`` of the
+    destination map is the dropped lane: it lands in an extra column that
+    is cut off again. Returns the factored (n, W) values.
+    """
+    nr, mo = op_row.shape
+    n = a_vals_ext.shape[0] - 1
+    dev = a_vals_ext.device
+    idx = torch.arange(mo, device=dev)
+    one = torch.ones((), dtype=torch.float32, device=dev)
+    drop = torch.zeros((mo, 1), dtype=torch.float32, device=dev)
+    w = a_vals_ext.shape[1]
+    vals = a_vals_ext.clone()
+    op_row, op_lane, op_piv = op_row.long(), op_lane.long(), op_piv.long()
+    op_dlane, op_dst, dst_flat = op_dlane.long(), op_dst.long(), dst_flat.long()
+    for r in range(nr):
+        rows, lanes, pivs = op_row[r], op_lane[r], op_piv[r]
+        valid = rows < n
+        x = vals[rows]  # (MO, W)
+        pv = vals[pivs]  # pivot rows, final since earlier rounds
+        pdiag = torch.where(valid, pv[idx, op_dlane[r]], one)
+        xp = x[idx, lanes]
+        l = xp / pdiag
+        contrib = l[:, None] * pv  # rounded before the subtract
+        xw = torch.cat([x, drop], dim=1)
+        xw.scatter_add_(1, dst_flat[op_dst[r]], -contrib)  # x + (-c) == x - c
+        x = xw[:, :w]
+        x[idx, lanes] = torch.where(valid, l, xp)
+        vals[rows] = x
+    return vals[:n]
+
+
+def tri_solve_wavefront_ref(l_cols, l_vals, l_rhs_idx, u_cols, u_vals, u_diag,
+                            u_rhs_idx, out_perm, b: torch.Tensor) -> torch.Tensor:
+    """Fused L-then-U level-major wavefront sweep, x = (LU)^{-1} b
+    (``repro.core.triangular.wavefront_sweeps_jnp``)."""
+    nl_lev, maxr_l, _ = l_cols.shape
+    nu_lev, maxr_u, _ = u_cols.shape
+    nl_slots = nl_lev * maxr_l
+    nu_slots = nu_lev * maxr_u
+    dev = b.device
+    b_ext = torch.cat([b, b.new_zeros(1)])
+    l_rhs = b_ext[l_rhs_idx.long()]  # (nl_lev, maxr_l); padding reads b_ext[n] = 0
+    lc = l_cols.long()
+    x_l = torch.zeros(nl_slots + 1, dtype=torch.float32, device=dev)
+    for lev in range(nl_lev):
+        acc = masked_lane_sum(lc[lev], l_vals[lev], x_l[lc[lev]], nl_slots)
+        x_l[lev * maxr_l:(lev + 1) * maxr_l] = l_rhs[lev] - acc
+
+    u_rhs = x_l[u_rhs_idx.long()]  # y gathered from L slot space
+    uc = u_cols.long()
+    x_u = torch.zeros(nu_slots + 1, dtype=torch.float32, device=dev)
+    for lev in range(nu_lev):
+        acc = masked_lane_sum(uc[lev], u_vals[lev], x_u[uc[lev]], nu_slots)
+        x_u[lev * maxr_u:(lev + 1) * maxr_u] = (u_rhs[lev] - acc) / u_diag[lev]
+    return x_u[out_perm.long()]

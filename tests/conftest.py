@@ -31,6 +31,16 @@ def pytest_configure(config):
         "slow: long-running test (soaks, end-to-end sweeps); always in "
         "tier-1, deselectable with -m 'not slow' for quick local loops.",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: runs a CUDA kernel of the PyTorch port on a GPU; skips (from "
+        "inside the test) where torch.cuda.is_available() is false.",
+    )
+    config.addinivalue_line(
+        "markers",
+        "reference_fault: documents a place where the JAX reference itself "
+        "leaves its arithmetic contract; the port is held to the contract.",
+    )
 
 
 def pytest_collection_modifyitems(config, items):

@@ -1,0 +1,134 @@
+"""The port's copies of the host layer give the JAX package's arrays.
+
+The port keeps its own NumPy copies of the generators and planners (it
+imports nothing of ``repro``), so these tests keep the copies from
+drifting: every array is compared exactly, on matrices made from one seed.
+"""
+import importlib
+
+import numpy as np
+import pytest
+
+from repro.core import factor_plan as jfp
+from repro.core import guard as jguard
+from repro.core import numeric_ref as jnr
+from repro.core import planner as jplanner
+from repro.core import symbolic as jsym
+from repro.core import triangular as jtri
+from repro.core.solvers import _csr_to_ell_host
+from repro_torch.core import factor_plan as tfp
+from repro_torch.core import guard as tguard
+from repro_torch.core import matgen as tmg
+from repro_torch.core import numeric_ref as tnr
+from repro_torch.core import planner as tplanner
+from repro_torch.core import symbolic as tsym
+from repro_torch.core import triangular as ttri
+from repro_torch.core.solvers import csr_to_ell_arrays
+from repro_torch.core.sparse import CSRMatrix
+
+# `repro.core` re-exports the function `matgen` under the module's name
+jmg = importlib.import_module("repro.core.matgen")
+
+MATRICES = {
+    "poisson12": (lambda m: m.poisson_2d(12)),
+    "cd10": (lambda m: m.convection_diffusion_2d(10)),
+    "matgen150": (lambda m: m.matgen(150, 0.05, seed=2)),
+    "zerodiag60": (lambda m: m.zero_diagonal_matrix(60, seed=1)),
+}
+
+
+def _same(x, y):
+    x, y = np.asarray(x), np.asarray(y)
+    assert x.dtype == y.dtype and x.shape == y.shape
+    if x.dtype.kind == "f":
+        assert np.array_equal(x.view(np.int32 if x.itemsize == 4 else np.int64),
+                              y.view(np.int32 if y.itemsize == 4 else np.int64))
+    else:
+        assert np.array_equal(x, y)
+
+
+def _pair(name):
+    ja = MATRICES[name](jmg)
+    ta = MATRICES[name](tmg)
+    return ja, ta
+
+
+@pytest.mark.parametrize("name", sorted(MATRICES))
+def test_generators_match(name):
+    ja, ta = _pair(name)
+    assert ja.n == ta.n
+    for f in ("indptr", "indices", "data"):
+        _same(getattr(ta, f), getattr(ja, f))
+    tb = CSRMatrix.from_arrays(ja.n, ja.indptr, ja.indices, ja.data)
+    for f in ("indptr", "indices", "data"):
+        _same(getattr(tb, f), getattr(ja, f))
+
+
+@pytest.mark.parametrize("rule", ["sum", "max"])
+@pytest.mark.parametrize("k", [0, 1, 2, 3])
+@pytest.mark.parametrize("name", ["cd10", "matgen150"])
+def test_symbolic_patterns_match(name, k, rule):
+    ja, ta = _pair(name)
+    jp = jsym.symbolic_ilu_k(ja, k, rule=rule)
+    tp = tsym.symbolic_ilu_k(ta, k, rule=rule)
+    assert tp.k == jp.k
+    for f in ("indptr", "indices", "levels", "diag_ptr"):
+        _same(getattr(tp, f), getattr(jp, f))
+    if k == 1:
+        jp1, tp1 = jsym.pilu1_symbolic(ja, rule=rule), tsym.pilu1_symbolic(ta, rule=rule)
+        for f in ("indptr", "indices", "levels", "diag_ptr"):
+            _same(getattr(tp1, f), getattr(jp1, f))
+
+
+def _patterns(name, k):
+    ja, ta = _pair(name)
+    jp = jsym.pilu1_symbolic(ja) if k == 1 else jsym.symbolic_ilu_k(ja, k)
+    tp = tsym.pilu1_symbolic(ta) if k == 1 else tsym.symbolic_ilu_k(ta, k)
+    return ja, ta, jp, tp
+
+
+@pytest.mark.parametrize("k", [0, 1, 2])
+@pytest.mark.parametrize("name", ["poisson12", "cd10", "matgen150"])
+def test_factor_and_triangular_plans_match(name, k):
+    ja, ta, jp, tp = _patterns(name, k)
+    jplan, tplan = jfp.build_factor_plan(ja, jp), tfp.build_factor_plan(ta, tp)
+    for f in ("n", "width", "k", "n_ops", "n_rounds", "max_ops"):
+        assert getattr(tplan, f) == getattr(jplan, f), f
+    for f in ("op_row", "op_lane", "op_piv", "op_dlane", "op_dst", "dst_flat", "a_vals",
+              "cols", "row_len", "a_scatter_lane", "csr_row", "csr_lane"):
+        _same(getattr(tplan, f), getattr(jplan, f))
+    jv, tv = jnr.numeric_ilu_ref(ja, jp), tnr.numeric_ilu_ref(ta, tp)
+    _same(tv, jv)
+    jt, tt = jtri.build_triangular_plan(jp, jv), ttri.build_triangular_plan(tp, tv)
+    assert (tt.n, tt.nl_slots, tt.nu_slots) == (jt.n, jt.nl_slots, jt.nu_slots)
+    for f in ("l_cols", "l_vals", "u_cols", "u_vals", "diag", "l_levels", "u_levels",
+              *ttri.SWEEP_FIELDS):
+        _same(getattr(tt, f), getattr(jt, f))
+
+
+@pytest.mark.parametrize("name", ["poisson12", "matgen150"])
+def test_ell_of_a_and_schedule_primitives_match(name):
+    ja, ta = _pair(name)
+    jc, jv = _csr_to_ell_host(ja)
+    tc, tv = csr_to_ell_arrays(ta, "cpu")
+    _same(tc.numpy(), jc)
+    _same(tv.numpy(), jv)
+    assert tplanner.COL_SENTINEL == jplanner.COL_SENTINEL
+    rng = np.random.default_rng(0)
+    src = rng.integers(0, 40, 120)
+    dst = src + rng.integers(1, 20, 120)
+    _same(tplanner.wavefront_schedule(src, dst, 60), jplanner.wavefront_schedule(src, dst, 60))
+    _same(tplanner.expand_spans([3, 9], [2, 4]), jplanner.expand_spans([3, 9], [2, 4]))
+
+
+def test_guard_audit_and_shift_match():
+    ja, ta, jp, tp = _patterns("zerodiag60", 1)
+    jv = jnr.numeric_ilu_ref(ja, jp)
+    jh = jguard.audit_values(jp, jv)
+    th = tguard.audit_values(tp, tnr.numeric_ilu_ref(ta, tp))
+    assert not th.ok
+    for f in ("ok", "n_nonfinite", "n_zero_pivots", "n_denormal_pivots", "n_small_pivots",
+              "worst_row", "first_nonfinite_row"):
+        assert getattr(th, f) == getattr(jh, f), f
+    assert tguard.ladder_alphas() == jguard.ladder_alphas()
+    _same(tguard.shifted_matrix(ta, 0.004).data, jguard.shifted_matrix(ja, 0.004).data)

@@ -1,0 +1,96 @@
+"""The port stands alone: no jax, nothing of ``repro``, no quiet CPU fallback.
+
+* A child process imports the port with ``jax`` blocked and runs a tiny
+  solve on the CPU; no ``repro`` module may get loaded.
+* No source file of the port mentions an import of jax or of ``repro``.
+* Without a GPU, the entry points raise unless the caller passes
+  ``device="cpu"``; and ``chip_smoke.py`` fails without printing a result.
+"""
+import os
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "src" / "repro_torch"
+
+CHILD = r"""
+import sys
+sys.modules["jax"] = None  # any `import jax` now raises ImportError
+import numpy as np
+import repro_torch.core.api, repro_torch.core.solvers, repro_torch.kernels.ops
+import repro_torch.kernels.build
+from repro_torch.core.matgen import poisson_2d
+from repro_torch.core.solvers import solve_with_ilu
+a = poisson_2d(6)
+r, _ = solve_with_ilu(a, np.ones(a.n, np.float32), k=1, device="cpu")
+assert r.verdict == "converged", r.verdict
+bad = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
+assert not bad, bad
+print("ISOLATED")
+"""
+
+
+def _child_env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    env.setdefault("JAX_PLATFORMS", "cpu")
+    return env
+
+
+def test_port_imports_and_solves_without_jax_or_repro():
+    out = subprocess.run([sys.executable, "-c", CHILD], env=_child_env(), cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "ISOLATED" in out.stdout
+
+
+def test_no_source_file_imports_jax_or_repro():
+    pat = re.compile(r"import jax|from jax|from repro\.|import repro\b(?!_torch)")
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    for f in files:
+        for no, line in enumerate(f.read_text().splitlines(), 1):
+            assert not pat.search(line), f"{f.relative_to(ROOT)}:{no}: {line.strip()}"
+
+
+def test_entry_points_raise_without_gpu(monkeypatch):
+    from repro_torch.core.api import ilu
+    from repro_torch.core.matgen import poisson_2d
+    from repro_torch.core.solvers import solve_with_ilu
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    a = poisson_2d(4)
+    b = np.ones(a.n, np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        solve_with_ilu(a, b, k=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ilu(a, 1)
+    with pytest.raises(RuntimeError):
+        solve_with_ilu(a, b, k=1, device="cuda")
+    r, _ = solve_with_ilu(a, b, k=1, device="cpu")
+    assert r.converged
+
+
+def _no_result(out):
+    return '"ok": true' not in out.stdout and '"kernels"' not in out.stdout
+
+
+def test_chip_smoke_fails_without_gpu_or_repo(tmp_path):
+    env = _child_env()
+    env["CUDA_VISIBLE_DEVICES"] = ""  # hides any GPU, so the check is the same everywhere
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0 and _no_result(out), out.stdout[-2000:]
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(ROOT / "chip_smoke.py", alone)
+    env.pop("PYTHONPATH")
+    out = subprocess.run([sys.executable, str(alone)], env=env, cwd=tmp_path,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0 and _no_result(out), out.stdout[-2000:]

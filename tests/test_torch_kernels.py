@@ -1,0 +1,157 @@
+"""The port's kernels: plain versions against the JAX package, wrappers'
+routing, and (on a GPU) each CUDA kernel against its plain version.
+
+The plain versions are held bitwise (int32 views) against the JAX
+references and against the Pallas kernels in interpret mode, on the same
+plan arrays. Pallas interpret mode is slow on deep scans, so the fixtures
+stay at n <= 64.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.factor_plan import build_factor_plan as j_build_factor_plan
+from repro.core.matgen import convection_diffusion_2d, matgen, poisson_2d
+from repro.core.numeric_jax import factor_wavefront_sweeps_jnp
+from repro.core.numeric_ref import numeric_ilu_ref
+from repro.core.planner import COL_SENTINEL
+from repro.core.symbolic import pilu1_symbolic, symbolic_ilu_k
+from repro.core.triangular import build_triangular_plan as j_build_triangular_plan
+from repro.core.triangular import wavefront_sweeps_jnp
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import ops, ref
+
+FACTOR_FIELDS = ("op_row", "op_lane", "op_piv", "op_dlane", "op_dst", "dst_flat")
+SWEEP_FIELDS = ("l_cols_lm", "l_vals_lm", "l_rhs_idx", "u_cols_lm", "u_vals_lm",
+                "u_diag_lm", "u_rhs_idx", "u_out_perm")
+
+
+def _bits_equal(got, want):
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    mism = np.nonzero(got.reshape(-1).view(np.int32) != want.reshape(-1).view(np.int32))[0]
+    assert mism.size == 0, f"{mism.size}/{want.size} differ; first {mism[:5]}"
+
+
+def _pattern(a, k):
+    return pilu1_symbolic(a) if k == 1 else symbolic_ilu_k(a, k)
+
+
+FIXTURES = {
+    "poisson6_k1": lambda: (poisson_2d(6), 1),
+    "cd6_k0": lambda: (convection_diffusion_2d(6), 0),
+    "matgen48_k2": lambda: (matgen(48, 0.12, seed=3), 2),  # W > 16: chunked lane sums
+}
+
+
+def _ell(n, w, seed):
+    rng = np.random.default_rng(seed)
+    cols = rng.integers(0, n, size=(n, w)).astype(np.int32)
+    cols[rng.random((n, w)) < 0.3] = COL_SENTINEL
+    vals = rng.standard_normal((n, w)).astype(np.float32)
+    x = rng.standard_normal(n).astype(np.float32)
+    return cols, vals, x
+
+
+@pytest.mark.parametrize("n,w", [(8, 1), (40, 5), (64, 19)])
+def test_spmv_ell_ref_bitwise_vs_jax(n, w):
+    cols, vals, x = _ell(n, w, seed=n + w)
+    got = ref.spmv_ell_ref(torch.from_numpy(cols), torch.from_numpy(vals), torch.from_numpy(x))
+    args = (jnp.asarray(cols), jnp.asarray(vals), jnp.asarray(x))
+    _bits_equal(got.numpy(), jref.spmv_ell_ref(*args))
+    _bits_equal(got.numpy(), jops.spmv_ell(*args, bm=n))  # Pallas, interpret mode
+
+
+@pytest.mark.parametrize("name", sorted(FIXTURES))
+def test_factor_wavefront_ref_bitwise_vs_jax(name):
+    a, k = FIXTURES[name]()
+    pattern = _pattern(a, k)
+    plan = j_build_factor_plan(a, pattern)
+    args = [getattr(plan, f) for f in FACTOR_FIELDS] + [plan.a_vals]
+    got = ref.factor_wavefront_ref(*[torch.from_numpy(np.ascontiguousarray(v)) for v in args])
+    jargs = [jnp.asarray(v) for v in args]
+    _bits_equal(got.numpy(), factor_wavefront_sweeps_jnp(*jargs))
+    _bits_equal(got.numpy(), jops.factor_wavefront(*jargs))  # Pallas, interpret mode
+    _bits_equal(plan.values_to_csr(got.numpy()), numeric_ilu_ref(a, pattern))
+
+
+@pytest.mark.parametrize("name", sorted(FIXTURES))
+def test_tri_solve_wavefront_ref_bitwise_vs_jax(name):
+    a, k = FIXTURES[name]()
+    pattern = _pattern(a, k)
+    vals = numeric_ilu_ref(a, pattern)
+    plan = j_build_triangular_plan(pattern, vals)
+    b = np.random.default_rng(7).standard_normal(a.n).astype(np.float32)
+    args = [getattr(plan, f) for f in SWEEP_FIELDS] + [b]
+    got = ref.tri_solve_wavefront_ref(*[torch.from_numpy(np.ascontiguousarray(v)) for v in args])
+    jargs = [jnp.asarray(v) for v in args]
+    _bits_equal(got.numpy(), wavefront_sweeps_jnp(*jargs))
+    _bits_equal(got.numpy(), jops.tri_solve_wavefront(*jargs))  # Pallas, interpret mode
+
+
+def test_wrappers_route_cpu_tensors_to_plain_versions():
+    ops.reset_launch_counts()
+    a, k = FIXTURES["poisson6_k1"]()
+    pattern = _pattern(a, k)
+    fplan = j_build_factor_plan(a, pattern)
+    fargs = [torch.from_numpy(getattr(fplan, f)) for f in FACTOR_FIELDS]
+    fargs.append(torch.from_numpy(fplan.a_vals))
+    _bits_equal(ops.factor_wavefront(*fargs).numpy(), ref.factor_wavefront_ref(*fargs).numpy())
+    vals = numeric_ilu_ref(a, pattern)
+    tplan = j_build_triangular_plan(pattern, vals)
+    b = torch.from_numpy(np.random.default_rng(1).standard_normal(a.n).astype(np.float32))
+    targs = [torch.from_numpy(getattr(tplan, f)) for f in SWEEP_FIELDS] + [b]
+    _bits_equal(ops.tri_solve_wavefront(*targs).numpy(),
+                ref.tri_solve_wavefront_ref(*targs).numpy())
+    cols, ev, x = (torch.from_numpy(v) for v in _ell(16, 3, seed=2))
+    _bits_equal(ops.spmv_ell(cols, ev, x).numpy(), ref.spmv_ell_ref(cols, ev, x).numpy())
+    assert ops.launch_counts() == {"spmv_ell": 0, "factor_wavefront": 0,
+                                   "tri_solve_wavefront": 0}
+
+
+def test_wrappers_reject_bad_inputs():
+    cols, vals, x = (torch.from_numpy(v) for v in _ell(16, 3, seed=4))
+    with pytest.raises(TypeError):
+        ops.spmv_ell(cols.long(), vals, x)
+    with pytest.raises(ValueError):
+        ops.spmv_ell(cols, vals, x[:8])
+    with pytest.raises(ValueError):
+        ops.spmv_ell(cols.t(), vals.t(), torch.zeros(3))  # not contiguous
+    with pytest.raises(ValueError):
+        ops.spmv_ell(cols.to("meta"), vals.to("meta"), x.to("meta"))  # no kernel there
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the port's kernels run only on the GPU)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(FIXTURES))
+def test_cuda_kernels_bitwise_vs_plain(name, cuda_device):
+    a, k = FIXTURES[name]()
+    pattern = _pattern(a, k)
+    fplan = j_build_factor_plan(a, pattern)
+    fargs = [torch.from_numpy(np.ascontiguousarray(getattr(fplan, f)))
+             for f in FACTOR_FIELDS] + [torch.from_numpy(fplan.a_vals)]
+    want = ref.factor_wavefront_ref(*fargs)
+    before = ops.factor_wavefront.launches
+    got = ops.factor_wavefront(*[t.to(cuda_device) for t in fargs])
+    assert ops.factor_wavefront.launches == before + 1
+    _bits_equal(got.cpu().numpy(), want.numpy())
+
+    tplan = j_build_triangular_plan(pattern, numeric_ilu_ref(a, pattern))
+    b = np.random.default_rng(5).standard_normal(a.n).astype(np.float32)
+    targs = [torch.from_numpy(np.ascontiguousarray(getattr(tplan, f)))
+             for f in SWEEP_FIELDS] + [torch.from_numpy(b)]
+    got = ops.tri_solve_wavefront(*[t.to(cuda_device) for t in targs])
+    _bits_equal(got.cpu().numpy(), ref.tri_solve_wavefront_ref(*targs).numpy())
+
+    cols, vals, x = (torch.from_numpy(v) for v in _ell(a.n, 7, seed=a.n))
+    got = ops.spmv_ell(cols.to(cuda_device), vals.to(cuda_device), x.to(cuda_device))
+    _bits_equal(got.cpu().numpy(), ref.spmv_ell_ref(cols, vals, x).numpy())
