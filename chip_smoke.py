@@ -8,37 +8,59 @@ the CUDA toolkit. Phases, each printed as it runs (any failure ends the run
 with a non-zero exit; nothing is caught):
 
 1. setup — the card's name and power limit (``nvidia-smi``), then the
-   build of the kernels from ``src/repro_torch/kernels/csrc``.
+   build of the kernels from ``src/repro_torch/kernels/csrc``. Worker
+   processes start computing the sequential inverse oracles of phase 3b.
 2. kernels — at the main path's shapes (``poisson_2d(400)``, ILU(1),
    n = 160,000) each CUDA kernel against its plain PyTorch version on the
    card, bitwise; the median time of CUDA-event runs of each, its bound,
-   and for the SpMV PyTorch's own sparse CSR product as a yardstick.
+   and a PyTorch sparse CSR yardstick for the SpMV and (two products) for
+   the inverse chain. The (nb=4, n) forms of the three batched kernels
+   likewise, with every row equal to the single form's output for it.
+   [inverse] lines: the inverse plan and value times at full size, and
+   W/Z on the card bitwise equal to the CPU's.
 3. factors — the factor values equal the sequential oracle
    ``numeric_ilu_ref``, bitwise, on ``convection_diffusion_2d(32)`` and
-   ``poisson_2d(64)`` at k = 0, 1, 2.
+   ``poisson_2d(64)`` at k = 0, 1, 2. 3b: the inverse values W/Z computed
+   on the card equal the sequential oracle ``inverse_values_ref`` on the
+   same fixtures.
 4. main path — ``solve_with_ilu`` on ``poisson_2d(400)``, k=1, GMRES(30),
    tol=1e-5, with the kernels' launch counts set to 0 just before and read
    just after; it must converge with a float64 true residual <= 2·tol, and
-   every kernel must have been launched.
-5. card against CPU — the same solve on the card and on the CPU (plain
-   versions) gives the same ``x`` bitwise and the same iteration count, on
-   ``poisson_2d(64)`` and ``convection_diffusion_2d(32)``.
+   its kernels must have been launched. Every path below is read the same
+   way.
+5. main-inverse — the same solve with ``precond_method="inverse"`` at
+   tol=1e-4 (at 1e-5 the float32 inverse method stalls just above the
+   tolerance, in the JAX reference too); ``inverse_chain`` must launch and
+   ``tri_solve_wavefront`` must not.
+6. multi-rhs — ``solve_with_ilu(a, B)`` with B of shape (4, n) whose row 0
+   is phase 4's b, with per-lane tolerances: every lane converges, and
+   lane 0 equals phase 4's solve bitwise.
+7. card against CPU — the same solves on the card and on the CPU (plain
+   versions) give the same ``x`` bitwise and the same iteration counts, on
+   ``poisson_2d(64)`` and ``convection_diffusion_2d(32)``: the sweep, the
+   inverse chain, and a batch of three with per-lane tolerances.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a GPU, or without
 the repository around it, the script exits non-zero and prints no result.
 """
 import json
+import multiprocessing
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 F32_FLOP_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 SEED = 0
 TOL = 1e-5
+INV_TOL = 1e-4  # the inverse method's float32 floor on poisson_2d(400) is just above 1e-5
+NB = 4  # right-hand sides of the batched kernel checks and the multi-RHS solve
+SRC = Path(__file__).resolve().parent / "src"
+SMALL = ("poisson_2d(64)", "convection_diffusion_2d(32)")
 
 
 def require(cond, what):
@@ -56,12 +78,11 @@ def setup():
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke: torch.cuda.is_available() is false; needs one GPU\n")
         sys.exit(2)
-    src = Path(__file__).resolve().parent / "src"
-    if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
+    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         sys.stderr.write(f"chip_smoke: no src/repro_torch beside {Path(__file__).name}; "
                          "run it from the repository\n")
         sys.exit(2)
-    sys.path.insert(0, str(src))
+    sys.path.insert(0, str(SRC))
 
 
 def time_ms(fn, reps, warmup=1):
@@ -113,10 +134,12 @@ def bound(nbytes, nops):
 
 
 def bits_equal(got, want):
+    """Equal int32 views of two float32 tensors or arrays (any device)."""
     import torch
 
-    return got.shape == want.shape and torch.equal(got.contiguous().view(torch.int32),
-                                                   want.contiguous().view(torch.int32))
+    got, want = (torch.as_tensor(t).cpu().contiguous() for t in (got, want))
+    return got.shape == want.shape and torch.equal(got.view(torch.int32),
+                                                   want.view(torch.int32))
 
 
 def max_abs_err(got, want):
@@ -220,15 +243,122 @@ def phase_kernels(dev):
         plain_ms=time_ms(lambda: ref.spmv_ell_ref(cols, evals, x), reps=10),
         bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lambda: csr @ x, reps=50),
         device_ms=device_ms(lambda: ops.spmv_ell(cols, evals, x), "spmv_ell_kernel", reps=20))
+
+    # inverse_chain, over W/Z computed on the card from this factor
+    plan, wz = inverse_full_size(dev, pattern, vals)
+    iargs = [torch.as_tensor(plan.w_cols, device=dev), wz[0],
+             torch.as_tensor(plan.z_cols, device=dev), wz[1]]
+    got = ops.inverse_chain(*iargs, x)
+    want = ref.inverse_chain_ref(*iargs, x)
+    require(bits_equal(got, want), "inverse_chain kernel != plain version on the card")
+    require(bool(torch.isfinite(got).all()), "inverse_chain produced non-finite values")
+    w_csr, z_csr = ell_to_csr(*iargs[:2], a.n), ell_to_csr(*iargs[2:], a.n)
+    two = z_csr @ (w_csr @ x)
+    say(f"[kernels] inverse_chain vs two torch sparse CSR products: max |diff| "
+        f"{float((two - got).abs().max()):.3e} (a yardstick; its order of adds differs)")
+    b_ms, b_by = bound(sum(t.numel() * 4 for t in iargs) + 2 * a.n * 4,
+                       2 * plan.nnz_inverse())
+    rows["inverse_chain"] = dict(
+        name="inverse_chain", route="cuda",
+        source="src/repro_torch/kernels/csrc/inverse_chain.cu",
+        replaces="src/repro/kernels/inverse_chain.py:36", launches=0,
+        max_abs_err=max_abs_err(got, want),
+        ms=time_ms(lambda: ops.inverse_chain(*iargs, x), reps=50),
+        plain_ms=time_ms(lambda: ref.inverse_chain_ref(*iargs, x), reps=10),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        yardstick="Z_csr @ (W_csr @ b): two torch.sparse_csr_tensor products, not one call",
+        yardstick_ms=time_ms(lambda: z_csr @ (w_csr @ x), reps=50),
+        device_ms=device_ms(lambda: ops.inverse_chain(*iargs, x), "inverse_chain_kernel",
+                            reps=20))
     for r in rows.values():
         dms = "not measured" if r["device_ms"] is None else f"{r['device_ms']:.4f} ms"
         say(f"[kernels] {r['name']}: bitwise equal to plain; {r['ms']:.4f} ms per call "
             f"(device time in the profiler trace {dms}; "
             f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']}"
             + (f", library {r['library_ms']:.4f} ms" if r["library_ms"] is not None else "")
+            + (f", two-call yardstick {r['yardstick_ms']:.4f} ms" if "yardstick_ms" in r else "")
             + (f", {r['us_per_step']:.3f} us per dependent step of {r['chain_steps']}"
                if "chain_steps" in r else "") + ")")
+
+    # the (NB, n) forms: bitwise against the plain versions, and every row
+    # against the single form's kernel output for that row
+    bs = torch.as_tensor(rng.standard_normal((NB, a.n)).astype(np.float32), device=dev)
+    nbytes_vec = 2 * NB * a.n * 4
+    forms = {
+        "spmv_ell": (lambda B: ops.spmv_ell(cols, evals, B),
+                     lambda B: ref.spmv_ell_ref(cols, evals, B),
+                     bound(cols.numel() * 8 + nbytes_vec, 2 * NB * a.nnz)[0]),
+        "tri_solve_wavefront": (lambda B: ops.tri_solve_wavefront(*targs, B),
+                                lambda B: ref.tri_solve_wavefront_ref(*targs, B),
+                                bound(sum(t.numel() * 4 for t in targs) + nbytes_vec,
+                                      NB * (2 * lanes + 3 * a.n))[0]),
+        "inverse_chain": (lambda B: ops.inverse_chain(*iargs, B),
+                          lambda B: ref.inverse_chain_ref(*iargs, B),
+                          bound(sum(t.numel() * 4 for t in iargs) + nbytes_vec,
+                                2 * NB * plan.nnz_inverse())[0]),
+    }
+    for name, (kern, plain, b_ms) in forms.items():
+        got = kern(bs)
+        want = plain(bs)
+        require(bits_equal(got, want), f"{name} (nb={NB}) kernel != plain version on the card")
+        for i in range(NB):
+            require(bits_equal(got[i], kern(bs[i].contiguous())),
+                    f"{name} (nb={NB}) row {i} != the single form's output for that row")
+        r = rows[name]
+        r.update(batched_nb=NB, batched_max_abs_err=max_abs_err(got, want),
+                 batched_ms=time_ms(lambda: kern(bs), reps=10 if "tri" in name else 50),
+                 batched_device_ms=device_ms(lambda: kern(bs), f"{name}_kernel", reps=10),
+                 batched_bound_ms=b_ms)
+        dms = ("not measured" if r["batched_device_ms"] is None
+               else f"{r['batched_device_ms']:.4f} ms")
+        say(f"[kernels] {name} nb={NB}: bitwise equal to plain, each row equal to the single "
+            f"form; {r['batched_ms']:.4f} ms per call (device {dms}; single form "
+            f"{r['ms']:.4f} ms; bound {b_ms:.4f} ms)")
     return rows
+
+
+def ell_to_csr(cols, vals, n):
+    """A torch sparse CSR tensor of a sentinel-padded ELL pair (the
+    yardstick's input; rows of an ELL pair hold their valid lanes first)."""
+    import torch
+
+    valid = cols < n
+    crow = torch.zeros(n + 1, dtype=torch.int64, device=cols.device)
+    crow[1:] = torch.cumsum(valid.sum(dim=1), dim=0)
+    return torch.sparse_csr_tensor(crow, cols[valid].long(), vals[valid], size=(n, n),
+                                   check_invariants=False)
+
+
+def inverse_full_size(dev, pattern, vals):
+    """[inverse] at full size: the plan's time on the host, the value
+    loop's on the card (two runs: the first pays PyTorch's first launches)
+    and on the CPU, and W/Z from the card bitwise equal to the CPU's."""
+    import torch
+
+    from repro_torch.core.inverse import build_inverse_plan, compute_inverse_values
+
+    t0 = time.perf_counter()
+    plan = build_inverse_plan(pattern, vals)
+    plan_s = time.perf_counter() - t0
+    card_s = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wz = compute_inverse_values(plan, dev)
+        torch.cuda.synchronize()
+        card_s.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    wz_cpu = compute_inverse_values(plan, "cpu")
+    cpu_s = time.perf_counter() - t0
+    for name, got, want in zip("WZ", wz, wz_cpu):
+        require(bits_equal(got.cpu(), want), f"inverse values {name}: card != CPU at full size")
+    say(f"[inverse] poisson_2d(400) ILU(1): W {plan.w_cols.shape} Z {plan.z_cols.shape}, "
+        f"{plan.nnz_inverse()} stored entries; value chain {plan.depth} levels (L then U); "
+        f"l_addr {plan.l_addr.shape}")
+    say(f"[inverse] plan {plan_s:.3f} s (host); values on the card {card_s[0]:.3f} s "
+        f"(first run), {card_s[1]:.3f} s (second); on the CPU {cpu_s:.3f} s; "
+        f"W/Z on the card bitwise equal to the CPU's")
+    return plan, wz
 
 
 def phase_factors(dev):
@@ -248,6 +378,64 @@ def phase_factors(dev):
             say(f"[factors] {name} k={k}: nnz={f.nnz} bitwise equal to numeric_ilu_ref")
 
 
+def small_matrix(name):
+    from repro_torch.core import matgen
+
+    return {"poisson_2d(64)": lambda: matgen.poisson_2d(64),
+            "convection_diffusion_2d(32)": lambda: matgen.convection_diffusion_2d(32)}[name]()
+
+
+def inverse_oracle(name, k):
+    """The sequential inverse oracle of one small fixture, in a worker
+    process: (w_cols, w_vals, z_cols, z_vals) from ``inverse_values_ref`` on
+    the oracle factor ``numeric_ilu_ref``."""
+    sys.path.insert(0, str(SRC))
+    from repro_torch.core.inverse_ref import inverse_pattern_ref, inverse_values_ref
+    from repro_torch.core.numeric_ref import numeric_ilu_ref
+    from repro_torch.core.symbolic import pilu1_symbolic, symbolic_ilu_k
+
+    a = small_matrix(name)
+    pattern = pilu1_symbolic(a) if k == 1 else symbolic_ilu_k(a, k)
+    vals = numeric_ilu_ref(a, pattern)
+    w_cols, z_cols = inverse_pattern_ref(pattern)
+    w_vals, z_vals = inverse_values_ref(pattern, vals, w_cols, z_cols)
+    return w_cols, w_vals, z_cols, z_vals
+
+
+def phase_inverse_oracles(dev, oracles):
+    """W/Z computed on the card (from the card's factor) against the
+    sequential oracle, bitwise."""
+    import numpy as np
+
+    from repro_torch.core.api import ilu
+
+    for (name, k), fut in oracles.items():
+        f = ilu(small_matrix(name), k, device=dev)
+        ap = f.precond("inverse")
+        w_cols, w_vals, z_cols, z_vals = fut.result()
+        require(np.array_equal(ap.plan.w_cols, w_cols) and np.array_equal(ap.plan.z_cols, z_cols),
+                f"inverse pattern of {name} k={k} != inverse_pattern_ref")
+        require(bits_equal(ap.w_vals.cpu(), w_vals) and bits_equal(ap.z_vals.cpu(), z_vals),
+                f"inverse values of {name} k={k} on the card != inverse_values_ref")
+        say(f"[inverse] {name} k={k}: W {w_cols.shape} Z {z_cols.shape} on the card bitwise "
+            f"equal to inverse_values_ref")
+
+
+def true_residual(a, b, x):
+    import numpy as np
+
+    r = b.astype(np.float64) - a.to_scipy().astype(np.float64) @ x.astype(np.float64)
+    return float(np.linalg.norm(r) / np.linalg.norm(b.astype(np.float64)))
+
+
+def check_launches(path, counts, launched, idle=()):
+    say(f"[{path}] kernel launches: {json.dumps(counts)}")
+    for name in launched:
+        require(counts[name] > 0, f"the {path} path never launched {name}")
+    for name in idle:
+        require(counts[name] == 0, f"the {path} path launched {name}")
+
+
 def phase_main_path(dev):
     import numpy as np
 
@@ -263,30 +451,99 @@ def phase_main_path(dev):
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     factor_s = fact.symbolic_seconds + fact.numeric_seconds
-    r = b.astype(np.float64) - a.to_scipy().astype(np.float64) @ res.x.astype(np.float64)
-    true_rel = float(np.linalg.norm(r) / np.linalg.norm(b.astype(np.float64)))
+    true_rel = true_residual(a, b, res.x)
     say(f"[main] poisson_2d(400) n={a.n} ILU(1) GMRES(30) tol={TOL}: verdict={res.verdict} "
         f"inner steps={res.iterations} restarts={len(res.history)} "
         f"residual={res.residual:.3e} float64 true residual={true_rel:.3e}")
     say(f"[main] wall {wall:.3f} s = factor {factor_s:.3f} s (symbolic "
         f"{fact.symbolic_seconds:.3f} s, numeric incl. planning {fact.numeric_seconds:.3f} s)"
         f" + solve {wall - factor_s:.3f} s (ELL, sweep plan, GMRES)")
-    say(f"[main] kernel launches: {json.dumps(counts)}")
+    check_launches("main", counts, ("spmv_ell", "factor_wavefront", "tri_solve_wavefront"),
+                   idle=("inverse_chain",))
     require(res.verdict == "converged", f"main solve verdict {res.verdict}")
     require(np.isfinite(res.x).all() and res.x.shape == (a.n,), "main solve x malformed")
     require(true_rel <= 2 * TOL, f"float64 true residual {true_rel:.3e} > 2*tol")
-    for name, c in counts.items():
-        require(c > 0, f"the main path never launched {name}")
-    profile_resolve(a, b, dev)
+    profile_resolve("main", a, b, dev, tol=TOL)
+    return counts, b, res, wall
+
+
+def phase_main_inverse(dev, b):
+    """Path A: the same solve through the incomplete-inverse preconditioner."""
+    import numpy as np
+
+    from repro_torch.core.matgen import poisson_2d
+    from repro_torch.core.solvers import solve_with_ilu
+    from repro_torch.kernels import ops
+
+    a = poisson_2d(400)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res, fact = solve_with_ilu(a, b, k=1, tol=INV_TOL, precond_method="inverse", device=dev)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    factor_s = fact.symbolic_seconds + fact.numeric_seconds
+    true_rel = true_residual(a, b, res.x)
+    say(f"[main-inverse] poisson_2d(400) ILU(1) inverse GMRES(30) tol={INV_TOL}: "
+        f"verdict={res.verdict} inner steps={res.iterations} restarts={len(res.history)} "
+        f"residual={res.residual:.3e} float64 true residual={true_rel:.3e}")
+    say(f"[main-inverse] wall {wall:.3f} s = factor {factor_s:.3f} s + solve "
+        f"{wall - factor_s:.3f} s (ELL, inverse plan and values, GMRES)")
+    check_launches("main-inverse", counts, ("spmv_ell", "factor_wavefront", "inverse_chain"),
+                   idle=("tri_solve_wavefront",))
+    require(res.verdict == "converged", f"inverse solve verdict {res.verdict}")
+    require(np.isfinite(res.x).all() and res.x.shape == (a.n,), "inverse solve x malformed")
+    require(true_rel <= 2 * INV_TOL, f"float64 true residual {true_rel:.3e} > 2*tol")
+    profile_resolve("main-inverse", a, b, dev, tol=INV_TOL, precond_method="inverse")
     return counts
 
 
-def profile_resolve(a, b, dev):
+def phase_multi_rhs(dev, b, single, single_wall):
+    """Path B: four right-hand sides in one batched solve; lane 0 is the
+    main path's b and must reproduce its solve bitwise."""
+    import numpy as np
+
+    from repro_torch.core.matgen import poisson_2d
+    from repro_torch.core.solvers import solve_with_ilu
+    from repro_torch.kernels import ops
+
+    a = poisson_2d(400)
+    bs = np.random.default_rng(SEED + 4).standard_normal((NB, a.n)).astype(np.float32)
+    bs[0] = b
+    # a mixed-tolerance batch, as a serving coalescer forms one. At 1e-5
+    # lane 2 stalls at a float32 true residual of 1.3e-5 (40 restarts end
+    # `maxiter`), so lanes 2-3 ask for 1e-4; lane 0 keeps phase 4's tol.
+    tols = np.array([TOL, TOL, INV_TOL, INV_TOL], np.float32)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rs, fact = solve_with_ilu(a, bs, k=1, tol=tols, device=dev)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    for i, r in enumerate(rs):
+        true_rel = true_residual(a, bs[i], r.x)
+        say(f"[multi-rhs] lane {i} tol={tols[i]:.0e}: verdict={r.verdict} inner steps="
+            f"{r.iterations} restarts={len(r.history)} float64 true residual={true_rel:.3e}")
+        require(r.verdict == "converged", f"multi-RHS lane {i} verdict {r.verdict}")
+        require(true_rel <= 2 * tols[i], f"multi-RHS lane {i} true residual {true_rel:.3e} "
+                "> 2*tol")
+    require(bits_equal(rs[0].x, single.x) and rs[0].iterations == single.iterations,
+            "multi-RHS lane 0 != the main path's single solve")
+    factor_s = fact.symbolic_seconds + fact.numeric_seconds
+    say(f"[multi-rhs] lane 0 bitwise equal to the main solve ({single.iterations} steps); "
+        f"wall {wall:.3f} s for {NB} right-hand sides = {wall / NB:.3f} s per RHS, against "
+        f"{single_wall:.3f} s for the single solve (both include a factorization; here "
+        f"factor {factor_s:.3f} s)")
+    check_launches("multi-rhs", counts, ("spmv_ell", "factor_wavefront", "tri_solve_wavefront"),
+                   idle=("inverse_chain",))
+    profile_resolve("multi-rhs", a, bs, dev, tol=tols)
+    return counts
+
+
+def profile_resolve(path, a, b, dev, **kw):
     """Where the solve's time goes: one restart (30 Arnoldi steps) of the
-    same solve again, with the factorization and matvec cached on the
-    matrix, so this is the GMRES part alone, under torch.profiler (one
-    restart keeps the trace small); device busy time = the sum of kernel
-    durations."""
+    same solve again, with the factorization, its preconditioner and the
+    matvec cached on the matrix, so this is the GMRES part alone, under
+    torch.profiler (one restart keeps the trace small); device busy time =
+    the sum of kernel durations."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -295,7 +552,7 @@ def profile_resolve(a, b, dev):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res, _ = solve_with_ilu(a, b, k=1, method="gmres", tol=TOL, device=dev, maxiter=1)
+        solve_with_ilu(a, b, k=1, method="gmres", device=dev, maxiter=1, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = kernel_events(prof)
@@ -306,33 +563,40 @@ def profile_resolve(a, b, dev):
         n, t = by_name.get(key, (0, 0.0))
         by_name[key] = (n + 1, t + e.time_range.elapsed_us() / 1e6)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
-    say(f"[profile] one restart (cached factor) under torch.profiler: wall {wall:.3f} s, "
-        f"{len(events)} kernels, device busy {busy:.3f} s "
-        f"({100 * busy / wall:.1f}% of wall), {res.iterations} inner steps")
+    say(f"[profile {path}] one restart (cached factor) under torch.profiler: wall {wall:.3f} s,"
+        f" {len(events)} kernels, device busy {busy:.3f} s ({100 * busy / wall:.1f}% of wall)")
     for name, (n, t) in top:
-        say(f"[profile]   {t:.4f} s in {n} launches of {name}")
+        say(f"[profile {path}]   {t:.4f} s in {n} launches of {name}")
 
 
 def phase_card_vs_cpu(dev):
     import numpy as np
 
-    from repro_torch.core.matgen import convection_diffusion_2d, poisson_2d
     from repro_torch.core.solvers import solve_with_ilu
 
-    for name, a in (("poisson_2d(64)", poisson_2d(64)),
-                    ("convection_diffusion_2d(32)", convection_diffusion_2d(32))):
+    tols = np.array([1e-5, 1e-4, 1e-3], np.float32)
+    for name in SMALL:
+        a = small_matrix(name)
         b = np.random.default_rng(SEED + 2).standard_normal(a.n).astype(np.float32)
-        gpu, _ = solve_with_ilu(a, b, k=1, tol=TOL, device=dev)
-        cpu, _ = solve_with_ilu(a, b, k=1, tol=TOL, device="cpu")
-        same = np.array_equal(gpu.x.view(np.int32), cpu.x.view(np.int32))
-        say(f"[card-vs-cpu] {name}: steps {gpu.iterations} (card) vs {cpu.iterations} (cpu), "
-            f"verdict {gpu.verdict}/{cpu.verdict}, x bitwise equal: {same}")
-        require(same and gpu.iterations == cpu.iterations and gpu.verdict == cpu.verdict,
-                f"card solve != CPU solve on {name}")
+        bs = np.random.default_rng(SEED + 3).standard_normal((3, a.n)).astype(np.float32)
+        for label, rhs, kw in (("sweep", b, dict(tol=TOL)),
+                               ("inverse", b, dict(tol=TOL, precond_method="inverse")),
+                               ("inverse nb=3, per-lane tol", bs,
+                                dict(tol=tols, precond_method="inverse"))):
+            gpu, _ = solve_with_ilu(a, rhs, k=1, device=dev, **kw)
+            cpu, _ = solve_with_ilu(a, rhs, k=1, device="cpu", **kw)
+            gpu, cpu = (r if isinstance(r, list) else [r] for r in (gpu, cpu))
+            same = all(np.array_equal(g.x.view(np.int32), c.x.view(np.int32))
+                       for g, c in zip(gpu, cpu))
+            say(f"[card-vs-cpu] {name} {label}: steps {[g.iterations for g in gpu]} (card) vs "
+                f"{[c.iterations for c in cpu]} (cpu), verdict {[g.verdict for g in gpu]}/"
+                f"{[c.verdict for c in cpu]}, x bitwise equal: {same}")
+            require(same and [(g.iterations, g.verdict) for g in gpu]
+                    == [(c.iterations, c.verdict) for c in cpu],
+                    f"card solve != CPU solve on {name} {label}")
 
 
-def main():
-    setup()
+def run(oracles):
     import torch
 
     from repro_torch.kernels import build
@@ -353,16 +617,34 @@ def main():
 
     rows = phase_kernels(dev)
     phase_factors(dev)
-    counts = phase_main_path(dev)
+    phase_inverse_oracles(dev, oracles)
+    counts, b, single, single_wall = phase_main_path(dev)
+    inv_counts = phase_main_inverse(dev, b)
+    multi_counts = phase_multi_rhs(dev, b, single, single_wall)
     phase_card_vs_cpu(dev)
 
     for name, r in rows.items():
-        r["launches"] = counts[name]
+        r["launches"] = (inv_counts if name == "inverse_chain" else counts)[name]
+        r["launches_by_path"] = {"main": counts[name], "main-inverse": inv_counts[name],
+                                 "multi-rhs": multi_counts[name]}
     say(json.dumps({"kernels": list(rows.values())}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
     return 0
+
+
+def main():
+    setup()
+    # the sequential inverse oracles of phase 3b are pure Python (about a
+    # minute for convection_diffusion_2d(32) at k=2); two worker processes
+    # run them, the longest first, while the card works through phases 2-3.
+    # They are done before the timed solves of phase 4 start.
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=2, mp_context=ctx) as pool:
+        oracles = {(name, k): pool.submit(inverse_oracle, name, k)
+                   for name in reversed(SMALL) for k in (2, 1, 0)}
+        return run(oracles)
 
 
 if __name__ == "__main__":

@@ -3,6 +3,7 @@
     from repro_torch.core.api import ilu
     fact = ilu(a, k=1)                 # symbolic on the host, numeric on the GPU
     x = fact.solve(b)                  # apply M^{-1} (two triangular sweeps)
+    M = fact.precond("inverse")        # or M^{-1} ~= Z W, the incomplete-inverse chain
 
 The counterpart of ``repro/core/api.py`` for one device. Backends:
 
@@ -33,9 +34,13 @@ from .symbolic import pilu1_symbolic, symbolic_ilu_k
 @dataclasses.dataclass
 class ILUFactorization:
     """A factorization: the pattern and CSR-aligned values on the host, and
-    the device its preconditioner applies on. ``health.shift`` > 0 means
+    the device its preconditioners apply on. ``health.shift`` > 0 means
     ``a``/``vals`` describe the diagonally shifted system the ladder settled
-    on; ``health.degraded`` routes ``precond()`` to the identity."""
+    on; ``health.degraded`` routes ``precond()`` to the identity.
+    ``precond_method`` is how M^{-1} applies by default: ``"sweep"`` (the
+    exact triangular sweeps), ``"inverse"`` (the level-truncated
+    incomplete-inverse SpMV chain) or ``"auto"`` (the sweep, on one
+    device)."""
 
     a: CSRMatrix
     k: int
@@ -45,29 +50,43 @@ class ILUFactorization:
     numeric_seconds: float
     device: torch.device
     health: Optional[FactorHealth] = None
-    # the preconditioner, built once and reused across solves and restarts
-    _precond: object = dataclasses.field(default=None, repr=False, compare=False)
+    precond_method: str = "sweep"
+    # the preconditioners, one per resolved method (or the identity for a
+    # degraded factor), each built once and reused across solves and restarts
+    _preconds: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
 
     def lu_matrices(self):
         return split_lu(self.pattern, self.vals)
 
-    def precond(self):
-        """The cached device-resident M^{-1} apply (``PrecondApply``), or the
-        identity for a degraded factorization."""
-        if self._precond is None:
-            if self.health is not None and self.health.degraded:
-                # sweeping a broken factor would inject NaN into every iterate
-                self._precond = IdentityPrecondApply()
+    def precond(self, method: Optional[str] = None):
+        """The cached device-resident M^{-1} apply: ``PrecondApply`` for the
+        sweep, ``InversePrecondApply`` for the inverse chain, or the
+        identity for a degraded factorization. ``method`` defaults to the
+        factorization's ``precond_method``."""
+        from .inverse import resolve_precond_method
+
+        if self.health is not None and self.health.degraded:
+            # sweeping a broken factor would inject NaN into every iterate
+            return self._preconds.setdefault("identity", IdentityPrecondApply())
+        method = resolve_precond_method(method if method is not None else self.precond_method)
+        if method not in self._preconds:
+            if method == "inverse":
+                from .inverse import InversePrecondApply
+
+                self._preconds[method] = InversePrecondApply(self.pattern, self.vals,
+                                                             self.device)
             else:
                 from .triangular import PrecondApply
 
-                self._precond = PrecondApply(self.pattern, self.vals, self.device)
-        return self._precond
+                self._preconds[method] = PrecondApply(self.pattern, self.vals, self.device)
+        return self._preconds[method]
 
     def solve(self, b: np.ndarray) -> np.ndarray:
-        """Apply the preconditioner to an (n,) host vector: L y = b, U x = y."""
-        bt = torch.as_tensor(np.asarray(b, np.float32)).to(self.device)
-        return self.precond()(bt.contiguous()).cpu().numpy()
+        """Apply the default preconditioner to an (n,) or (nb, n) host
+        array (for the sweep: L y = b, U x = y)."""
+        bt = torch.as_tensor(np.asarray(b, np.float32)).to(self.device).contiguous()
+        apply = self.precond()
+        return (apply.batched(bt) if bt.ndim == 2 else apply(bt)).cpu().numpy()
 
     @property
     def nnz(self) -> int:
@@ -89,13 +108,15 @@ def ilu(
     pivot_tol: Optional[float] = None,
     shift0: Optional[float] = None,
     max_shifts: Optional[int] = None,
+    precond_method: str = "sweep",
     device=None,
 ) -> ILUFactorization:
     """ILU(k) of ``a``. ``on_breakdown`` (``"raise"|"shift"|"fallback"|
     "ignore"``) is the pivot-guard policy of :mod:`repro_torch.core.guard`:
     the audit is a pure read, so a healthy factorization is bitwise
     unaffected; when the ladder engages, the returned ``a``/``vals``
-    describe the shifted system."""
+    describe the shifted system. ``precond_method`` is the factorization's
+    default apply (see :class:`ILUFactorization`)."""
     if backend not in ("torch", "oracle"):
         raise ValueError(f"unknown backend {backend!r}: expected 'torch' or 'oracle'")
     dev = resolve_device(device)
@@ -118,7 +139,7 @@ def ilu(
     t2 = time.perf_counter()
     return ILUFactorization(
         a=sysmat, k=k, pattern=pattern, vals=vals, symbolic_seconds=t1 - t0,
-        numeric_seconds=t2 - t1, device=dev, health=health)
+        numeric_seconds=t2 - t1, device=dev, health=health, precond_method=precond_method)
 
 
 def factorization_from_arrays(a: CSRMatrix, k: int, indptr, indices, levels, diag_ptr,

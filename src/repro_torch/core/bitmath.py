@@ -44,16 +44,28 @@ def bitdot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return pairwise_sum(x * y)
 
 
+def bitsqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root on every device.
+
+    PyTorch's float32 ``sqrt`` on the CPU is not correctly rounded (a few
+    inputs in a thousand come out 1 ulp off), while the GPU's is. The
+    float64 root rounded to float32 is correctly rounded on both, since
+    53 >= 2*24 + 2 bits make the double rounding innocuous."""
+    return torch.sqrt(x.double()).float()
+
+
 def bitnorm(x: torch.Tensor) -> torch.Tensor:
     """Bit-reproducible 2-norm over the trailing axis."""
-    return torch.sqrt(bitdot(x, x))
+    return bitsqrt(bitdot(x, x))
 
 
 def masked_lane_sum(cols: torch.Tensor, vals: torch.Tensor, gathered: torch.Tensor,
                     limit) -> torch.Tensor:
     """Sum ``vals * gathered`` over the trailing lane axis where ``cols < limit``.
 
-    ``cols``/``vals``/``gathered`` share shape ``(..., W)``; returns ``(...,)``.
+    ``cols``/``vals``/``gathered`` have shape ``(..., W)`` or broadcast to it
+    (a batch of right-hand sides adds leading axes to ``gathered`` only);
+    returns ``(...,)``.
     The accumulator starts at +0.0 and adds one rounded product per lane, in
     lane order. The JAX reference scans rows wider than 16 lanes in 16-lane
     chunks to bound its graph size, with masked pad lanes; the order of the
@@ -61,7 +73,8 @@ def masked_lane_sum(cols: torch.Tensor, vals: torch.Tensor, gathered: torch.Tens
     leaves any accumulator that started at +0.0 unchanged. So the plain
     lane loop here gives the same bits at every width.
     """
-    acc = torch.zeros(cols.shape[:-1], dtype=vals.dtype, device=vals.device)
+    shape = torch.broadcast_shapes(cols.shape, vals.shape, gathered.shape)
+    acc = torch.zeros(shape[:-1], dtype=vals.dtype, device=vals.device)
     for lane in range(cols.shape[-1]):
         prod = vals[..., lane] * gathered[..., lane]
         acc = acc + torch.where(cols[..., lane] < limit, prod, 0.0)

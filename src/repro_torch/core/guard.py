@@ -113,14 +113,20 @@ class BreakdownError(RuntimeError):
 class IdentityPrecondApply:
     """The last rung of the fallback chain: M⁻¹ = I.
 
-    Matches the ``PrecondApply`` surface the solver consumes (a callable),
-    so a degraded factorization drops into the solve unchanged.
-    Identity-preconditioned GMRES through this object is bitwise identical
-    to ``precond=None`` — both apply the same no-op.
+    Matches the ``PrecondApply`` surface the solver consumes (a callable
+    on (n,) or (nb, n), and ``batched``), so a degraded factorization drops
+    into the solve unchanged. Identity-preconditioned GMRES through this
+    object is bitwise identical to ``precond=None`` — both apply the same
+    no-op.
     """
 
     def __call__(self, x):
         return x
+
+    def batched(self, xs):
+        if xs.ndim != 2:
+            raise ValueError(f"batched expects (nb, n), got shape {tuple(xs.shape)}")
+        return xs
 
 
 # --------------------------------------------------------------------------

@@ -1,11 +1,15 @@
 """Preconditioned restarted GMRES(m) in eager PyTorch.
 
 The port's counterpart of the GMRES path of ``repro/core/solvers.py``:
-``_gmres_core`` translated operation by operation. The matvec is the
-``spmv_ell`` kernel (:func:`repro_torch.kernels.ops.spmv_ell`) and the
-preconditioner the factorization's :class:`~repro_torch.core.triangular.
-PrecondApply` (the ``tri_solve_wavefront`` kernel); on the CPU both run
-their plain PyTorch versions.
+``_gmres_core`` translated operation by operation, over a leading axis of
+right-hand sides (``gmres`` is the one-lane case, ``gmres_batched`` the
+reference's ``vmap``). The matvec is the ``spmv_ell`` kernel
+(:func:`repro_torch.kernels.ops.spmv_ell`) and the preconditioner the
+factorization's :class:`~repro_torch.core.triangular.PrecondApply` (the
+``tri_solve_wavefront`` kernel) or
+:class:`~repro_torch.core.inverse.InversePrecondApply` (the
+``inverse_chain`` kernel); on the CPU all run their plain PyTorch
+versions.
 
 Arithmetic contract (the one the JAX reference states):
 
@@ -16,7 +20,9 @@ Arithmetic contract (the one the JAX reference states):
   multiply (no ``addcmul``, ``lerp`` or ``add(..., alpha=)`` anywhere);
 * every tensor is float32, every constant a float32 tensor on the solve's
   device. A division never has a Python number as its divisor: PyTorch's
-  CUDA division by a host scalar multiplies by the reciprocal instead.
+  CUDA division by a host scalar multiplies by the reciprocal instead;
+* every square root is :func:`~repro_torch.core.bitmath.bitsqrt`, because
+  PyTorch's float32 ``sqrt`` on the CPU is not correctly rounded.
 
 So the same solve gives the same bits on the CPU and on the GPU. Against
 the JAX reference the iteration counts and verdicts agree, and ``x`` agrees
@@ -25,20 +31,21 @@ to a tolerance only: jax 0.9 on the CPU contracts the reference's own
 no longer stops XLA from doing so), so it is the reference that leaves the
 rounded-product contract there.
 
-The Arnoldi loop never waits for the device. The restart loop reads the
-verdict on the host once per restart (at most ``maxiter`` times).
+The Arnoldi loop never waits for the device. The restart loop reads "is
+any lane still running" on the host once per restart (at most ``maxiter``
+times).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, List
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import ops
 
-from .bitmath import barred, bitdot, bitnorm
+from .bitmath import barred, bitdot, bitnorm, bitsqrt
 from .device import resolve_device
 from .planner import COL_SENTINEL
 
@@ -125,10 +132,9 @@ def _init_verdict(bnorm, tolb):
 
 
 def _classify(it, rnorm, stall, bnorm, tolb, window, div_factor, maxiter):
-    """Post-restart verdict. Later writes win, so the priority (low→high) is
-    maxiter < stagnated < diverged < converged < breakdown."""
-    v = torch.full((), VERDICT_MAXITER if it >= maxiter else VERDICT_RUNNING,
-                   dtype=torch.int64, device=rnorm.device)
+    """Post-restart verdict per lane. Later writes win, so the priority
+    (low→high) is maxiter < stagnated < diverged < converged < breakdown."""
+    v = torch.where(it >= maxiter, VERDICT_MAXITER, VERDICT_RUNNING)
     v = torch.where(stall >= window, VERDICT_STAGNATED, v)
     v = torch.where(rnorm > div_factor * torch.clamp_min(bnorm, 1e-30), VERDICT_DIVERGED, v)
     v = torch.where(rnorm <= tolb, VERDICT_CONVERGED, v)
@@ -136,132 +142,187 @@ def _classify(it, rnorm, stall, bnorm, tolb, window, div_factor, maxiter):
     return v
 
 
-def _gmres_core(matvec, M, b, m, tol, maxiter):
-    """Right-preconditioned restarted GMRES(m): Arnoldi with modified
-    Gram-Schmidt, a Givens QR of the Hessenberg matrix, and the update from
-    the first ``cnt`` useful columns — a literal translation of the JAX
-    reference, in its order of operations."""
-    dev = b.device
-    n = b.shape[0]
+def _gmres_core(matvec, M, bs, m, tol, maxiter):
+    """Right-preconditioned restarted GMRES(m) over a leading lane axis:
+    ``bs`` is (nb, n), ``tol`` an (nb,) float32 tensor. Arnoldi with
+    modified Gram-Schmidt, a Givens QR of the Hessenberg matrix, and the
+    update from each lane's first ``cnt`` useful columns — a literal
+    translation of the JAX reference, in its order of operations, with its
+    ``vmap`` written out as the lane axis.
+
+    Every operation is elementwise across lanes or reduces within a lane,
+    so a lane's bits equal the same solve run alone. As in the reference,
+    a lane whose verdict is no longer ``running`` is frozen: the restart
+    still computes it, and ``torch.where(active, new, old)`` keeps its old
+    state, iteration counts and history."""
+    dev = bs.device
+    nb, n = bs.shape
     tiny = torch.tensor(1e-30, dtype=_F32, device=dev)
     ks = torch.arange(m, device=dev)
-    bnorm = bitnorm(b)
-    tolb = torch.tensor(tol, dtype=_F32, device=dev) * bnorm
+    bnorm = bitnorm(bs)
+    tolb = tol * bnorm
 
     def inner(x0, r0, beta):
-        V = torch.zeros((m + 1, n), dtype=_F32, device=dev)
-        V[0] = r0 / torch.maximum(beta, tiny)
-        H = torch.zeros((m + 1, m), dtype=_F32, device=dev)
+        V = torch.zeros((m + 1, nb, n), dtype=_F32, device=dev)
+        V[0] = r0 / torch.maximum(beta, tiny)[:, None]
+        H = torch.zeros((nb, m + 1, m), dtype=_F32, device=dev)
         for j in range(m):
             w = matvec(M(V[j]))
-            h = torch.zeros(m + 1, dtype=_F32, device=dev)
+            h = torch.zeros((nb, m + 1), dtype=_F32, device=dev)
             for i in range(m + 1):  # modified Gram-Schmidt over all m+1 rows
                 hij = bitdot(V[i], w) * float(i <= j)
-                w = w - barred(hij * V[i])
-                h[i] = hij
+                w = w - barred(hij[:, None] * V[i])
+                h[:, i] = hij
             hnext = bitnorm(w)
-            V[j + 1] = w / torch.maximum(hnext, tiny)
-            h[j + 1] = hnext
-            H[:, j] = h
+            V[j + 1] = w / torch.maximum(hnext, tiny)[:, None]
+            h[:, j + 1] = hnext
+            H[:, :, j] = h
 
         # Givens QR over Hessenberg columns. The reference runs all m
         # rotations and keeps the old entries where i >= j; running only
         # i < j gives the same bits.
-        g = torch.zeros(m + 1, dtype=_F32, device=dev)
-        g[0] = beta
-        cs = torch.zeros(m, dtype=_F32, device=dev)
-        sn = torch.zeros(m, dtype=_F32, device=dev)
-        r_cols = torch.zeros((m, m), dtype=_F32, device=dev)
-        res_seq = torch.zeros(m, dtype=_F32, device=dev)
+        g = torch.zeros((nb, m + 1), dtype=_F32, device=dev)
+        g[:, 0] = beta
+        cs = torch.zeros((nb, m), dtype=_F32, device=dev)
+        sn = torch.zeros((nb, m), dtype=_F32, device=dev)
+        r_cols = torch.zeros((nb, m, m), dtype=_F32, device=dev)
+        res_seq = torch.zeros((nb, m), dtype=_F32, device=dev)
         for j in range(m):
-            h = H[:, j].clone()
+            h = H[:, :, j].clone()
             for i in range(j):
-                hi = barred(cs[i] * h[i]) + barred(sn[i] * h[i + 1])
-                hi1 = barred(-sn[i] * h[i]) + barred(cs[i] * h[i + 1])
-                h[i] = hi
-                h[i + 1] = hi1
+                hi = barred(cs[:, i] * h[:, i]) + barred(sn[:, i] * h[:, i + 1])
+                hi1 = barred(-sn[:, i] * h[:, i]) + barred(cs[:, i] * h[:, i + 1])
+                h[:, i] = hi
+                h[:, i + 1] = hi1
             dsafe = torch.maximum(
-                torch.sqrt(barred(h[j] * h[j]) + barred(h[j + 1] * h[j + 1])), tiny)
-            c, s = h[j] / dsafe, h[j + 1] / dsafe
-            hj = barred(c * h[j]) + barred(s * h[j + 1])
-            h[j] = hj
-            h[j + 1] = 0.0
-            g_next, g_j = -s * g[j], c * g[j]
-            g[j + 1] = g_next
-            g[j] = g_j
-            cs[j] = c
-            sn[j] = s
-            r_cols[j] = h[:m]
-            res_seq[j] = torch.abs(g[j + 1])
+                bitsqrt(barred(h[:, j] * h[:, j]) + barred(h[:, j + 1] * h[:, j + 1])), tiny)
+            c, s = h[:, j] / dsafe, h[:, j + 1] / dsafe
+            hj = barred(c * h[:, j]) + barred(s * h[:, j + 1])
+            h[:, j] = hj
+            h[:, j + 1] = 0.0
+            g_next, g_j = -s * g[:, j], c * g[:, j]
+            g[:, j + 1] = g_next
+            g[:, j] = g_j
+            cs[:, j] = c
+            sn[:, j] = s
+            r_cols[:, j] = h[:, :m]
+            res_seq[:, j] = torch.abs(g[:, j + 1])
 
         # useful steps: up to and including the first step that cleared the
         # tolerance (m when none did); the masked tail contributes nothing
-        cnt = torch.where(res_seq <= tolb, ks + 1, m).min()
-        kmask = ks < cnt
-        R = r_cols.T * kmask  # zero masked columns; masked rows get unit diag
-        g_eff = torch.where(kmask, g[:m], 0.0)
-        y = torch.zeros(m, dtype=_F32, device=dev)
+        cnt = torch.where(res_seq <= tolb[:, None], ks + 1, m).min(dim=1).values
+        kmask = ks < cnt[:, None]
+        R = r_cols.transpose(1, 2) * kmask[:, None, :]  # zero masked columns
+        g_eff = torch.where(kmask, g[:, :m], 0.0)
+        y = torch.zeros((nb, m), dtype=_F32, device=dev)
         for jj in range(m):
             j = m - 1 - jj
-            rj = R[j] * (ks > j)
-            num = g_eff[j] - bitdot(rj, y)
-            den = torch.where(kmask[j], R[j, j], 1.0)
-            y[j] = num / den
+            rj = R[:, j] * (ks > j)
+            num = g_eff[:, j] - bitdot(rj, y)
+            den = torch.where(kmask[:, j], R[:, j, j], 1.0)  # masked rows: unit diag
+            y[:, j] = num / den
 
         # u = V[:m].T @ y as a fixed-order sequential combination
         u = torch.zeros_like(r0)
         for j in range(m):
-            u = u + barred(y[j] * V[j])
+            u = u + barred(y[:, j, None] * V[j])
         return x0 + M(u), cnt
 
-    x = torch.zeros_like(b)
-    r = b
-    it = 0
+    x = torch.zeros_like(bs)
+    r = bs
+    it = torch.zeros(nb, dtype=torch.int64, device=dev)
     res = bnorm
-    tot = torch.zeros((), dtype=torch.int64, device=dev)
-    stall = torch.zeros((), dtype=torch.int64, device=dev)
+    tot = torch.zeros(nb, dtype=torch.int64, device=dev)
+    stall = torch.zeros(nb, dtype=torch.int64, device=dev)
     hist = []
     verdict = _init_verdict(bnorm, tolb)
-    while int(verdict) == VERDICT_RUNNING:  # the one host read per restart
+    while bool((verdict == VERDICT_RUNNING).any()):  # the one host read per restart
+        active = verdict == VERDICT_RUNNING
         x2, cnt = inner(x, r, res)
-        r2 = b - matvec(x2)
+        r2 = bs - matvec(x2)
         rtrue = bitnorm(r2)
-        stall = torch.where(rtrue < (1.0 - _STAG_EPS) * res, 0, stall + 1)
-        verdict = _classify(it + 1, rtrue, stall, bnorm, tolb,
-                            _GMRES_STALL_WINDOW, _GMRES_DIV_FACTOR, maxiter)
-        x, r, it, res, tot = x2, r2, it + 1, rtrue, tot + cnt
+        stall2 = torch.where(rtrue < (1.0 - _STAG_EPS) * res, 0, stall + 1)
+        v2 = _classify(it + 1, rtrue, stall2, bnorm, tolb,
+                       _GMRES_STALL_WINDOW, _GMRES_DIV_FACTOR, maxiter)
+        # a lane is active in a prefix of the restarts, so its history is
+        # the first `it` entries of this list
         hist.append(rtrue)
+        x = torch.where(active[:, None], x2, x)
+        r = torch.where(active[:, None], r2, r)
+        it = torch.where(active, it + 1, it)
+        res = torch.where(active, rtrue, res)
+        tot = torch.where(active, tot + cnt, tot)
+        stall = torch.where(active, stall2, stall)
+        verdict = torch.where(active, v2, verdict)
     # a non-finite ‖b‖ must surface as a non-finite relative residual
     rel = torch.where(bnorm > 0, res / torch.maximum(bnorm, tiny),
                       torch.where(torch.isfinite(bnorm), 0.0, float("nan")))
-    hist = torch.stack(hist) if hist else torch.zeros(0, dtype=_F32, device=dev)
+    hist = (torch.stack(hist, dim=1) if hist
+            else torch.zeros((nb, 0), dtype=_F32, device=dev))
     return x, rel, it, tot, hist, bnorm, verdict
+
+
+def _lane_tols(tol, nb: int) -> np.ndarray:
+    """``tol`` (a scalar or an (nb,) array) as an (nb,) float32 array."""
+    tols = np.asarray(tol, np.float32)
+    if tols.ndim == 0:
+        return np.full(nb, tols, np.float32)
+    if tols.shape != (nb,):
+        raise ValueError(f"gmres_batched: per-lane tol must have shape ({nb},) "
+                         f"matching the batch, got {tols.shape}")
+    return tols
+
+
+def _run(matvec, precond, bs, restart, tol, maxiter):
+    """The GMRES core on (nb, n) ``bs`` and per-lane ``tol``, its outputs
+    moved to the host once."""
+    tol_t = torch.as_tensor(tol).to(bs.device)
+    out = _gmres_core(matvec, precond or _identity, bs, m=restart, tol=tol_t, maxiter=maxiter)
+    return [t.cpu().numpy() for t in out]
+
+
+def _result(x, rel, it, tot, hist, bnorm, verdict, tol):
+    rel = float(rel)
+    history = hist[:int(it)] / max(float(bnorm), 1e-30)
+    return SolveResult(x, int(tot), rel, rel <= tol * 1.01, history,
+                       verdict=VERDICTS[int(verdict)])
 
 
 def gmres(matvec, b: torch.Tensor, precond=None, restart=30, tol=1e-5, maxiter=20):
     """maxiter counts *outer* restarts. Solves A (M^{-1} u) = b, x = M^{-1} u,
     on ``b``'s device. ``iterations`` reports the inner (Arnoldi) steps that
     did work; ``history`` holds the true relative residual after each
-    restart."""
-    M = precond or _identity
+    restart. The one-lane case of :func:`gmres_batched`'s core."""
     if not isinstance(b, torch.Tensor) or b.dtype != _F32 or b.ndim != 1:
         raise TypeError("gmres expects b as a 1-D float32 tensor")
-    x, rel, it, tot, hist, bnorm, verdict = _gmres_core(
-        matvec, M, b, m=restart, tol=tol, maxiter=maxiter)
-    rel = float(rel)
-    bn = float(bnorm)
-    history = hist.cpu().numpy()[:it] / max(bn, 1e-30)
-    return SolveResult(x.cpu().numpy(), int(tot), rel, rel <= tol * 1.01, history,
-                       verdict=VERDICTS[int(verdict)])
+    out = _run(matvec, precond, b[None], restart, _lane_tols(tol, 1), maxiter)
+    return _result(*(o[0] for o in out), tol)
 
 
-def _annotate_report(res, fact):
+def gmres_batched(matvec, bs: torch.Tensor, precond=None, restart=30, tol=1e-5,
+                  maxiter=20) -> List[SolveResult]:
+    """GMRES over an (nb, n) stack of right-hand sides, one result per lane.
+
+    Every lane shares the matvec and preconditioner, and each restart
+    launches their kernels once for the whole stack. A lane's iterate
+    arithmetic, iterations and history equal the same solve run alone with
+    :func:`gmres`. ``tol`` may be a scalar or a per-lane (nb,) array: it
+    feeds only ``tol·‖b‖`` and the stopping comparisons."""
+    if not isinstance(bs, torch.Tensor) or bs.dtype != _F32 or bs.ndim != 2:
+        raise ValueError("gmres_batched expects bs as an (nb, n) float32 tensor")
+    tols = _lane_tols(tol, bs.shape[0])
+    out = _run(matvec, precond, bs.contiguous(), restart, tols, maxiter)
+    return [_result(*(o[i] for o in out), float(tols[i])) for i in range(bs.shape[0])]
+
+
+def _annotate_reports(res, fact):
     """Copy the factorization's ladder outcome (shift α, degraded flag) onto
-    the SolveReport."""
+    each result's SolveReport."""
     health = getattr(fact, "health", None)
     if health is not None and (health.shift != 0.0 or health.degraded):
-        res.report.shift = health.shift
-        res.report.degraded = health.degraded
+        for r in res if isinstance(res, list) else (res,):
+            r.report.shift = health.shift
+            r.report.degraded = health.degraded
     return res
 
 
@@ -271,13 +332,19 @@ SOLVE_CACHE_KEY = "_torch_solve_cache"
 
 
 def solve_with_ilu(a, b, k=1, method="gmres", backend="torch", tol=1e-5,
-                   on_breakdown="raise", pivot_tol=None, device=None, **kw):
+                   precond_method=None, on_breakdown="raise", pivot_tol=None, device=None,
+                   **kw):
     """End-to-end: factorize with ILU(k), then solve. Returns
-    ``(SolveResult, fact)``.
+    ``(SolveResult, fact)``, or ``(list of SolveResult, fact)`` for an
+    (nb, n) ``b``, which goes to :func:`gmres_batched` (``tol`` may then be
+    an (nb,) array).
 
-    ``device=None`` means CUDA, and raises when no GPU is present;
-    ``device="cpu"`` runs the plain PyTorch version of every kernel. The
-    SpMV arrays, the matvec and the factorization are cached on the matrix
+    ``precond_method`` (``"sweep"|"inverse"|"auto"``; None defers to the
+    factorization's own) picks how M^{-1} applies: the triangular sweeps or
+    the incomplete-inverse SpMV chain. ``device=None`` means CUDA, and
+    raises when no GPU is present; ``device="cpu"`` runs the plain PyTorch
+    version of every kernel. The SpMV arrays, the matvec and the
+    factorization (with its preconditioners) are cached on the matrix
     object per device, so repeated solves reuse them. ``**kw`` goes to
     :func:`gmres` (``restart``, ``maxiter``).
     """
@@ -302,9 +369,12 @@ def solve_with_ilu(a, b, k=1, method="gmres", backend="torch", tol=1e-5,
             cache[f_key] = ilu(a, k, backend=backend, on_breakdown=on_breakdown,
                                pivot_tol=pivot_tol, device=dev)
         fact = cache[f_key]
-        precond = fact.precond()
+        precond = fact.precond(method=precond_method)
     b = torch.as_tensor(b, dtype=_F32).to(dev)
-    if b.ndim != 1:
-        raise NotImplementedError("only a single right-hand side of shape (n,) is ported so far")
-    res = gmres(matvec, b.contiguous(), precond, tol=tol, **kw)
-    return _annotate_report(res, fact), fact
+    if b.ndim == 2:
+        res = gmres_batched(matvec, b, precond, tol=tol, **kw)
+    elif b.ndim == 1:
+        res = gmres(matvec, b.contiguous(), precond, tol=tol, **kw)
+    else:
+        raise ValueError(f"solve_with_ilu expects b of shape (n,) or (nb, n), got {tuple(b.shape)}")
+    return _annotate_reports(res, fact), fact

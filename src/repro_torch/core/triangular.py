@@ -159,14 +159,14 @@ def build_triangular_plan(pattern: ILUPattern, vals: np.ndarray) -> TriangularPl
     )
 
 
-
 class PrecondApply:
-    """Device-resident application of M^{-1} = (LU)^{-1} for one right-hand
-    side.
+    """Device-resident application of M^{-1} = (LU)^{-1}.
 
     Builds the triangular plan once (vectorized host planning), keeps the
     level-major arrays on ``device``, and applies the fused L-then-U sweep.
-    ``__call__`` takes an (n,) float32 tensor on that device.
+    ``__call__`` takes an (n,) or (nb, n) float32 tensor on that device;
+    ``batched`` requires (nb, n). Row i of a batch equals the single apply
+    of row i bitwise.
     """
 
     def __init__(self, pattern: ILUPattern, vals: np.ndarray, device,
@@ -181,3 +181,8 @@ class PrecondApply:
         return ops.tri_solve_wavefront(*self._dev, b)
 
     apply = __call__
+
+    def batched(self, bs: torch.Tensor) -> torch.Tensor:
+        if bs.ndim != 2:
+            raise ValueError(f"batched expects (nb, n), got shape {tuple(bs.shape)}")
+        return self(bs)

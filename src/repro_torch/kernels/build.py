@@ -30,16 +30,18 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
-SOURCES = ("spmv_ell.cu", "factor_wavefront.cu", "tri_solve_wavefront.cu")
+SOURCES = ("spmv_ell.cu", "factor_wavefront.cu", "tri_solve_wavefront.cu",
+           "inverse_chain.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "librepro_torch_kernels.so"
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "spmv_ell_launch": [_P] * 4 + [_I] * 2 + [_P],
+    "spmv_ell_launch": [_P] * 4 + [_I] * 3 + [_P],
     "factor_wavefront_launch": [_P] * 7 + [_I] * 4 + [_P],
-    "tri_solve_wavefront_launch": [_P] * 12 + [_I] * 7 + [_P],
+    "tri_solve_wavefront_launch": [_P] * 12 + [_I] * 8 + [_P],
+    "inverse_chain_launch": [_P] * 7 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()

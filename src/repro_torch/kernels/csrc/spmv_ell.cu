@@ -1,7 +1,8 @@
 // y = A x over sentinel-padded ELL rows, for Hopper (sm_90a).
 //
 // Replaces the Pallas kernel `spmv_ell` in src/repro/kernels/spmv_ell.py
-// (the GMRES matvec of the single-device solve).
+// (the GMRES matvec of the single-device solve), in its single form and
+// in the (nb, n) form of the batched solve.
 //
 // Arithmetic: lane-ordered accumulation from +0.0, one __fmul_rn product
 // rounded before each __fadd_rn add, exactly as masked_lane_sum in the
@@ -15,7 +16,9 @@
 // warp streams 32 consecutive rows; x (640 KB at the main size) stays in L2
 // for the gathers. Rows are stored row-major, so a warp's lane-q loads are
 // strided by W; a column-major copy of the ELL arrays would coalesce them
-// and is later work.
+// and is later work. A batch of nb right-hand sides is the grid's second
+// dimension: lane blockIdx.y reads x + lane*n and writes y + lane*n with
+// the same per-row loop, so a row's bits do not depend on nb.
 #include <cuda_runtime.h>
 
 #define COL_SENTINEL (1 << 30)
@@ -24,6 +27,9 @@ __global__ void spmv_ell_kernel(const int* cols, const float* vals, const float*
                                 float* y, int n, int w) {
   int row = blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= n) return;
+  const size_t lane = blockIdx.y;
+  x += lane * n;
+  y += lane * n;
   const int* c = cols + (size_t)row * w;
   const float* v = vals + (size_t)row * w;
   float acc = 0.0f;
@@ -38,10 +44,10 @@ __global__ void spmv_ell_kernel(const int* cols, const float* vals, const float*
 }
 
 extern "C" int spmv_ell_launch(const void* cols, const void* vals, const void* x, void* y,
-                               int n, int w, void* stream) {
+                               int n, int w, int nb, void* stream) {
   const int threads = 256;
-  const int blocks = (n + threads - 1) / threads;
-  spmv_ell_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  const dim3 grid((n + threads - 1) / threads, nb);
+  spmv_ell_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
       (const int*)cols, (const float*)vals, (const float*)x, (float*)y, n, w);
   return (int)cudaGetLastError();
 }

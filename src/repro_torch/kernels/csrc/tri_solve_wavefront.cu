@@ -24,6 +24,13 @@
 // same block then gathers the output. Multi-block levels with a grid
 // barrier and shared-memory level tiles are later work. The sweep vectors
 // are read with plain loads because the block writes them.
+//
+// Batched form: one block per right-hand side (grid = nb). Block `lane`
+// runs the unchanged level loop on b + lane*n, its own x_l/x_u scratch rows
+// (nb, slots+1, zeroed by the wrapper) and out + lane*n. The blocks share
+// the read-only factor arrays and nothing else, so a lane's bits do not
+// depend on nb; up to 132 lanes run at once on separate SMs, each bound by
+// the same chain.
 #include <cuda_runtime.h>
 
 __global__ void tri_solve_wavefront_kernel(
@@ -32,6 +39,12 @@ __global__ void tri_solve_wavefront_kernel(
     const float* b, float* x_l, float* x_u, float* out, int n, int nl_lev, int maxr_l,
     int wl, int nu_lev, int maxr_u, int wu) {
   const int nl_slots = nl_lev * maxr_l;
+  const int nu_slots = nu_lev * maxr_u;
+  const size_t lane = blockIdx.x;
+  b += lane * n;
+  out += lane * n;
+  x_l += lane * (size_t)(nl_slots + 1);
+  x_u += lane * (size_t)(nu_slots + 1);
   for (int lev = 0; lev < nl_lev; ++lev) {
     for (int r = threadIdx.x; r < maxr_l; r += blockDim.x) {
       size_t s = (size_t)lev * maxr_l + r;
@@ -48,7 +61,6 @@ __global__ void tri_solve_wavefront_kernel(
     }
     __syncthreads();
   }
-  const int nu_slots = nu_lev * maxr_u;
   for (int lev = 0; lev < nu_lev; ++lev) {
     for (int r = threadIdx.x; r < maxr_u; r += blockDim.x) {
       size_t s = (size_t)lev * maxr_u + r;
@@ -71,12 +83,12 @@ extern "C" int tri_solve_wavefront_launch(
     const void* l_cols, const void* l_vals, const void* l_rhs_idx, const void* u_cols,
     const void* u_vals, const void* u_diag, const void* u_rhs_idx, const void* out_perm,
     const void* b, void* x_l, void* x_u, void* out, int n, int nl_lev, int maxr_l, int wl,
-    int nu_lev, int maxr_u, int wu, void* stream) {
+    int nu_lev, int maxr_u, int wu, int nb, void* stream) {
   int widest = maxr_l > maxr_u ? maxr_l : maxr_u;
   int threads = ((widest + 31) / 32) * 32;
   if (threads < 32) threads = 32;
   if (threads > 1024) threads = 1024;
-  tri_solve_wavefront_kernel<<<1, threads, 0, (cudaStream_t)stream>>>(
+  tri_solve_wavefront_kernel<<<nb, threads, 0, (cudaStream_t)stream>>>(
       (const int*)l_cols, (const float*)l_vals, (const int*)l_rhs_idx, (const int*)u_cols,
       (const float*)u_vals, (const float*)u_diag, (const int*)u_rhs_idx,
       (const int*)out_perm, (const float*)b, (float*)x_l, (float*)x_u, (float*)out, n,

@@ -20,6 +20,7 @@ import torch
 from . import ref
 
 _F32, _I32 = torch.float32, torch.int32
+_MAX_GRID_Y = 65535  # CUDA's limit on gridDim.y, the lane axis of the launches
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
@@ -56,20 +57,35 @@ def _launch(fn_name: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{fn_name}: CUDA error {err}: {msg}")
 
 
+def _rhs(name: str, t: torch.Tensor, n: int, device) -> int:
+    """Check a right-hand side of shape (n,) or (nb, n); returns nb (1 for
+    the single form)."""
+    shape = (n,) if t.ndim == 1 else (t.shape[0], n) if t.ndim == 2 else None
+    if shape is None:
+        raise ValueError(f"{name}: expected shape (n,) or (nb, n), got {tuple(t.shape)}")
+    _check(name, t, _F32, shape, device)
+    nb = 1 if t.ndim == 1 else int(t.shape[0])
+    if nb > _MAX_GRID_Y:
+        raise ValueError(f"{name}: at most {_MAX_GRID_Y} right-hand sides, got {nb}")
+    return nb
+
+
 def spmv_ell(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """y = A x for sentinel-padded ELL ``cols``/``vals`` (n, W) and x (n,)."""
+    """y = A x for sentinel-padded ELL ``cols``/``vals`` (n, W) and x of
+    shape (n,) or (nb, n); y has x's shape, and row i of a batch equals the
+    single form's output for ``x[i]`` bitwise."""
     dev = x.device
     n, w = cols.shape
     _check("spmv_ell cols", cols, _I32, (n, w), dev)
     _check("spmv_ell vals", vals, _F32, (n, w), dev)
-    _check("spmv_ell x", x, _F32, (n,), dev)
+    nb = _rhs("spmv_ell x", x, n, dev)
     if not _route(dev):
         return ref.spmv_ell_ref(cols, vals, x)
-    y = torch.empty(n, dtype=_F32, device=dev)
-    if n == 0:
+    y = torch.empty_like(x)
+    if n == 0 or nb == 0:
         return y
     _launch("spmv_ell_launch", dev, cols.data_ptr(), vals.data_ptr(), x.data_ptr(),
-            y.data_ptr(), n, w)
+            y.data_ptr(), n, w, nb)
     spmv_ell.launches += 1
     return y
 
@@ -100,9 +116,10 @@ def factor_wavefront(op_row, op_lane, op_piv, op_dlane, op_dst, dst_flat,
 
 def tri_solve_wavefront(l_cols, l_vals, l_rhs_idx, u_cols, u_vals, u_diag, u_rhs_idx,
                         out_perm, b: torch.Tensor) -> torch.Tensor:
-    """x = (LU)^{-1} b over the level-major arrays of a TriangularPlan."""
+    """x = (LU)^{-1} b over the level-major arrays of a TriangularPlan, for
+    b of shape (n,) or (nb, n); one block per right-hand side."""
     dev = b.device
-    n = b.shape[0]
+    n = out_perm.shape[0]
     nl, ml, wl = l_cols.shape
     nu, mu, wu = u_cols.shape
     _check("tri_solve_wavefront l_cols", l_cols, _I32, (nl, ml, wl), dev)
@@ -113,24 +130,52 @@ def tri_solve_wavefront(l_cols, l_vals, l_rhs_idx, u_cols, u_vals, u_diag, u_rhs
     _check("tri_solve_wavefront u_diag", u_diag, _F32, (nu, mu), dev)
     _check("tri_solve_wavefront u_rhs_idx", u_rhs_idx, _I32, (nu, mu), dev)
     _check("tri_solve_wavefront out_perm", out_perm, _I32, (n,), dev)
-    _check("tri_solve_wavefront b", b, _F32, (n,), dev)
+    nb = _rhs("tri_solve_wavefront b", b, n, dev)
     if not _route(dev):
         return ref.tri_solve_wavefront_ref(l_cols, l_vals, l_rhs_idx, u_cols, u_vals,
                                            u_diag, u_rhs_idx, out_perm, b)
-    x_l = torch.zeros(nl * ml + 1, dtype=_F32, device=dev)  # scratch slot reads 0
-    x_u = torch.zeros(nu * mu + 1, dtype=_F32, device=dev)
-    out = torch.empty(n, dtype=_F32, device=dev)
-    if n == 0:
+    # per right-hand side sweep vectors; the trailing scratch slot reads 0
+    x_l = torch.zeros((nb, nl * ml + 1), dtype=_F32, device=dev)
+    x_u = torch.zeros((nb, nu * mu + 1), dtype=_F32, device=dev)
+    out = torch.empty_like(b)
+    if n == 0 or nb == 0:
         return out
     _launch("tri_solve_wavefront_launch", dev, l_cols.data_ptr(), l_vals.data_ptr(),
             l_rhs_idx.data_ptr(), u_cols.data_ptr(), u_vals.data_ptr(), u_diag.data_ptr(),
             u_rhs_idx.data_ptr(), out_perm.data_ptr(), b.data_ptr(), x_l.data_ptr(),
-            x_u.data_ptr(), out.data_ptr(), n, nl, ml, wl, nu, mu, wu)
+            x_u.data_ptr(), out.data_ptr(), n, nl, ml, wl, nu, mu, wu, nb)
     tri_solve_wavefront.launches += 1
     return out
 
 
-KERNELS = (spmv_ell, factor_wavefront, tri_solve_wavefront)
+def inverse_chain(w_cols: torch.Tensor, w_vals: torch.Tensor, z_cols: torch.Tensor,
+                  z_vals: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x = Z (W b), the incomplete-inverse preconditioner apply, for ELL
+    ``w_cols``/``w_vals`` (n, WI), ``z_cols``/``z_vals`` (n, ZI) and b of
+    shape (n,) or (nb, n). Counted as one launch per call (the kernel runs
+    as two stream-ordered phases)."""
+    dev = b.device
+    n, wi = w_cols.shape
+    zi = z_cols.shape[1]
+    _check("inverse_chain w_cols", w_cols, _I32, (n, wi), dev)
+    _check("inverse_chain w_vals", w_vals, _F32, (n, wi), dev)
+    _check("inverse_chain z_cols", z_cols, _I32, (n, zi), dev)
+    _check("inverse_chain z_vals", z_vals, _F32, (n, zi), dev)
+    nb = _rhs("inverse_chain b", b, n, dev)
+    if not _route(dev):
+        return ref.inverse_chain_ref(w_cols, w_vals, z_cols, z_vals, b)
+    y = torch.empty_like(b)  # W b, read back by the second phase (L2-resident)
+    x = torch.empty_like(b)
+    if n == 0 or nb == 0:
+        return x
+    _launch("inverse_chain_launch", dev, w_cols.data_ptr(), w_vals.data_ptr(),
+            z_cols.data_ptr(), z_vals.data_ptr(), b.data_ptr(), y.data_ptr(), x.data_ptr(),
+            n, wi, zi, nb)
+    inverse_chain.launches += 1
+    return x
+
+
+KERNELS = (spmv_ell, factor_wavefront, tri_solve_wavefront, inverse_chain)
 for _fn in KERNELS:
     _fn.launches = 0
 

@@ -9,7 +9,9 @@ each kernel bitwise against its plain version on the GPU.
 They are translations of the JAX references (``repro.kernels.ref`` and the
 jnp bodies the Pallas kernels share), one eager operation per JAX operation.
 Index arrays are int32, as the kernels take them, and are widened to int64
-only for PyTorch's indexing.
+only for PyTorch's indexing. Right-hand sides may be (n,) or (nb, n): a
+batch runs the same elementwise operations over a leading lane axis, so
+row i of a batched result equals the single form's result for row i.
 """
 from __future__ import annotations
 
@@ -22,9 +24,9 @@ from repro_torch.core.planner import COL_SENTINEL
 def spmv_ell_ref(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """y = A x over sentinel-padded ELL rows, lane-ordered with rounded
     products (``repro.kernels.ref.spmv_ell_ref``)."""
-    n = x.shape[0]
-    xg = torch.cat([x, x.new_zeros(1)])
-    gathered = xg[torch.clamp(cols, max=n).long()]
+    n = x.shape[-1]
+    xg = torch.cat([x, x.new_zeros(x.shape[:-1] + (1,))], dim=-1)
+    gathered = xg[..., torch.clamp(cols, max=n).long()]
     return masked_lane_sum(cols, vals, gathered, int(COL_SENTINEL))
 
 
@@ -76,18 +78,31 @@ def tri_solve_wavefront_ref(l_cols, l_vals, l_rhs_idx, u_cols, u_vals, u_diag,
     nl_slots = nl_lev * maxr_l
     nu_slots = nu_lev * maxr_u
     dev = b.device
-    b_ext = torch.cat([b, b.new_zeros(1)])
-    l_rhs = b_ext[l_rhs_idx.long()]  # (nl_lev, maxr_l); padding reads b_ext[n] = 0
+    lanes = b.shape[:-1]
+    b_ext = torch.cat([b, b.new_zeros(lanes + (1,))], dim=-1)
+    l_rhs = b_ext[..., l_rhs_idx.long()]  # (..., nl_lev, maxr_l); padding reads b_ext[n] = 0
     lc = l_cols.long()
-    x_l = torch.zeros(nl_slots + 1, dtype=torch.float32, device=dev)
+    x_l = torch.zeros(lanes + (nl_slots + 1,), dtype=torch.float32, device=dev)
     for lev in range(nl_lev):
-        acc = masked_lane_sum(lc[lev], l_vals[lev], x_l[lc[lev]], nl_slots)
-        x_l[lev * maxr_l:(lev + 1) * maxr_l] = l_rhs[lev] - acc
+        acc = masked_lane_sum(lc[lev], l_vals[lev], x_l[..., lc[lev]], nl_slots)
+        x_l[..., lev * maxr_l:(lev + 1) * maxr_l] = l_rhs[..., lev, :] - acc
 
-    u_rhs = x_l[u_rhs_idx.long()]  # y gathered from L slot space
+    u_rhs = x_l[..., u_rhs_idx.long()]  # y gathered from L slot space
     uc = u_cols.long()
-    x_u = torch.zeros(nu_slots + 1, dtype=torch.float32, device=dev)
+    x_u = torch.zeros(lanes + (nu_slots + 1,), dtype=torch.float32, device=dev)
     for lev in range(nu_lev):
-        acc = masked_lane_sum(uc[lev], u_vals[lev], x_u[uc[lev]], nu_slots)
-        x_u[lev * maxr_u:(lev + 1) * maxr_u] = (u_rhs[lev] - acc) / u_diag[lev]
-    return x_u[out_perm.long()]
+        acc = masked_lane_sum(uc[lev], u_vals[lev], x_u[..., uc[lev]], nu_slots)
+        x_u[..., lev * maxr_u:(lev + 1) * maxr_u] = (u_rhs[..., lev, :] - acc) / u_diag[lev]
+    return x_u[..., out_perm.long()]
+
+
+def inverse_chain_ref(w_cols: torch.Tensor, w_vals: torch.Tensor, z_cols: torch.Tensor,
+                      z_vals: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x = Z (W b), two lane-ordered ELL products whose gathers read
+    ``min(col, n-1)`` and whose sentinel lanes are masked
+    (``repro.core.inverse.inverse_chain_jnp``)."""
+    n = b.shape[-1]
+    y = masked_lane_sum(w_cols, w_vals, b[..., torch.clamp(w_cols, max=n - 1).long()],
+                        int(COL_SENTINEL))
+    return masked_lane_sum(z_cols, z_vals, y[..., torch.clamp(z_cols, max=n - 1).long()],
+                           int(COL_SENTINEL))

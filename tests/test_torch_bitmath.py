@@ -57,3 +57,15 @@ def test_bitdot_and_bitnorm_bitwise(n):
 def test_barred_is_identity():
     x = torch.randn(5)
     assert tbm.barred(x) is x
+
+
+def test_bitsqrt_is_correctly_rounded():
+    """PyTorch's float32 ``sqrt`` on the CPU can be 1 ulp off (the GPU's is
+    correctly rounded), so the port's roots go through ``bitsqrt``, which
+    must equal the correctly rounded root (numpy's) on every input."""
+    rng = np.random.default_rng(0)
+    n = 1 << 16
+    x = np.abs(rng.standard_normal(n) * np.exp(rng.uniform(-40, 40, n))).astype(np.float32)
+    x[:4] = [0.0, 1.0, np.inf, 2.0**-140]  # zero, one, infinity, a subnormal
+    _bits_equal(tbm.bitsqrt(torch.from_numpy(x)).numpy(), np.sqrt(x))
+    assert tbm.bitsqrt(torch.from_numpy(x)).dtype == torch.float32

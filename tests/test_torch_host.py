@@ -4,6 +4,7 @@ The port keeps its own NumPy copies of the generators and planners (it
 imports nothing of ``repro``), so these tests keep the copies from
 drifting: every array is compared exactly, on matrices made from one seed.
 """
+import dataclasses
 import importlib
 
 import numpy as np
@@ -11,6 +12,8 @@ import pytest
 
 from repro.core import factor_plan as jfp
 from repro.core import guard as jguard
+from repro.core import inverse as jinv
+from repro.core import inverse_ref as jinv_ref
 from repro.core import numeric_ref as jnr
 from repro.core import planner as jplanner
 from repro.core import symbolic as jsym
@@ -18,6 +21,8 @@ from repro.core import triangular as jtri
 from repro.core.solvers import _csr_to_ell_host
 from repro_torch.core import factor_plan as tfp
 from repro_torch.core import guard as tguard
+from repro_torch.core import inverse as tinv
+from repro_torch.core import inverse_ref as tinv_ref
 from repro_torch.core import matgen as tmg
 from repro_torch.core import numeric_ref as tnr
 from repro_torch.core import planner as tplanner
@@ -38,6 +43,9 @@ MATRICES = {
 
 
 def _same(x, y):
+    if isinstance(y, int):  # a scalar field of a plan
+        assert x == y
+        return
     x, y = np.asarray(x), np.asarray(y)
     assert x.dtype == y.dtype and x.shape == y.shape
     if x.dtype.kind == "f":
@@ -132,3 +140,22 @@ def test_guard_audit_and_shift_match():
         assert getattr(th, f) == getattr(jh, f), f
     assert tguard.ladder_alphas() == jguard.ladder_alphas()
     _same(tguard.shifted_matrix(ta, 0.004).data, jguard.shifted_matrix(ja, 0.004).data)
+
+
+@pytest.mark.parametrize("k", [0, 1, 2])
+@pytest.mark.parametrize("name", ["poisson12", "cd10"])
+def test_inverse_plans_and_oracles_match(name, k):
+    ja, ta, jp, tp = _patterns(name, k)
+    jv = jnr.numeric_ilu_ref(ja, jp)
+    for jc, tc in zip(jinv_ref.inverse_pattern_ref(jp), tinv_ref.inverse_pattern_ref(tp)):
+        _same(tc, jc)
+    jplan, tplan = jinv.build_inverse_plan(jp, jv), tinv.build_inverse_plan(tp, jv)
+    for f in dataclasses.fields(tplan):
+        _same(getattr(tplan, f.name), getattr(jplan, f.name))
+    jw, jz = jinv_ref.inverse_values_ref(jp, jv, jplan.w_cols, jplan.z_cols)
+    tw, tz = tinv_ref.inverse_values_ref(tp, jv, tplan.w_cols, tplan.z_cols)
+    _same(tw, jw)
+    _same(tz, jz)
+    b = np.random.default_rng(k).standard_normal((2, ja.n)).astype(np.float32)
+    _same(tinv_ref.inverse_apply_ref(tplan.w_cols, tw, tplan.z_cols, tz, b),
+          jinv_ref.inverse_apply_ref(jplan.w_cols, jw, jplan.z_cols, jz, b))

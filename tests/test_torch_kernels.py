@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from repro.core.factor_plan import build_factor_plan as j_build_factor_plan
+from repro.core.inverse import inverse_chain_jnp
 from repro.core.matgen import convection_diffusion_2d, matgen, poisson_2d
 from repro.core.numeric_jax import factor_wavefront_sweeps_jnp
 from repro.core.numeric_ref import numeric_ilu_ref
@@ -65,6 +66,21 @@ def test_spmv_ell_ref_bitwise_vs_jax(n, w):
     _bits_equal(got.numpy(), jops.spmv_ell(*args, bm=n))  # Pallas, interpret mode
 
 
+@pytest.mark.parametrize("n,wi,zi", [(8, 1, 2), (40, 5, 3), (64, 19, 7)])
+def test_inverse_chain_ref_bitwise_vs_jax(n, wi, zi):
+    w_cols, w_vals, b = _ell(n, wi, seed=n + wi)
+    z_cols, z_vals, _ = _ell(n, zi, seed=n + zi + 1)
+    args = (w_cols, w_vals, z_cols, z_vals)
+    got = ref.inverse_chain_ref(*map(torch.from_numpy, args), torch.from_numpy(b))
+    jargs = [jnp.asarray(v) for v in args]
+    _bits_equal(got.numpy(), inverse_chain_jnp(*jargs, jnp.asarray(b)))
+    _bits_equal(got.numpy(), jops.inverse_chain(*jargs, jnp.asarray(b)))  # Pallas, interpret
+    bs = np.random.default_rng(n).standard_normal((3, n)).astype(np.float32)
+    batched = ref.inverse_chain_ref(*map(torch.from_numpy, args), torch.from_numpy(bs))
+    for i in range(3):
+        _bits_equal(batched[i].numpy(), inverse_chain_jnp(*jargs, jnp.asarray(bs[i])))
+
+
 @pytest.mark.parametrize("name", sorted(FIXTURES))
 def test_factor_wavefront_ref_bitwise_vs_jax(name):
     a, k = FIXTURES[name]()
@@ -108,8 +124,11 @@ def test_wrappers_route_cpu_tensors_to_plain_versions():
                 ref.tri_solve_wavefront_ref(*targs).numpy())
     cols, ev, x = (torch.from_numpy(v) for v in _ell(16, 3, seed=2))
     _bits_equal(ops.spmv_ell(cols, ev, x).numpy(), ref.spmv_ell_ref(cols, ev, x).numpy())
+    zc, zv, _ = (torch.from_numpy(v) for v in _ell(16, 2, seed=3))
+    _bits_equal(ops.inverse_chain(cols, ev, zc, zv, x).numpy(),
+                ref.inverse_chain_ref(cols, ev, zc, zv, x).numpy())
     assert ops.launch_counts() == {"spmv_ell": 0, "factor_wavefront": 0,
-                                   "tri_solve_wavefront": 0}
+                                   "tri_solve_wavefront": 0, "inverse_chain": 0}
 
 
 def test_wrappers_reject_bad_inputs():
@@ -122,6 +141,31 @@ def test_wrappers_reject_bad_inputs():
         ops.spmv_ell(cols.t(), vals.t(), torch.zeros(3))  # not contiguous
     with pytest.raises(ValueError):
         ops.spmv_ell(cols.to("meta"), vals.to("meta"), x.to("meta"))  # no kernel there
+    with pytest.raises(ValueError):
+        ops.spmv_ell(cols, vals, x[None, None])  # neither (n,) nor (nb, n)
+
+
+def test_inverse_chain_rejects_bad_inputs():
+    wc, wv, b = (torch.from_numpy(v) for v in _ell(16, 3, seed=4))
+    zc, zv, _ = (torch.from_numpy(v) for v in _ell(16, 5, seed=5))
+    assert ops.inverse_chain(wc, wv, zc, zv, b).shape == (16,)
+    assert ops.inverse_chain(wc, wv, zc, zv, torch.stack([b, b])).shape == (2, 16)
+    with pytest.raises(TypeError):
+        ops.inverse_chain(wc.long(), wv, zc, zv, b)
+    with pytest.raises(TypeError):
+        ops.inverse_chain(wc, wv, zc, zv, b.double())
+    with pytest.raises(ValueError):
+        ops.inverse_chain(wc, wv, zc, zv[:, :3], b)  # Z cols/vals widths differ
+    with pytest.raises(ValueError):
+        ops.inverse_chain(wc, wv, zc[:8], zv[:8], b)  # Z has other rows than W
+    with pytest.raises(ValueError):
+        ops.inverse_chain(wc, wv, zc, zv, b[:8])
+    with pytest.raises(ValueError):
+        ops.inverse_chain(wc, wv, zc, zv, torch.zeros((2, 8)))
+    with pytest.raises(ValueError):
+        ops.inverse_chain(wc, wv, zc, zv, torch.zeros((2, 16)).t().contiguous().t())
+    with pytest.raises(ValueError):
+        ops.inverse_chain(*(t.to("meta") for t in (wc, wv, zc, zv, b)))
 
 
 @pytest.fixture
@@ -155,3 +199,38 @@ def test_cuda_kernels_bitwise_vs_plain(name, cuda_device):
     cols, vals, x = (torch.from_numpy(v) for v in _ell(a.n, 7, seed=a.n))
     got = ops.spmv_ell(cols.to(cuda_device), vals.to(cuda_device), x.to(cuda_device))
     _bits_equal(got.cpu().numpy(), ref.spmv_ell_ref(cols, vals, x).numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(FIXTURES))
+def test_cuda_batched_forms_and_inverse_chain_bitwise_vs_plain(name, cuda_device):
+    a, k = FIXTURES[name]()
+    pattern = _pattern(a, k)
+    bs = torch.from_numpy(np.random.default_rng(6).standard_normal((4, a.n)).astype(np.float32))
+    on = bs.to(cuda_device)
+
+    tplan = j_build_triangular_plan(pattern, numeric_ilu_ref(a, pattern))
+    targs = [torch.from_numpy(np.ascontiguousarray(getattr(tplan, f))) for f in SWEEP_FIELDS]
+    dargs = [t.to(cuda_device) for t in targs]
+    got = ops.tri_solve_wavefront(*dargs, on).cpu()
+    _bits_equal(got.numpy(), ref.tri_solve_wavefront_ref(*targs, bs).numpy())
+    for i in range(4):
+        _bits_equal(got[i].numpy(), ops.tri_solve_wavefront(*dargs, on[i]).cpu().numpy())
+
+    cols, vals, _ = (torch.from_numpy(v) for v in _ell(a.n, 7, seed=a.n))
+    got = ops.spmv_ell(cols.to(cuda_device), vals.to(cuda_device), on).cpu()
+    _bits_equal(got.numpy(), ref.spmv_ell_ref(cols, vals, bs).numpy())
+    for i in range(4):
+        _bits_equal(got[i].numpy(), ops.spmv_ell(cols.to(cuda_device), vals.to(cuda_device),
+                                                 on[i]).cpu().numpy())
+
+    zc, zv, _ = (torch.from_numpy(v) for v in _ell(a.n, 5, seed=a.n + 1))
+    iargs = (cols, vals, zc, zv)
+    dargs = [t.to(cuda_device) for t in iargs]
+    before = ops.inverse_chain.launches
+    single = ops.inverse_chain(*dargs, on[0]).cpu()
+    assert ops.inverse_chain.launches == before + 1
+    _bits_equal(single.numpy(), ref.inverse_chain_ref(*iargs, bs[0]).numpy())
+    got = ops.inverse_chain(*dargs, on).cpu()
+    _bits_equal(got.numpy(), ref.inverse_chain_ref(*iargs, bs).numpy())
+    _bits_equal(got[0].numpy(), single.numpy())

@@ -103,7 +103,7 @@ def test_solve_with_ilu_matches_jax(name):
     again, _ = solve_with_ilu(ta, b, k=k, tol=tol, device="cpu")  # cached matvec + factor
     _bits_equal(again.x, tr.x)
     assert ops.launch_counts() == {"spmv_ell": 0, "factor_wavefront": 0,
-                                   "tri_solve_wavefront": 0}
+                                   "tri_solve_wavefront": 0, "inverse_chain": 0}
 
 
 @pytest.mark.reference_fault
