@@ -39,6 +39,19 @@ with a non-zero exit; nothing is caught):
    versions) give the same ``x`` bitwise and the same iteration counts, on
    ``poisson_2d(64)`` and ``convection_diffusion_2d(32)``: the sweep, the
    inverse chain, and a batch of three with per-lane tolerances.
+8. bilu — Block-ILU(1) of ``poisson_2d(400)`` at bs = 128 and at bs = 32
+   (``repro_torch.core.bilu.bilu``): the host plan and numeric walls, and
+   the numeric phase once more under torch.profiler (device busy share);
+   the launches of the four tile kernels equal the counts reckoned here from
+   the tile pattern; the tile-wise LU residual, in float64 on the card over
+   every kept tile, is <= 1e-4·max|A|; every scalar ILU(1) position lies in
+   a kept tile. On ``poisson_2d(64)`` the card's tiles agree with the CPU's
+   to 1e-4·max|A|. (The tile kernels themselves are held against their
+   plain versions at bs = 128 in phase 2, the ``[tiles]`` lines.)
+9. cg — ``solve_with_ilu(poisson_2d(400), b, k=1, method="cg")``: at
+   tol=1e-5 it must converge (the float64 true residual is printed), and
+   at tol=1e-4 the float64 true residual must be <= 2·tol; on
+   ``poisson_2d(64)`` the card's CG equals the CPU's bitwise.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a GPU, or without
@@ -59,6 +72,9 @@ SEED = 0
 TOL = 1e-5
 INV_TOL = 1e-4  # the inverse method's float32 floor on poisson_2d(400) is just above 1e-5
 NB = 4  # right-hand sides of the batched kernel checks and the multi-RHS solve
+BS_TILE = 128  # the Block-ILU tile of the module's docstring; also bs = 32, bilu's default
+CG_TOL = 1e-4  # float32 CG's recursive residual drifts from the true one at 1e-5 here
+TILE_KERNELS = ("panel_update", "trsm_right_upper", "trsm_left_unit_lower", "tile_lu")
 SRC = Path(__file__).resolve().parent / "src"
 SMALL = ("poisson_2d(64)", "convection_diffusion_2d(32)")
 
@@ -596,6 +612,308 @@ def phase_card_vs_cpu(dev):
                     f"card solve != CPU solve on {name} {label}")
 
 
+def dominant_tile(rng, bs):
+    import numpy as np
+
+    t = rng.standard_normal((bs, bs)).astype(np.float32)
+    return t + np.diag(np.abs(t).sum(1) + 1).astype(np.float32)
+
+
+def phase_tile_kernels(dev, bs=BS_TILE):
+    """[tiles]: the four dense-tile kernels of Block-ILU(k) at the path's
+    (bs, bs) shapes against their plain versions on the card (bitwise, but
+    the panel product, which is held to 2·K·2^-24·(|C| + |A||B|) of a float64
+    product), each at ragged shapes too; then their times beside the bound
+    and a PyTorch yardstick (cuBLAS, cuSOLVER), timed and never used."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain product and addmm in float32
+    rng = np.random.default_rng(SEED + 5)
+    on = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    t = on(dominant_tile(rng, bs))
+    a, b, c = (on(rng.standard_normal((bs, bs)).astype(np.float32)) for _ in range(3))
+
+    packed = ops.tile_lu(t)
+    require(bits_equal(packed, ref.tile_lu_nopiv_ref(t)), "tile_lu kernel != plain version")
+    for m in (bs, 3 * bs + 5):
+        p = on(rng.standard_normal((m, bs)).astype(np.float32))
+        require(bits_equal(ops.trsm_right_upper(p, packed), ref.trsm_right_upper_ref(p, packed)),
+                f"trsm_right_upper kernel != plain version at M={m}")
+        q = p.t().contiguous()
+        require(bits_equal(ops.trsm_left_unit_lower(packed, q),
+                           ref.trsm_left_unit_lower_ref(packed, q)),
+                f"trsm_left_unit_lower kernel != plain version at N={m}")
+    for m, n, k in ((bs, bs, bs), (96, 40, 72), (3 * bs + 5, bs - 3, 2 * bs + 1)):
+        pa, pb, pc = (on(rng.standard_normal(s).astype(np.float32))
+                      for s in ((m, k), (k, n), (m, n)))
+        got = ops.panel_update(pc, pa, pb).double()
+        exact = pc.double() - pa.double() @ pb.double()
+        limit = 2 * k * 2.0 ** -24 * (pc.double().abs() + pa.double().abs() @ pb.double().abs())
+        require(bool(((got - exact).abs() <= limit).all()),
+                f"panel_update ({m}, {k}) x ({k}, {n}) off by more than 2K*2^-24*(|C|+|A||B|)")
+    inplace = c.clone()
+    ops.panel_update(inplace, a, b, out=inplace)
+    require(bits_equal(inplace, ops.panel_update(c, a, b)), "panel_update in place != out of place")
+
+    def row(name, source, replaces, fn, plain, lib, nbytes, nops, got, want, **extra):
+        b_ms, b_by = bound(nbytes, nops)
+        return dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{source}",
+                    replaces=replaces, launches=0, max_abs_err=max_abs_err(got, want),
+                    ms=time_ms(fn, reps=50), plain_ms=time_ms(plain, reps=3), bound_ms=b_ms,
+                    bound_by=b_by, library_ms=time_ms(lib, reps=50),
+                    device_ms=device_ms(fn, f"{name}_kernel", reps=20), **extra)
+
+    tri = bs * (bs + 1) // 2
+    rows = {
+        "panel_update": row(
+            "panel_update", "panel_update.cu", "src/repro/kernels/panel_update.py:61",
+            lambda: ops.panel_update(c, a, b), lambda: ref.panel_update_ref(c, a, b),
+            lambda: torch.addmm(c, a, b, alpha=-1), 4 * 4 * bs * bs, 2 * bs ** 3 + bs * bs,
+            ops.panel_update(c, a, b), ref.panel_update_ref(c, a, b),
+            library="torch.addmm(c, a, b, alpha=-1), TF32 off"),
+        "trsm_right_upper": row(
+            "trsm_right_upper", "trsm.cu", "src/repro/kernels/tri_solve.py:59",
+            lambda: ops.trsm_right_upper(a, packed), lambda: ref.trsm_right_upper_ref(a, packed),
+            lambda: torch.linalg.solve_triangular(packed, a, upper=True, left=False),
+            4 * (2 * bs * bs + tri), bs * (bs * bs + bs),
+            ops.trsm_right_upper(a, packed), ref.trsm_right_upper_ref(a, packed),
+            library="torch.linalg.solve_triangular(u, a, upper=True, left=False)"),
+        "trsm_left_unit_lower": row(
+            "trsm_left_unit_lower", "trsm.cu", "src/repro/kernels/tri_solve.py:79",
+            lambda: ops.trsm_left_unit_lower(packed, a),
+            lambda: ref.trsm_left_unit_lower_ref(packed, a),
+            lambda: torch.linalg.solve_triangular(packed, a, upper=False, unitriangular=True),
+            4 * (2 * bs * bs + tri - bs), bs * bs * bs,
+            ops.trsm_left_unit_lower(packed, a), ref.trsm_left_unit_lower_ref(packed, a),
+            library="torch.linalg.solve_triangular(l, a, upper=False, unitriangular=True)"),
+        "tile_lu": row(
+            "tile_lu", "tile_lu.cu", "src/repro/core/bilu.py:83", lambda: ops.tile_lu(t),
+            lambda: ref.tile_lu_nopiv_ref(t), lambda: torch.linalg.lu_factor(t, pivot=False),
+            4 * 2 * bs * bs, sum(w + 2 * w * w for w in range(bs)), packed,
+            ref.tile_lu_nopiv_ref(t), port_only=True,
+            note="no TPU kernel: the JAX package runs _lu_nopiv as plain JAX",
+            library="torch.linalg.lu_factor(t, pivot=False)"),
+    }
+    for r in rows.values():
+        dms = "not measured" if r["device_ms"] is None else f"{r['device_ms']:.4f} ms"
+        say(f"[tiles] {r['name']} ({bs}, {bs}): "
+            + ("within 2K*2^-24*(|C|+|A||B|) of float64, max |diff| to plain "
+               f"{r['max_abs_err']:.3e}" if r["name"] == "panel_update"
+               else "bitwise equal to plain")
+            + f"; {r['ms']:.4f} ms per call (device {dms}; plain {r['plain_ms']:.3f} ms, "
+            f"bound {r['bound_ms']:.5f} ms by {r['bound_by']}, library {r['library_ms']:.4f} ms"
+            f" = {r['library']})")
+    return rows
+
+
+def bilu_schedule(fact):
+    """What the factorization must have done, reckoned from its tile
+    pattern alone: the launches of each tile kernel, and every product
+    L_IK U_KJ (K <= min(I, J)) that adds up to a kept tile (I, J), as slot
+    triples (slot of L_IK, slot of U_KJ, slot of (I, J))."""
+    import numpy as np
+
+    tpat, index = fact.tile_pattern, fact.tile_index
+    nt = tpat.n
+    rows = np.repeat(np.arange(nt), np.diff(tpat.indptr))
+    lower = tpat.indices < rows
+    below = [[] for _ in range(nt)]
+    for i, k in zip(rows[lower].tolist(), tpat.indices[lower].tolist()):
+        below[k].append(i)
+    counts = {"tile_lu": nt, "trsm_left_unit_lower": int((tpat.indices > rows).sum()),
+              "trsm_right_upper": int(lower.sum()), "panel_update": 0}
+    triples = []
+    for k in range(nt):
+        cols = [int(j) for j in tpat.indices[tpat.indptr[k]:tpat.indptr[k + 1]] if j >= k]
+        for i in [k] + below[k]:
+            for j in cols:
+                dst = index.get((i, j))
+                if dst is not None:
+                    triples.append((index[(i, k)], index[(k, j)], dst))
+                    counts["panel_update"] += i > k and j > k
+    return counts, np.array(triples, np.int64)
+
+
+def tile_lu_residual(fact, a, triples, dev):
+    """max |(L U)_IJ - A_IJ| over every kept tile, in float64 on the card,
+    summing the pattern's tile products (no dense n x n); the padded rows
+    of A carry 1.0 on the diagonal, as in the factorization."""
+    import numpy as np
+    import torch
+
+    bs, nt = fact.bs, fact.n_tiles
+    keys = np.array(list(fact.tile_index.keys()), np.int64)
+    slots = np.array(list(fact.tile_index.values()), np.int64)
+    order = np.argsort(keys[:, 0] * nt + keys[:, 1])
+    sorted_keys = (keys[:, 0] * nt + keys[:, 1])[order]
+    row = np.repeat(np.arange(a.n, dtype=np.int64), np.diff(a.indptr))
+    col = a.indices.astype(np.int64)
+    pad = np.arange(a.n, nt * bs, dtype=np.int64)
+    row, col = np.concatenate([row, pad]), np.concatenate([col, pad])
+    vals = np.concatenate([a.data.astype(np.float64), np.ones(pad.size)])
+    where = np.searchsorted(sorted_keys, (row // bs) * nt + col // bs)
+    slot = slots[order][where]
+    tiles = fact.tiles.double()
+    diag = torch.as_tensor(slots[keys[:, 0] == keys[:, 1]], device=dev)
+    eye = torch.eye(bs, dtype=torch.float64, device=dev)
+    lo, up = tiles.clone(), tiles
+    lo[diag] = torch.tril(tiles[diag], -1) + eye
+    up[diag] = torch.triu(tiles[diag])
+    lu = torch.zeros_like(tiles)
+    tr = torch.as_tensor(triples, device=dev)
+    step = max(1, (1 << 27) // (bs * bs))  # 1 GB of float64 products at a time
+    for s in range(0, tr.shape[0], step):
+        part = tr[s:s + step]
+        lu.index_add_(0, part[:, 2], torch.bmm(lo[part[:, 0]], up[part[:, 1]]))
+    flat = torch.as_tensor((slot * bs + row % bs) * bs + col % bs, device=dev)
+    lu.view(-1)[flat] -= torch.as_tensor(vals, device=dev)
+    return float(lu.abs().max())
+
+
+def phase_bilu(dev, bs, nx=400):
+    """Path C: Block-ILU(1) of poisson_2d(nx) at tile size bs."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.bilu import bilu
+    from repro_torch.core.matgen import poisson_2d
+    from repro_torch.core.symbolic import pilu1_symbolic
+    from repro_torch.kernels import ops
+
+    a = poisson_2d(nx)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    fact = bilu(a, 1, bs=bs, device=dev)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    t0 = time.perf_counter()
+    want, triples = bilu_schedule(fact)
+    reckon_s = time.perf_counter() - t0
+    tag = f"bilu bs={bs}"
+    say(f"[{tag}] poisson_2d({nx}) n={a.n} BILU(1): {fact.n_tiles} tile rows, "
+        f"{len(fact.tile_index)} tiles ({fact.tiles.numel() * 4 / 1e6:.1f} MB pool); wall "
+        f"{wall:.3f} s = host plan {fact.plan_seconds:.3f} s + numeric "
+        f"{fact.numeric_seconds:.3f} s ({sum(counts[k] for k in TILE_KERNELS)} tile launches,"
+        f" {fact.numeric_seconds * 1e6 / max(1, sum(counts[k] for k in TILE_KERNELS)):.1f} us"
+        f" each); reckoned from the pattern in {reckon_s:.3f} s: {json.dumps(want)}")
+    check_launches(tag, counts, TILE_KERNELS,
+                   idle=("spmv_ell", "factor_wavefront", "tri_solve_wavefront", "inverse_chain"))
+    for name in TILE_KERNELS:
+        require(counts[name] == want[name], f"{tag}: {name} launched {counts[name]} times, "
+                f"the tile pattern asks for {want[name]}")
+    require(bool(torch.isfinite(fact.tiles).all()), f"{tag}: non-finite tiles")
+    t0 = time.perf_counter()
+    resid = tile_lu_residual(fact, a, triples, dev)
+    limit = 1e-4 * float(np.abs(a.data).max())
+    say(f"[{tag}] tile-wise LU residual over {len(fact.tile_index)} kept tiles "
+        f"({triples.shape[0]} tile products, float64 on the card, "
+        f"{time.perf_counter() - t0:.3f} s): max |(LU)_IJ - A_IJ| = {resid:.3e} "
+        f"(limit 1e-4*max|A| = {limit:.1e})")
+    require(resid <= limit, f"{tag}: tile-wise LU residual {resid:.3e} > {limit:.1e}")
+    pat = pilu1_symbolic(a)
+    prow = np.repeat(np.arange(a.n, dtype=np.int64), np.diff(pat.indptr))
+    keys = set(fact.tile_index)
+    tiles_hit = set(zip((prow // bs).tolist(), (pat.indices // bs).tolist()))
+    require(tiles_hit <= keys, f"{tag}: a scalar ILU(1) position lies outside the kept tiles")
+    say(f"[{tag}] all {pat.nnz} scalar ILU(1) positions lie in kept tiles "
+        f"({len(tiles_hit)} of the {len(keys)})")
+    profile_bilu(tag, a, bs, dev)
+    return counts
+
+
+def profile_bilu(tag, a, bs, dev):
+    """Where the numeric phase's time goes: the same factorization again
+    under torch.profiler; device busy = the sum of kernel durations."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.bilu import bilu
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fact = bilu(a, 1, bs=bs, device=dev)
+    events = kernel_events(prof)
+    busy = sum(e.time_range.elapsed_us() for e in events) / 1e6
+    by_name = {}
+    for e in events:
+        key = e.name.split("(")[0][:60]
+        n, t = by_name.get(key, (0, 0.0))
+        by_name[key] = (n + 1, t + e.time_range.elapsed_us() / 1e6)
+    say(f"[profile {tag}] numeric phase under torch.profiler: wall {fact.numeric_seconds:.3f} s,"
+        f" {len(events)} kernels, device busy {busy:.3f} s "
+        f"({100 * busy / fact.numeric_seconds:.1f}% of the numeric wall)")
+    for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]:
+        say(f"[profile {tag}]   {t:.4f} s in {n} launches of {name}")
+
+
+def phase_bilu_card_vs_cpu(dev, nx=64, bs=32):
+    import numpy as np
+
+    from repro_torch.core.bilu import bilu
+    from repro_torch.core.matgen import poisson_2d
+
+    a = poisson_2d(nx)
+    gpu = bilu(a, 1, bs=bs, device=dev)
+    t0 = time.perf_counter()
+    cpu = bilu(a, 1, bs=bs, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    require(gpu.tile_index == cpu.tile_index, "bilu tile index: card != CPU")
+    diff = float((gpu.tiles.cpu() - cpu.tiles).abs().max())
+    limit = 1e-4 * float(np.abs(a.data).max())
+    say(f"[card-vs-cpu] poisson_2d({nx}) BILU(1) bs={bs}: {len(cpu.tile_index)} tiles, max "
+        f"|card - CPU| {diff:.3e} (limit {limit:.1e}; the panel products sum in another order)"
+        f"; numeric {gpu.numeric_seconds:.3f} s on the card, {cpu.numeric_seconds:.3f} s "
+        f"on the CPU ({cpu_s:.3f} s with the plan)")
+    require(diff <= limit, f"bilu tiles: card - CPU {diff:.3e} > {limit:.1e}")
+
+
+def phase_cg(dev, b):
+    """Path D: CG through the ILU(1) sweep preconditioner."""
+    import numpy as np
+
+    from repro_torch.core.matgen import poisson_2d
+    from repro_torch.core.solvers import solve_with_ilu
+    from repro_torch.kernels import ops
+
+    a = poisson_2d(400)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res, fact = solve_with_ilu(a, b, k=1, method="cg", tol=TOL, device=dev)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    factor_s = fact.symbolic_seconds + fact.numeric_seconds
+    true_rel = true_residual(a, b, res.x)
+    say(f"[cg] poisson_2d(400) ILU(1) CG tol={TOL}: verdict={res.verdict} "
+        f"iterations={res.iterations} residual={res.residual:.3e} "
+        f"float64 true residual={true_rel:.3e}")
+    say(f"[cg] wall {wall:.3f} s = factor {factor_s:.3f} s + solve {wall - factor_s:.3f} s "
+        f"(ELL, sweep plan, CG; {(wall - factor_s) * 1e3 / max(1, res.iterations):.2f} ms "
+        "per iteration)")
+    check_launches("cg", counts, ("spmv_ell", "factor_wavefront", "tri_solve_wavefront"),
+                   idle=("inverse_chain",) + TILE_KERNELS)
+    require(res.verdict == "converged", f"cg verdict {res.verdict}")
+    require(np.isfinite(res.x).all() and res.x.shape == (a.n,), "cg x malformed")
+    again, _ = solve_with_ilu(a, b, k=1, method="cg", tol=CG_TOL, device=dev)  # cached factor
+    true_again = true_residual(a, b, again.x)
+    say(f"[cg] tol={CG_TOL}: verdict={again.verdict} iterations={again.iterations} "
+        f"residual={again.residual:.3e} float64 true residual={true_again:.3e}")
+    require(again.verdict == "converged", f"cg verdict {again.verdict} at tol {CG_TOL}")
+    require(true_again <= 2 * CG_TOL, f"cg float64 true residual {true_again:.3e} > 2*tol")
+    small = small_matrix("poisson_2d(64)")
+    rhs = np.random.default_rng(SEED + 2).standard_normal(small.n).astype(np.float32)
+    gpu, _ = solve_with_ilu(small, rhs, k=1, method="cg", tol=TOL, device=dev)
+    cpu, _ = solve_with_ilu(small, rhs, k=1, method="cg", tol=TOL, device="cpu")
+    same = np.array_equal(gpu.x.view(np.int32), cpu.x.view(np.int32))
+    say(f"[card-vs-cpu] poisson_2d(64) cg: {gpu.iterations} (card) vs {cpu.iterations} (cpu) "
+        f"iterations, verdict {gpu.verdict}/{cpu.verdict}, x bitwise equal: {same}")
+    require(same and (gpu.iterations, gpu.verdict) == (cpu.iterations, cpu.verdict),
+            "card cg != CPU cg on poisson_2d(64)")
+    return counts
+
+
 def run(oracles):
     import torch
 
@@ -616,17 +934,25 @@ def run(oracles):
     dev = torch.device("cuda")
 
     rows = phase_kernels(dev)
+    rows.update(phase_tile_kernels(dev))
     phase_factors(dev)
     phase_inverse_oracles(dev, oracles)
+    by_path = {}
     counts, b, single, single_wall = phase_main_path(dev)
-    inv_counts = phase_main_inverse(dev, b)
-    multi_counts = phase_multi_rhs(dev, b, single, single_wall)
+    by_path["main"] = counts
+    by_path["main-inverse"] = phase_main_inverse(dev, b)
+    by_path["multi-rhs"] = phase_multi_rhs(dev, b, single, single_wall)
     phase_card_vs_cpu(dev)
+    for bs in (BS_TILE, 32):
+        by_path[f"bilu-bs{bs}"] = phase_bilu(dev, bs)
+    phase_bilu_card_vs_cpu(dev)
+    by_path["cg"] = phase_cg(dev, b)
 
     for name, r in rows.items():
-        r["launches"] = (inv_counts if name == "inverse_chain" else counts)[name]
-        r["launches_by_path"] = {"main": counts[name], "main-inverse": inv_counts[name],
-                                 "multi-rhs": multi_counts[name]}
+        path = ("main-inverse" if name == "inverse_chain"
+                else f"bilu-bs{BS_TILE}" if name in TILE_KERNELS else "main")
+        r["launches"] = by_path[path][name]
+        r["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
     say(json.dumps({"kernels": list(rows.values())}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

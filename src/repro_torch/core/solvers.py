@@ -1,9 +1,10 @@
-"""Preconditioned restarted GMRES(m) in eager PyTorch.
+"""Preconditioned restarted GMRES(m) and CG in eager PyTorch.
 
-The port's counterpart of the GMRES path of ``repro/core/solvers.py``:
-``_gmres_core`` translated operation by operation, over a leading axis of
-right-hand sides (``gmres`` is the one-lane case, ``gmres_batched`` the
-reference's ``vmap``). The matvec is the ``spmv_ell`` kernel
+The port's counterpart of the GMRES and CG paths of
+``repro/core/solvers.py``: ``_gmres_core`` translated operation by
+operation, over a leading axis of right-hand sides (``gmres`` is the
+one-lane case, ``gmres_batched`` the reference's ``vmap``), and
+``_cg_core`` likewise for one right-hand side. The matvec is the ``spmv_ell`` kernel
 (:func:`repro_torch.kernels.ops.spmv_ell`) and the preconditioner the
 factorization's :class:`~repro_torch.core.triangular.PrecondApply` (the
 ``tri_solve_wavefront`` kernel) or
@@ -33,7 +34,8 @@ rounded-product contract there.
 
 The Arnoldi loop never waits for the device. The restart loop reads "is
 any lane still running" on the host once per restart (at most ``maxiter``
-times).
+times); CG reads its verdict once per iteration, the reference's
+``while_loop`` condition.
 """
 from __future__ import annotations
 
@@ -63,6 +65,8 @@ VERDICTS = ("running", "converged", "maxiter", "stagnated", "breakdown", "diverg
 _STAG_EPS = 1e-3
 _GMRES_STALL_WINDOW = 5
 _GMRES_DIV_FACTOR = 1e5
+_KRYLOV_STALL_WINDOW = 25
+_KRYLOV_DIV_FACTOR = 1e8
 
 _F32 = torch.float32
 
@@ -315,6 +319,60 @@ def gmres_batched(matvec, bs: torch.Tensor, precond=None, restart=30, tol=1e-5,
     return [_result(*(o[i] for o in out), float(tols[i])) for i in range(bs.shape[0])]
 
 
+def _cg_core(matvec, M, b, tol, maxiter):
+    """Preconditioned CG, the reference's ``_cg_core`` translated operation
+    by operation; its ``jnp.vdot``/``norm`` are the port's fixed-order
+    :func:`bitdot`/:func:`bitnorm`, so the card and the CPU give the same
+    bits. ``tol`` is a float32 tensor on ``b``'s device."""
+    dev = b.device
+    bnorm = bitnorm(b)
+    tolb = tol * bnorm
+    x = torch.zeros_like(b)
+    r = b
+    z = M(r)
+    p = z
+    rz = bitdot(r, z)
+    it = torch.zeros((), dtype=torch.int64, device=dev)
+    rnorm = bitnorm(r)
+    hist = torch.zeros(maxiter, dtype=_F32, device=dev)
+    verdict = _init_verdict(bnorm, tolb)
+    stall = torch.zeros((), dtype=torch.int64, device=dev)
+    best = bnorm
+    while int(verdict) == VERDICT_RUNNING:  # the reference's loop condition, on the host
+        ap = matvec(p)
+        alpha = rz / bitdot(p, ap)
+        x = x + alpha * p
+        r = r - alpha * ap
+        z = M(r)
+        rz_new = bitdot(r, z)
+        p = z + (rz_new / rz) * p
+        rnorm = bitnorm(r)
+        hist[it] = rnorm
+        stall = torch.where(rnorm < (1.0 - _STAG_EPS) * best, 0, stall + 1)
+        best = torch.minimum(best, rnorm)
+        it = it + 1
+        verdict = _classify(it, rnorm, stall, bnorm, tolb,
+                            _KRYLOV_STALL_WINDOW, _KRYLOV_DIV_FACTOR, maxiter)
+        rz = rz_new
+    return x, it, rnorm, bnorm, hist, verdict
+
+
+def cg(matvec, b: torch.Tensor, precond=None, tol=1e-5, maxiter=500) -> SolveResult:
+    """Preconditioned conjugate gradients for symmetric positive definite
+    A (and M), on ``b``'s device. ``iterations`` counts CG steps; ``history``
+    holds the recursive relative residual after each."""
+    if not isinstance(b, torch.Tensor) or b.dtype != _F32 or b.ndim != 1:
+        raise TypeError("cg expects b as a 1-D float32 tensor")
+    tol_t = torch.tensor(tol, dtype=_F32, device=b.device)
+    x, it, rnorm, bnorm, hist, verdict = _cg_core(matvec, precond or _identity, b, tol_t,
+                                                  maxiter)
+    rel = float(rnorm) / max(float(bnorm), 1e-30)
+    it = int(it)
+    return SolveResult(x.cpu().numpy(), it, rel, rel <= tol * 1.01,
+                       hist[:it].cpu().numpy() / max(float(bnorm), 1e-30),
+                       verdict=VERDICTS[int(verdict)])
+
+
 def _annotate_reports(res, fact):
     """Copy the factorization's ladder outcome (shift α, degraded flag) onto
     each result's SolveReport."""
@@ -345,13 +403,15 @@ def solve_with_ilu(a, b, k=1, method="gmres", backend="torch", tol=1e-5,
     raises when no GPU is present; ``device="cpu"`` runs the plain PyTorch
     version of every kernel. The SpMV arrays, the matvec and the
     factorization (with its preconditioners) are cached on the matrix
-    object per device, so repeated solves reuse them. ``**kw`` goes to
-    :func:`gmres` (``restart``, ``maxiter``).
+    object per device, so repeated solves reuse them. ``method`` is
+    ``"gmres"`` or ``"cg"`` (one right-hand side; A and M symmetric
+    positive definite). ``**kw`` goes to :func:`gmres` (``restart``,
+    ``maxiter``) or :func:`cg` (``maxiter``).
     """
     from .api import ilu
 
-    if method != "gmres":
-        raise NotImplementedError(f"method={method!r}: only 'gmres' is ported so far")
+    if method not in ("gmres", "cg"):
+        raise NotImplementedError(f"method={method!r}: 'gmres' and 'cg' are ported so far")
     dev = resolve_device(device)
     cache = a.__dict__.setdefault(SOLVE_CACHE_KEY, {})
     mv_key = ("matvec", str(dev))
@@ -372,9 +432,12 @@ def solve_with_ilu(a, b, k=1, method="gmres", backend="torch", tol=1e-5,
         precond = fact.precond(method=precond_method)
     b = torch.as_tensor(b, dtype=_F32).to(dev)
     if b.ndim == 2:
+        if method != "gmres":
+            raise ValueError("batched right-hand sides are supported for method='gmres' only")
         res = gmres_batched(matvec, b, precond, tol=tol, **kw)
     elif b.ndim == 1:
-        res = gmres(matvec, b.contiguous(), precond, tol=tol, **kw)
+        fn = {"gmres": gmres, "cg": cg}[method]
+        res = fn(matvec, b.contiguous(), precond, tol=tol, **kw)
     else:
         raise ValueError(f"solve_with_ilu expects b of shape (n,) or (nb, n), got {tuple(b.shape)}")
     return _annotate_reports(res, fact), fact

@@ -2,6 +2,7 @@
 
 A copy of ``repro/core/sparse.py`` (the JAX package's containers) without
 the ELL container, so that the port imports nothing of the JAX package.
+The dense helpers (``from_dense``, ``to_dense``) are for test fixtures.
 
 * :class:`CSRMatrix` — the canonical row-major storage.
 * :class:`ILUPattern` — the *filled* pattern produced by symbolic
@@ -55,6 +56,24 @@ class CSRMatrix:
             data=np.asarray(m.data, dtype=np.float32),
         )
 
+    @staticmethod
+    def from_dense(a: np.ndarray) -> "CSRMatrix":
+        n = a.shape[0]
+        indptr = [0]
+        indices = []
+        data = []
+        for j in range(n):
+            nz = np.nonzero(a[j])[0]
+            indices.append(nz)
+            data.append(a[j, nz])
+            indptr.append(indptr[-1] + len(nz))
+        return CSRMatrix(
+            n=n,
+            indptr=np.asarray(indptr, dtype=np.int64),
+            indices=np.concatenate(indices).astype(np.int32) if indices else np.zeros(0, np.int32),
+            data=np.concatenate(data).astype(np.float32) if data else np.zeros(0, np.float32),
+        )
+
     # -- views -------------------------------------------------------------
     def row(self, j: int) -> Tuple[np.ndarray, np.ndarray]:
         s, e = self.indptr[j], self.indptr[j + 1]
@@ -65,9 +84,24 @@ class CSRMatrix:
 
         return sp.csr_matrix((self.data, self.indices, self.indptr), shape=(self.n, self.n))
 
+    def to_dense(self) -> np.ndarray:
+        out = np.zeros((self.n, self.n), dtype=np.float32)
+        for j in range(self.n):
+            cols, vals = self.row(j)
+            out[j, cols] = vals
+        return out
+
     @property
     def nnz(self) -> int:
         return int(self.indptr[-1])
+
+    def has_full_diagonal(self) -> bool:
+        for j in range(self.n):
+            cols, _ = self.row(j)
+            pos = np.searchsorted(cols, j)
+            if pos >= len(cols) or cols[pos] != j:
+                return False
+        return True
 
 
 @dataclasses.dataclass

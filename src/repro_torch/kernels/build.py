@@ -31,7 +31,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 SOURCES = ("spmv_ell.cu", "factor_wavefront.cu", "tri_solve_wavefront.cu",
-           "inverse_chain.cu")
+           "inverse_chain.cu", "panel_update.cu", "trsm.cu", "tile_lu.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "librepro_torch_kernels.so"
@@ -42,6 +42,10 @@ _SIGNATURES = {
     "factor_wavefront_launch": [_P] * 7 + [_I] * 4 + [_P],
     "tri_solve_wavefront_launch": [_P] * 12 + [_I] * 8 + [_P],
     "inverse_chain_launch": [_P] * 7 + [_I] * 4 + [_P],
+    "panel_update_launch": [_P] * 4 + [_I] * 3 + [_P],
+    "trsm_right_upper_launch": [_P] * 3 + [_I] * 2 + [_P],
+    "trsm_left_unit_lower_launch": [_P] * 3 + [_I] * 2 + [_P],
+    "tile_lu_launch": [_P] * 2 + [_I] + [_P],
 }
 
 _lock = threading.Lock()

@@ -12,6 +12,8 @@ Each wrapper carries a plain integer ``launches``, raised by one where it
 launches its kernel and nowhere else, so that a run can show which kernels
 its path went through (:func:`reset_launch_counts`, :func:`launch_counts`).
 Outputs and scratch are allocated here; the kernels allocate nothing.
+The dense tile kernels of Block-ILU(k) also take an ``out=`` tensor, so
+that the factorization updates the slots of its tile pool in place.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from . import ref
 
 _F32, _I32 = torch.float32, torch.int32
 _MAX_GRID_Y = 65535  # CUDA's limit on gridDim.y, the lane axis of the launches
+_MAX_SMEM = 232448  # bytes of shared memory one block may ask for on Hopper
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
@@ -175,7 +178,121 @@ def inverse_chain(w_cols: torch.Tensor, w_vals: torch.Tensor, z_cols: torch.Tens
     return x
 
 
-KERNELS = (spmv_ell, factor_wavefront, tri_solve_wavefront, inverse_chain)
+def _matrix(name: str, t: torch.Tensor, device) -> tuple:
+    """Check a float32 matrix on ``device``; returns its shape."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a torch.Tensor, got {type(t).__name__}")
+    if t.ndim != 2:
+        raise ValueError(f"{name}: expected a 2-D tensor, got shape {tuple(t.shape)}")
+    _check(name, t, _F32, t.shape, device)
+    return tuple(t.shape)
+
+
+def _overlaps(x: torch.Tensor, y: torch.Tensor) -> bool:
+    xs, ys = x.data_ptr(), y.data_ptr()
+    return xs < ys + y.numel() * 4 and ys < xs + x.numel() * 4
+
+
+def _output(name: str, out, shape, device, must_not_overlap=()) -> torch.Tensor:
+    """``out`` checked (or a new tensor): the kernels write their result
+    there. ``out`` may be the input the result replaces, never one of
+    ``must_not_overlap``, which the kernel reads while it writes."""
+    if out is None:
+        return torch.empty(shape, dtype=_F32, device=device)
+    _check(f"{name} out", out, _F32, shape, device)
+    for t in must_not_overlap:
+        if _overlaps(out, t):
+            raise ValueError(f"{name}: out overlaps an input that the kernel reads as it writes")
+    return out
+
+
+def _plain(result: torch.Tensor, out) -> torch.Tensor:
+    if out is None:
+        return result
+    return out.copy_(result)
+
+
+def panel_update(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                 out: torch.Tensor = None) -> torch.Tensor:
+    """C - A B for A (M, K), B (K, N), C (M, N), float32, any sizes: the
+    trailing-tile update of Block-ILU(k). ``out`` may be ``c`` (an update in
+    place) but must not overlap ``a`` or ``b``. Sums in float32 (FMA) in
+    another order than the plain version: held to it with a tolerance."""
+    dev = c.device
+    m, k = _matrix("panel_update a", a, dev)
+    k2, n = _matrix("panel_update b", b, dev)
+    if k2 != k:
+        raise ValueError(f"panel_update: a is ({m}, {k}) but b is ({k2}, {n})")
+    _check("panel_update c", c, _F32, (m, n), dev)
+    o = _output("panel_update", out, (m, n), dev, (a, b))
+    if not _route(dev):
+        return _plain(ref.panel_update_ref(c, a, b), out)
+    if m and n:
+        _launch("panel_update_launch", dev, c.data_ptr(), a.data_ptr(), b.data_ptr(),
+                o.data_ptr(), m, n, k)
+        panel_update.launches += 1
+    return o
+
+
+def trsm_right_upper(a: torch.Tensor, u: torch.Tensor, out: torch.Tensor = None) -> torch.Tensor:
+    """X with X U = A for A (M, bs) and U (bs, bs) upper-triangular (only
+    its upper triangle, diagonal included, is read). ``out`` may be ``a``
+    but must not overlap ``u``. Bitwise equal to the plain version."""
+    dev = a.device
+    m, bs = _matrix("trsm_right_upper a", a, dev)
+    _check("trsm_right_upper u", u, _F32, (bs, bs), dev)
+    o = _output("trsm_right_upper", out, (m, bs), dev, (u,))
+    if not _route(dev):
+        return _plain(ref.trsm_right_upper_ref(a, u), out)
+    if 33 * bs * 4 > _MAX_SMEM:  # the kernel keeps 32 padded rows in shared memory
+        raise ValueError(f"trsm_right_upper: bs={bs} does not fit in shared memory")
+    if m and bs:
+        _launch("trsm_right_upper_launch", dev, a.data_ptr(), u.data_ptr(), o.data_ptr(), m, bs)
+        trsm_right_upper.launches += 1
+    return o
+
+
+def trsm_left_unit_lower(l: torch.Tensor, a: torch.Tensor,
+                         out: torch.Tensor = None) -> torch.Tensor:
+    """X with L X = A for L (bs, bs) unit-lower (only its strict lower
+    triangle is read) and A (bs, N). ``out`` may be ``a`` but must not
+    overlap ``l``. Bitwise equal to the plain version."""
+    dev = a.device
+    bs, n = _matrix("trsm_left_unit_lower a", a, dev)
+    _check("trsm_left_unit_lower l", l, _F32, (bs, bs), dev)
+    o = _output("trsm_left_unit_lower", out, (bs, n), dev, (l,))
+    if not _route(dev):
+        return _plain(ref.trsm_left_unit_lower_ref(l, a), out)
+    if 32 * bs * 4 > _MAX_SMEM:  # the kernel keeps 32 columns in shared memory
+        raise ValueError(f"trsm_left_unit_lower: bs={bs} does not fit in shared memory")
+    if n and bs:
+        _launch("trsm_left_unit_lower_launch", dev, l.data_ptr(), a.data_ptr(), o.data_ptr(),
+                bs, n)
+        trsm_left_unit_lower.launches += 1
+    return o
+
+
+def tile_lu(t: torch.Tensor, out: torch.Tensor = None) -> torch.Tensor:
+    """The in-tile LU without pivoting of a (bs, bs) tile: the packed
+    result, strict lower = L (unit diagonal implicit), upper = U. ``out``
+    may be ``t``. Bitwise equal to the plain version."""
+    dev = t.device
+    bs, bs2 = _matrix("tile_lu t", t, dev)
+    if bs2 != bs:
+        raise ValueError(f"tile_lu: expected a square tile, got ({bs}, {bs2})")
+    o = _output("tile_lu", out, (bs, bs), dev)
+    if not _route(dev):
+        return _plain(ref.tile_lu_nopiv_ref(t), out)
+    if bs * (bs + 1) * 4 > _MAX_SMEM:  # the kernel keeps the padded tile in shared memory
+        raise ValueError(f"tile_lu: a {bs} x {bs} tile does not fit in shared memory")
+    if bs:
+        _launch("tile_lu_launch", dev, t.data_ptr(), o.data_ptr(), bs)
+        tile_lu.launches += 1
+    return o
+
+
+KERNELS = (spmv_ell, factor_wavefront, tri_solve_wavefront, inverse_chain, panel_update,
+           trsm_right_upper, trsm_left_unit_lower, tile_lu)
 for _fn in KERNELS:
     _fn.launches = 0
 

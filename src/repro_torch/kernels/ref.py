@@ -106,3 +106,67 @@ def inverse_chain_ref(w_cols: torch.Tensor, w_vals: torch.Tensor, z_cols: torch.
                         int(COL_SENTINEL))
     return masked_lane_sum(z_cols, z_vals, y[..., torch.clamp(z_cols, max=n - 1).long()],
                            int(COL_SENTINEL))
+
+
+# --------------------------------------------------------------------------
+# dense tile kernels of Block-ILU(k)
+# --------------------------------------------------------------------------
+def panel_update_ref(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """C - A @ B in float32 (``repro.kernels.ref.panel_update_ref``). The
+    product's order of adds is the matrix product's own, so the kernel is
+    held to this version with a tolerance, not bitwise."""
+    return c - a @ b
+
+
+def trsm_right_upper_ref(a: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """X with X U = A, U upper-triangular (the BILU L-panel step
+    L_JI = A_JI U_II^{-1}), by column substitution in the order the Pallas
+    kernel runs (``repro.kernels.ref.trsm_right_upper_subst_ref``)::
+
+        x[:, c] = (a[:, c] - sum_{j<c} x[:, j] * u[j, c]) / u[c, c]
+
+    The sum runs in ascending ``j`` from +0.0, each product rounded before
+    it is added (one eager operation each, never a matrix product), and the
+    divisor is a tensor. Entries of ``u`` below its diagonal are never read,
+    so the packed LU tile can be passed as it is."""
+    x = torch.zeros_like(a)
+    for c in range(u.shape[0]):
+        acc = torch.zeros_like(a[:, 0])
+        for j in range(c):
+            acc = acc + x[:, j] * u[j, c]
+        x[:, c] = (a[:, c] - acc) / u[c, c]
+    return x
+
+
+def trsm_left_unit_lower_ref(l: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """X with L X = A, L unit-lower (the BILU U-panel step
+    U_IJ = L_II^{-1} A_IJ), by row substitution in the order the Pallas
+    kernel runs (``repro.kernels.ref.trsm_left_unit_lower_subst_ref``)::
+
+        x[r, :] = a[r, :] - sum_{j<r} l[r, j] * x[j, :]
+
+    Ascending ``j`` from +0.0, rounded products. The unit diagonal is
+    implicit: entries of ``l`` on and above its diagonal are never read."""
+    x = torch.zeros_like(a)
+    for r in range(l.shape[0]):
+        acc = torch.zeros_like(a[0])
+        for j in range(r):
+            acc = acc + l[r, j] * x[j]
+        x[r] = a[r] - acc
+    return x
+
+
+def tile_lu_nopiv_ref(t: torch.Tensor) -> torch.Tensor:
+    """In-tile LU without pivoting (``repro.core.bilu._lu_nopiv``): the
+    packed tile, strict lower = L (unit diagonal implicit), upper = U.
+
+    For each column c the entries below the pivot are divided by the pivot
+    (a tensor, never a Python number), then the trailing block takes away
+    the outer product of that column and the pivot row, the product rounded
+    before the subtract. Only the trailing block is touched."""
+    t = t.clone()
+    for c in range(t.shape[0]):
+        l = t[c + 1:, c] / t[c, c]
+        t[c + 1:, c] = l
+        t[c + 1:, c + 1:] = t[c + 1:, c + 1:] - l[:, None] * t[c, c + 1:][None, :]
+    return t

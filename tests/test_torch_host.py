@@ -72,6 +72,21 @@ def test_generators_match(name):
         _same(getattr(tb, f), getattr(ja, f))
 
 
+@pytest.mark.parametrize("name", sorted(MATRICES))
+def test_dense_helpers_match(name):
+    ja, ta = _pair(name)
+    dense = ja.to_dense()
+    _same(ta.to_dense(), dense)
+    assert ta.has_full_diagonal() == ja.has_full_diagonal()
+    jb, tb = type(ja).from_dense(dense), CSRMatrix.from_dense(dense)
+    for f in ("indptr", "indices", "data"):
+        _same(getattr(tb, f), getattr(jb, f))
+    assert tb.n == jb.n
+    anti = np.eye(5, dtype=np.float32)[::-1]  # only row 2 holds its diagonal
+    assert not CSRMatrix.from_dense(anti).has_full_diagonal()
+    assert not type(ja).from_dense(anti).has_full_diagonal()
+
+
 @pytest.mark.parametrize("rule", ["sum", "max"])
 @pytest.mark.parametrize("k", [0, 1, 2, 3])
 @pytest.mark.parametrize("name", ["cd10", "matgen150"])

@@ -1,7 +1,8 @@
 """The port stands alone: no jax, nothing of ``repro``, no quiet CPU fallback.
 
 * A child process imports the port with ``jax`` blocked and runs a tiny
-  solve on the CPU; no ``repro`` module may get loaded.
+  GMRES and CG solve and a Block-ILU on the CPU; no ``repro`` module may
+  get loaded.
 * No source file of the port mentions an import of jax or of ``repro``.
 * Without a GPU, the entry points raise unless the caller passes
   ``device="cpu"``; and ``chip_smoke.py`` fails without printing a result.
@@ -26,11 +27,16 @@ sys.modules["jax"] = None  # any `import jax` now raises ImportError
 import numpy as np
 import repro_torch.core.api, repro_torch.core.solvers, repro_torch.kernels.ops
 import repro_torch.kernels.build
+from repro_torch.core.bilu import bilu
 from repro_torch.core.matgen import poisson_2d
 from repro_torch.core.solvers import solve_with_ilu
 a = poisson_2d(6)
 r, _ = solve_with_ilu(a, np.ones(a.n, np.float32), k=1, device="cpu")
 assert r.verdict == "converged", r.verdict
+r, _ = solve_with_ilu(a, np.ones(a.n, np.float32), k=1, method="cg", device="cpu")
+assert r.verdict == "converged", r.verdict
+f = bilu(a, 1, bs=8, device="cpu")
+assert f.tiles.shape == (len(f.tile_index), 8, 8)
 bad = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert not bad, bad
 print("ISOLATED")
@@ -62,6 +68,7 @@ def test_no_source_file_imports_jax_or_repro():
 
 def test_entry_points_raise_without_gpu(monkeypatch):
     from repro_torch.core.api import ilu
+    from repro_torch.core.bilu import bilu
     from repro_torch.core.matgen import poisson_2d
     from repro_torch.core.solvers import solve_with_ilu
 
@@ -72,6 +79,10 @@ def test_entry_points_raise_without_gpu(monkeypatch):
         solve_with_ilu(a, b, k=1)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ilu(a, 1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bilu(a, 1, bs=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        solve_with_ilu(a, b, k=1, method="cg")
     with pytest.raises(RuntimeError):
         solve_with_ilu(a, b, k=1, device="cuda")
     r, _ = solve_with_ilu(a, b, k=1, device="cpu")

@@ -1,10 +1,16 @@
 """The port's kernels: plain versions against the JAX package, wrappers'
 routing, and (on a GPU) each CUDA kernel against its plain version.
 
-The plain versions are held bitwise (int32 views) against the JAX
-references and against the Pallas kernels in interpret mode, on the same
-plan arrays. Pallas interpret mode is slow on deep scans, so the fixtures
-stay at n <= 64.
+The plain versions of the sparse kernels are held bitwise (int32 views)
+against the JAX references and against the Pallas kernels in interpret
+mode, on the same plan arrays. Pallas interpret mode is slow on deep
+scans, so the fixtures stay at n <= 64.
+
+The dense tile kernels of Block-ILU(k) are held as ``tests/test_kernels.py``
+holds the Pallas ones, with its shapes and tolerances: the JAX kernels sum
+their substitutions with ``jnp.dot``, in an order of XLA's, where the
+port's plain versions fix ascending order with each product rounded (the
+order the CUDA kernels equal bitwise).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +26,7 @@ from repro.core.planner import COL_SENTINEL
 from repro.core.symbolic import pilu1_symbolic, symbolic_ilu_k
 from repro.core.triangular import build_triangular_plan as j_build_triangular_plan
 from repro.core.triangular import wavefront_sweeps_jnp
+from repro.core.bilu import _lu_nopiv
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops, ref
@@ -128,7 +135,9 @@ def test_wrappers_route_cpu_tensors_to_plain_versions():
     _bits_equal(ops.inverse_chain(cols, ev, zc, zv, x).numpy(),
                 ref.inverse_chain_ref(cols, ev, zc, zv, x).numpy())
     assert ops.launch_counts() == {"spmv_ell": 0, "factor_wavefront": 0,
-                                   "tri_solve_wavefront": 0, "inverse_chain": 0}
+                                   "tri_solve_wavefront": 0, "inverse_chain": 0,
+                                   "panel_update": 0, "trsm_right_upper": 0,
+                                   "trsm_left_unit_lower": 0, "tile_lu": 0}
 
 
 def test_wrappers_reject_bad_inputs():
@@ -166,6 +175,142 @@ def test_inverse_chain_rejects_bad_inputs():
         ops.inverse_chain(wc, wv, zc, zv, torch.zeros((2, 16)).t().contiguous().t())
     with pytest.raises(ValueError):
         ops.inverse_chain(*(t.to("meta") for t in (wc, wv, zc, zv, b)))
+
+
+RNG = np.random.default_rng(0)
+
+
+def _tri_upper(bs):
+    # diagonally dominant, as in tests/test_kernels.py: random triangular
+    # matrices are exponentially ill-conditioned
+    u = np.triu(RNG.standard_normal((bs, bs)).astype(np.float32))
+    np.fill_diagonal(u, np.abs(u).sum(1) + 1.0)
+    return u
+
+
+def _tri_unit_lower(bs):
+    l = np.tril(RNG.standard_normal((bs, bs)).astype(np.float32), -1)
+    l /= np.maximum(np.abs(l).sum(1, keepdims=True), 1.0) * 1.5
+    np.fill_diagonal(l, 1.0)
+    return l
+
+
+def _dominant(bs, seed):
+    rng = np.random.default_rng(seed)
+    t = rng.standard_normal((bs, bs)).astype(np.float32)
+    t += np.diag(np.abs(t).sum(1) + 1).astype(np.float32)
+    return t
+
+
+PANEL_SHAPES = [(8, 8, 8), (64, 64, 32), (128, 256, 128), (96, 40, 72), (256, 128, 256)]
+
+
+@pytest.mark.parametrize("m,n,k", PANEL_SHAPES)
+def test_panel_update_plain_vs_jax(m, n, k):
+    a = RNG.standard_normal((m, k)).astype(np.float32)
+    b = RNG.standard_normal((k, n)).astype(np.float32)
+    c = RNG.standard_normal((m, n)).astype(np.float32)
+    got = ops.panel_update(*map(torch.from_numpy, (c, a, b))).numpy()
+    _bits_equal(got, ref.panel_update_ref(*map(torch.from_numpy, (c, a, b))).numpy())
+    jargs = [jnp.asarray(v) for v in (c, a, b)]
+    # tests/test_kernels.py's float32 tolerance: blocked k reorders the sum
+    for want in (jops.panel_update(*jargs, bm=64, bn=64, bk=32), jref.panel_update_ref(*jargs)):
+        np.testing.assert_allclose(got, np.asarray(want), rtol=2e-3, atol=2e-4)
+
+
+@pytest.mark.parametrize("bs", [8, 32, 128])
+@pytest.mark.parametrize("m", [8, 64, 200])
+def test_trsm_right_upper_plain_vs_jax(bs, m):
+    a = RNG.standard_normal((m, bs)).astype(np.float32)
+    u = _tri_upper(bs)
+    got = ops.trsm_right_upper(torch.from_numpy(a), torch.from_numpy(u)).numpy()
+    ja, ju = jnp.asarray(a), jnp.asarray(u)
+    for want in (jops.trsm_right_upper(ja, ju, bm=64), jref.trsm_right_upper_ref(ja, ju),
+                 jref.trsm_right_upper_subst_ref(ja, ju)):
+        np.testing.assert_allclose(got, np.asarray(want), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(got @ u, a, rtol=2e-3, atol=2e-3)  # X U == A
+
+
+@pytest.mark.parametrize("bs", [8, 32, 128])
+@pytest.mark.parametrize("n", [8, 64, 200])
+def test_trsm_left_unit_lower_plain_vs_jax(bs, n):
+    a = RNG.standard_normal((bs, n)).astype(np.float32)
+    l = _tri_unit_lower(bs)
+    got = ops.trsm_left_unit_lower(torch.from_numpy(l), torch.from_numpy(a)).numpy()
+    jl, ja = jnp.asarray(l), jnp.asarray(a)
+    for want in (jops.trsm_left_unit_lower(jl, ja, bn=64), jref.trsm_left_unit_lower_ref(jl, ja),
+                 jref.trsm_left_unit_lower_subst_ref(jl, ja)):
+        np.testing.assert_allclose(got, np.asarray(want), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(l @ got, a, rtol=2e-3, atol=2e-3)  # L X == A
+
+
+@pytest.mark.parametrize("bs", [8, 16, 32])
+def test_trsm_read_only_their_triangle(bs):
+    """The packed LU tile passed as it is gives the bits of its triangles:
+    the solves never read below U's diagonal, nor on or above L's."""
+    packed = torch.from_numpy(_dominant(bs, seed=bs))
+    a = torch.from_numpy(RNG.standard_normal((bs + 3, bs)).astype(np.float32))
+    _bits_equal(ops.trsm_right_upper(a, packed).numpy(),
+                ops.trsm_right_upper(a, torch.triu(packed)).numpy())
+    unit = torch.tril(packed, -1) + torch.eye(bs)
+    at = a.t().contiguous()
+    _bits_equal(ops.trsm_left_unit_lower(packed, at).numpy(),
+                ops.trsm_left_unit_lower(unit, at).numpy())
+
+
+@pytest.mark.parametrize("bs", [8, 16, 32])
+def test_tile_lu_plain_vs_jax(bs):
+    t = _dominant(bs, seed=bs + 1)
+    got = ops.tile_lu(torch.from_numpy(t)).numpy()
+    _bits_equal(got, ref.tile_lu_nopiv_ref(torch.from_numpy(t)).numpy())
+    want = np.asarray(_lu_nopiv(jnp.asarray(t)))
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+    lu = (np.tril(got, -1) + np.eye(bs, dtype=np.float32)) @ np.triu(got)
+    np.testing.assert_allclose(lu, t, rtol=3e-4, atol=3e-4)
+
+
+def test_tile_wrappers_write_out_in_place():
+    t = torch.from_numpy(_dominant(16, seed=3))
+    want = ref.tile_lu_nopiv_ref(t)
+    pool = torch.stack([t, t.clone(), t.clone()])
+    assert ops.tile_lu(pool[0], out=pool[0]).data_ptr() == pool[0].data_ptr()
+    _bits_equal(pool[0].numpy(), want.numpy())
+    _bits_equal(ops.trsm_right_upper(pool[1], pool[0], out=pool[1]).numpy(),
+                ref.trsm_right_upper_ref(t, want).numpy())
+    _bits_equal(ops.trsm_left_unit_lower(pool[0], pool[2], out=pool[2]).numpy(),
+                ref.trsm_left_unit_lower_ref(want, t).numpy())
+    c = t.clone()
+    want_c = ref.panel_update_ref(c, pool[1], pool[2])
+    assert ops.panel_update(c, pool[1], pool[2], out=c) is c
+    _bits_equal(c.numpy(), want_c.numpy())
+
+
+def test_tile_wrappers_reject_bad_inputs():
+    t = torch.from_numpy(_dominant(8, seed=4))
+    with pytest.raises(ValueError, match="overlaps"):
+        ops.panel_update(t, t, t.clone(), out=t)  # out is a, read while written
+    with pytest.raises(ValueError, match="overlaps"):
+        ops.trsm_right_upper(t.clone(), t, out=t)
+    with pytest.raises(ValueError, match="overlaps"):
+        ops.trsm_left_unit_lower(t, t.clone(), out=t)
+    with pytest.raises(ValueError):
+        ops.panel_update(t, t[:, :3].contiguous(), t.clone())  # inner sizes differ
+    with pytest.raises(ValueError):
+        ops.trsm_right_upper(t[:, :5].contiguous(), t)
+    with pytest.raises(ValueError):
+        ops.trsm_left_unit_lower(t, t[:5].contiguous())
+    with pytest.raises(ValueError):
+        ops.tile_lu(t[:5].contiguous())  # not square
+    with pytest.raises(ValueError):
+        ops.tile_lu(t[None])  # not a matrix
+    with pytest.raises(TypeError):
+        ops.tile_lu(t.double())
+    with pytest.raises(ValueError):
+        ops.tile_lu(t, out=torch.empty(4, 4))
+    with pytest.raises(ValueError):
+        ops.trsm_right_upper(t.t(), t)  # not contiguous
+    with pytest.raises(ValueError):
+        ops.panel_update(*(x.to("meta") for x in (t, t, t)))
 
 
 @pytest.fixture
@@ -234,3 +379,30 @@ def test_cuda_batched_forms_and_inverse_chain_bitwise_vs_plain(name, cuda_device
     got = ops.inverse_chain(*dargs, on).cpu()
     _bits_equal(got.numpy(), ref.inverse_chain_ref(*iargs, bs).numpy())
     _bits_equal(got[0].numpy(), single.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs", [8, 32, 128])
+def test_cuda_tile_kernels_vs_plain(bs, cuda_device):
+    """trsm_* and tile_lu bitwise, panel_update to the float32 bound
+    2·K·2^-24·(|C| + |A||B|) of a float64 product; ragged panels too."""
+    t = torch.from_numpy(_dominant(bs, seed=bs + 7))
+    dev = lambda x: x.to(cuda_device)  # noqa: E731
+    packed = ref.tile_lu_nopiv_ref(t)
+    _bits_equal(ops.tile_lu(dev(t)).cpu().numpy(), packed.numpy())
+    for m in (bs, 3 * bs + 5):
+        a = torch.from_numpy(RNG.standard_normal((m, bs)).astype(np.float32))
+        _bits_equal(ops.trsm_right_upper(dev(a), dev(packed)).cpu().numpy(),
+                    ref.trsm_right_upper_ref(a, packed).numpy())
+        at = a.t().contiguous()
+        _bits_equal(ops.trsm_left_unit_lower(dev(packed), dev(at)).cpu().numpy(),
+                    ref.trsm_left_unit_lower_ref(packed, at).numpy())
+    for m, n, k in [(bs, bs, bs)] + PANEL_SHAPES:
+        a, b, c = (torch.from_numpy(RNG.standard_normal(s).astype(np.float32))
+                   for s in ((m, k), (k, n), (m, n)))
+        before = ops.panel_update.launches
+        got = ops.panel_update(dev(c), dev(a), dev(b)).cpu().double()
+        assert ops.panel_update.launches == before + 1
+        exact = c.double() - a.double() @ b.double()
+        limit = 2 * k * 2.0 ** -24 * (c.double().abs() + a.double().abs() @ b.double().abs())
+        assert bool(((got - exact).abs() <= limit).all())

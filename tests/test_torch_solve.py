@@ -26,10 +26,13 @@ import torch
 from repro.core.api import ilu as j_ilu
 from repro.core.bitmath import barred as j_barred
 from repro.core.numeric_ref import numeric_ilu_ref as j_numeric_ilu_ref
+from repro.core.solvers import cg as j_cg
+from repro.core.solvers import make_ell_matvec as j_make_ell_matvec
+from repro.core.solvers import csr_to_ell_arrays as j_csr_to_ell_arrays
 from repro.core.solvers import solve_with_ilu as j_solve
 from repro_torch.core.api import factorization_from_arrays, ilu
 from repro_torch.core.guard import BreakdownError
-from repro_torch.core.solvers import solve_with_ilu
+from repro_torch.core.solvers import cg, csr_to_ell_arrays, make_ell_matvec, solve_with_ilu
 from repro_torch.core.sparse import CSRMatrix
 from repro_torch.kernels import ops
 
@@ -103,7 +106,9 @@ def test_solve_with_ilu_matches_jax(name):
     again, _ = solve_with_ilu(ta, b, k=k, tol=tol, device="cpu")  # cached matvec + factor
     _bits_equal(again.x, tr.x)
     assert ops.launch_counts() == {"spmv_ell": 0, "factor_wavefront": 0,
-                                   "tri_solve_wavefront": 0, "inverse_chain": 0}
+                                   "tri_solve_wavefront": 0, "inverse_chain": 0,
+                                   "panel_update": 0, "trsm_right_upper": 0,
+                                   "trsm_left_unit_lower": 0, "tile_lu": 0}
 
 
 @pytest.mark.reference_fault
@@ -173,3 +178,60 @@ def test_cli_solves_on_cpu():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "converged=True" in out.stdout
+
+
+@pytest.mark.parametrize("k", [None, 0, 1])
+@pytest.mark.parametrize("nx", [12, 16])
+def test_cg_matches_jax(nx, k):
+    """CG, plain (k=None) and ILU(k)-preconditioned, through ``cg`` and
+    ``solve_with_ilu(method="cg")``: verdict and iterations equal, ``x``
+    within 1e-4·max|x| (the JAX ``vdot``/``norm`` fix no order of adds;
+    the port's are the fixed pairwise trees)."""
+    a = jmg.poisson_2d(nx)
+    ta = _port(a)
+    b = _rhs(a.n, seed=nx)
+    tol = 1e-5
+    jr, jf = j_solve(a, b, k=k, method="cg", tol=tol, use_pallas=False)
+    tr, tf = solve_with_ilu(ta, b, k=k, method="cg", tol=tol, device="cpu")
+    assert tr.verdict == jr.verdict == "converged"
+    assert tr.iterations == jr.iterations
+    assert np.abs(tr.x - jr.x).max() <= 1e-4 * np.abs(jr.x).max()
+    assert tr.history.shape == (tr.iterations,) and tr.history[-1] <= tol
+    if k is not None:
+        _bits_equal(tf.vals, jf.vals)
+    # the bare solvers, with the factorization's apply as the preconditioner
+    jm = j_make_ell_matvec(*j_csr_to_ell_arrays(a), a.n)
+    jd = j_cg(jm, b, None if k is None else jf.precond(use_pallas=False), tol=tol)
+    td = cg(make_ell_matvec(*csr_to_ell_arrays(ta, "cpu"), a.n), torch.from_numpy(b),
+            None if k is None else tf.precond(), tol=tol)
+    assert (td.verdict, td.iterations) == (jd.verdict, jd.iterations) == (jr.verdict,
+                                                                           jr.iterations)
+    _bits_equal(td.x, tr.x)
+
+
+def test_cg_verdicts_match_jax():
+    a = jmg.poisson_2d(8)
+    ta = _port(a)
+    jm = j_make_ell_matvec(*j_csr_to_ell_arrays(a), a.n)
+    tm = make_ell_matvec(*csr_to_ell_arrays(ta, "cpu"), a.n)
+    b = _rhs(a.n)
+    for rhs, kw in ((b, dict(maxiter=5)), (np.zeros_like(b), {}),
+                    (np.where(np.arange(a.n) == 3, np.nan, b).astype(np.float32), {})):
+        jr = j_cg(jm, rhs, tol=1e-6, **kw)
+        tr = cg(tm, torch.from_numpy(rhs), tol=1e-6, **kw)
+        assert (tr.verdict, tr.iterations) == (jr.verdict, jr.iterations)
+        assert tr.history.shape == jr.history.shape
+    assert tr.verdict == "breakdown" and np.isnan(tr.residual)
+
+
+def test_cg_rejects_batched_rhs_and_unported_methods():
+    a = jmg.poisson_2d(6)
+    bs = np.ones((2, a.n), np.float32)
+    with pytest.raises(ValueError, match="gmres"):
+        j_solve(a, bs, k=1, method="cg")
+    with pytest.raises(ValueError, match="gmres"):
+        solve_with_ilu(_port(a), bs, k=1, method="cg", device="cpu")
+    with pytest.raises(NotImplementedError, match="bicgstab"):
+        solve_with_ilu(_port(a), bs[0], k=1, method="bicgstab", device="cpu")
+    with pytest.raises(TypeError):
+        cg(lambda x: x, torch.ones((2, 3)))
