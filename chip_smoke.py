@@ -75,6 +75,9 @@ NB = 4  # right-hand sides of the batched kernel checks and the multi-RHS solve
 BS_TILE = 128  # the Block-ILU tile of the module's docstring; also bs = 32, bilu's default
 CG_TOL = 1e-4  # float32 CG's recursive residual drifts from the true one at 1e-5 here
 TILE_KERNELS = ("panel_update", "trsm_right_upper", "trsm_left_unit_lower", "tile_lu")
+DISTRIBUTED_KERNELS = ("epoch_sweep", "superstep_factor")
+SHARDED_D = 4  # band owners of the distributed path, on one card
+BAND_ROWS = 32  # rows per band (the JAX package's default)
 SRC = Path(__file__).resolve().parent / "src"
 SMALL = ("poisson_2d(64)", "convection_diffusion_2d(32)")
 
@@ -121,26 +124,36 @@ def time_ms(fn, reps, warmup=1):
 
 
 def kernel_events(prof):
-    """The device-side kernel events of a torch.profiler run."""
+    """(name, microseconds) of each device-side event of a torch.profiler
+    run, read from the Kineto results directly: the event tree that
+    ``prof.events()`` builds costs about a minute at 360k kernels."""
     from torch.autograd import DeviceType
 
-    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return [(e.name(), e.duration_ns() / 1e3) for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
 
 
-def device_ms(fn, kernel, reps=5):
+def device_ms(fn, kernel, reps=5, attempts=3, per_call=1):
     """Mean device time (ms) of the CUDA kernel ``kernel`` per call of
-    ``fn``, from torch.profiler's device trace; None if the trace has none."""
+    ``fn``, which launches it ``per_call`` times, from torch.profiler's
+    device trace of ``reps`` calls (the mean per launch times
+    ``per_call``); None if no trace of ``attempts`` holds it. A short trace
+    now and then comes back without the kernel's events, so each attempt
+    traces four times as many calls as the one before."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in kernel_events(prof) if e.name.startswith(kernel)]
-    return sum(us) / reps / 1e3 if us else None
+    for attempt in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps * 4 ** attempt):
+                fn()
+            torch.cuda.synchronize()
+        us = [t for name, t in kernel_events(prof) if name.startswith(kernel)]
+        if us:
+            return sum(us) / len(us) * per_call / 1e3
+    return None
 
 
 def bound(nbytes, nops):
@@ -285,7 +298,7 @@ def phase_kernels(dev):
         yardstick="Z_csr @ (W_csr @ b): two torch.sparse_csr_tensor products, not one call",
         yardstick_ms=time_ms(lambda: z_csr @ (w_csr @ x), reps=50),
         device_ms=device_ms(lambda: ops.inverse_chain(*iargs, x), "inverse_chain_kernel",
-                            reps=20))
+                            reps=20, per_call=2))
     for r in rows.values():
         dms = "not measured" if r["device_ms"] is None else f"{r['device_ms']:.4f} ms"
         say(f"[kernels] {r['name']}: bitwise equal to plain; {r['ms']:.4f} ms per call "
@@ -323,7 +336,8 @@ def phase_kernels(dev):
         r = rows[name]
         r.update(batched_nb=NB, batched_max_abs_err=max_abs_err(got, want),
                  batched_ms=time_ms(lambda: kern(bs), reps=10 if "tri" in name else 50),
-                 batched_device_ms=device_ms(lambda: kern(bs), f"{name}_kernel", reps=10),
+                 batched_device_ms=device_ms(lambda: kern(bs), f"{name}_kernel", reps=10,
+                                             per_call=2 if name == "inverse_chain" else 1),
                  batched_bound_ms=b_ms)
         dms = ("not measured" if r["batched_device_ms"] is None
                else f"{r['batched_device_ms']:.4f} ms")
@@ -391,7 +405,11 @@ def phase_factors(dev):
             want = numeric_ilu_ref(a, f.pattern)
             require(np.array_equal(f.vals.view(np.int32), want.view(np.int32)),
                     f"factor values of {name} k={k} != numeric_ilu_ref")
-            say(f"[factors] {name} k={k}: nnz={f.nnz} bitwise equal to numeric_ilu_ref")
+            t = ilu(a, k, backend="topilu", n_devices=SHARDED_D, band_rows=BAND_ROWS, device=dev)
+            require(np.array_equal(t.vals.view(np.int32), want.view(np.int32)),
+                    f"TOP-ILU values of {name} k={k} (D={SHARDED_D}) != numeric_ilu_ref")
+            say(f"[factors] {name} k={k}: nnz={f.nnz} bitwise equal to numeric_ilu_ref "
+                f"(factor_wavefront, and TOP-ILU over {SHARDED_D} band owners)")
 
 
 def small_matrix(name):
@@ -480,7 +498,7 @@ def phase_main_path(dev):
     require(np.isfinite(res.x).all() and res.x.shape == (a.n,), "main solve x malformed")
     require(true_rel <= 2 * TOL, f"float64 true residual {true_rel:.3e} > 2*tol")
     profile_resolve("main", a, b, dev, tol=TOL)
-    return counts, b, res, wall
+    return counts, b, res, wall, fact
 
 
 def phase_main_inverse(dev, b):
@@ -510,7 +528,7 @@ def phase_main_inverse(dev, b):
     require(np.isfinite(res.x).all() and res.x.shape == (a.n,), "inverse solve x malformed")
     require(true_rel <= 2 * INV_TOL, f"float64 true residual {true_rel:.3e} > 2*tol")
     profile_resolve("main-inverse", a, b, dev, tol=INV_TOL, precond_method="inverse")
-    return counts
+    return counts, res
 
 
 def phase_multi_rhs(dev, b, single, single_wall):
@@ -554,30 +572,33 @@ def phase_multi_rhs(dev, b, single, single_wall):
     return counts
 
 
-def profile_resolve(path, a, b, dev, **kw):
+def profile_resolve(path, a, b, dev, solve=None, activities=("cpu", "cuda"), **kw):
     """Where the solve's time goes: one restart (30 Arnoldi steps) of the
     same solve again, with the factorization, its preconditioner and the
     matvec cached on the matrix, so this is the GMRES part alone, under
     torch.profiler (one restart keeps the trace small); device busy time =
-    the sum of kernel durations."""
+    the sum of kernel durations. ``solve`` defaults to ``solve_with_ilu``;
+    ``activities=("cuda",)`` traces the device alone (a smaller trace)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.solvers import solve_with_ilu
 
+    solve = solve or solve_with_ilu
+    acts = [{"cpu": ProfilerActivity.CPU, "cuda": ProfilerActivity.CUDA}[x] for x in activities]
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        solve_with_ilu(a, b, k=1, method="gmres", device=dev, maxiter=1, **kw)
+        solve(a, b, k=1, method="gmres", device=dev, maxiter=1, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = kernel_events(prof)
-    busy = sum(e.time_range.elapsed_us() for e in events) / 1e6
+    busy = sum(us for _, us in events) / 1e6
     by_name = {}
-    for e in events:
-        key = e.name.split("(")[0][:60]
+    for name, us in events:
+        key = name.split("(")[0][:60]
         n, t = by_name.get(key, (0, 0.0))
-        by_name[key] = (n + 1, t + e.time_range.elapsed_us() / 1e6)
+        by_name[key] = (n + 1, t + us / 1e6)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
     say(f"[profile {path}] one restart (cached factor) under torch.profiler: wall {wall:.3f} s,"
         f" {len(events)} kernels, device busy {busy:.3f} s ({100 * busy / wall:.1f}% of wall)")
@@ -836,12 +857,12 @@ def profile_bilu(tag, a, bs, dev):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fact = bilu(a, 1, bs=bs, device=dev)
     events = kernel_events(prof)
-    busy = sum(e.time_range.elapsed_us() for e in events) / 1e6
+    busy = sum(us for _, us in events) / 1e6
     by_name = {}
-    for e in events:
-        key = e.name.split("(")[0][:60]
+    for name, us in events:
+        key = name.split("(")[0][:60]
         n, t = by_name.get(key, (0, 0.0))
-        by_name[key] = (n + 1, t + e.time_range.elapsed_us() / 1e6)
+        by_name[key] = (n + 1, t + us / 1e6)
     say(f"[profile {tag}] numeric phase under torch.profiler: wall {fact.numeric_seconds:.3f} s,"
         f" {len(events)} kernels, device busy {busy:.3f} s "
         f"({100 * busy / fact.numeric_seconds:.1f}% of the numeric wall)")
@@ -914,6 +935,402 @@ def phase_cg(dev, b):
     return counts
 
 
+def phase_topilu(dev, main_fact, nx=400):
+    """[topilu]: the band-superstep factorization of poisson_2d(nx), ILU(1),
+    over SHARDED_D band owners on the card: host plan, numeric wall,
+    supersteps, launches and exchanges; its values bitwise equal to the
+    card's factor_wavefront factors of the main path."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.api import ilu_sharded
+    from repro_torch.core.matgen import poisson_2d
+    from repro_torch.core.top_ilu import ENGINE_CACHE_KEY, BandGroup
+    from repro_torch.kernels import ops
+
+    a = poisson_2d(nx)
+    group = BandGroup(SHARDED_D, dev)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fact = ilu_sharded(a, 1, band_rows=BAND_ROWS, group=group)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    plan = fact.plan
+    plan_s = next(iter(a.__dict__[ENGINE_CACHE_KEY].values()))["plan_seconds"]
+    say(f"[topilu] poisson_2d({nx}) n={a.n} ILU(1) over {SHARDED_D} band owners of "
+        f"{BAND_ROWS}-row bands: {plan.n_bands} bands, {plan.n_supersteps} supersteps "
+        f"(<= {plan.bands_per_superstep} bands per owner each), halo {plan.halo_size} rows, "
+        f"E={plan.egress_max} W={plan.width} MP={plan.max_piv}")
+    say(f"[topilu] wall {wall:.3f} s = symbolic {fact.symbolic_seconds:.3f} s + host plan "
+        f"{plan_s:.3f} s + numeric and audit {fact.numeric_seconds - plan_s:.3f} s; "
+        f"{counts['superstep_factor']} superstep_factor launches, {group.exchanges} exchanges "
+        f"({group.payload_bytes / 1e6:.2f} MB sent per owner)")
+    require(counts["superstep_factor"] == plan.n_supersteps,
+            f"topilu launched superstep_factor {counts['superstep_factor']} times for "
+            f"{plan.n_supersteps} supersteps")
+    require(group.exchanges == plan.n_supersteps, "topilu: not one exchange per superstep")
+    require(np.array_equal(fact.values_csr().view(np.int32), main_fact.vals.view(np.int32)),
+            "TOP-ILU values != the main path's factor_wavefront values")
+    group.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = ilu_sharded(a, 1, band_rows=BAND_ROWS, group=group)  # the engine is cached
+    torch.cuda.synchronize()
+    say(f"[topilu] values bitwise equal to the main path's factor_wavefront factors; a "
+        f"refactorization with the cached plan takes {time.perf_counter() - t0:.3f} s "
+        f"(numeric and audit {again.numeric_seconds:.3f} s)")
+    return fact, group
+
+
+def checked_superstep(state, sched, s, *rest):
+    """One superstep through the kernel, held bitwise against the plain
+    version on the same input state."""
+    from repro_torch.kernels import ops, ref
+
+    want = ref.superstep_factor_ref(state, sched, s, *rest)
+    ops.superstep_factor(state, sched, s, *rest)
+    require(bits_equal(state, want), f"superstep_factor kernel != plain version at superstep {s}")
+    return state
+
+
+def superstep_bound(plan, s):
+    """Bytes and operations of superstep s, counting what the kernel must
+    read for this superstep's data: the schedule entry of each block; each
+    member band's rows read and written and its n_piv; piv_addr, piv_dlane
+    and the W-lane piv_dst of each valid pivot only (p < n_piv: the kernel
+    reads no other); the out-of-band pivot rows read once. A divide per
+    valid pivot and a rounded update per kept lane."""
+    import numpy as np
+
+    from repro_torch.core.numeric import plan_device_arrays
+
+    arr = plan_device_arrays(plan, keys=("piv_addr", "piv_dst", "n_piv"))
+    bands = plan.superstep_bands[s]
+    R, W, MP, D = plan.band_rows, plan.width, plan.max_piv, plan.n_devices
+    nbytes, nops, pulled = bands.size * 4, 0, set()
+    for d in range(D):
+        for b in bands[d][bands[d] < plan.n_bands]:
+            base = (int(b) // D) * R
+            rows = slice(base, base + R)
+            npv = arr["n_piv"][d, rows]
+            valid = np.arange(MP)[None, :] < npv[:, None]
+            kept = (arr["piv_dst"][d, rows] < W) & valid[:, :, None]
+            nops += int(valid.sum()) + 2 * int(kept.sum())
+            addr = arr["piv_addr"][d, rows][valid]
+            pulled |= {(d, int(x)) for x in addr if not base <= x < base + R}
+            nbytes += 2 * R * W * 4 + R * 4 + int(valid.sum()) * (2 + W) * 4
+    return nbytes + len(pulled) * W * 4, nops
+
+
+def epoch_bound(sched, lo, hi, nb, with_diag):
+    """Bytes and operations of one epoch_sweep launch over levels [lo, hi)
+    of ``sched`` for nb right-hand sides, counting what this epoch's data
+    needs: every lane's column index, the values of the unmasked lanes only
+    (the kernel loads no other), each gathered x slot once per owner and
+    right-hand side, the rhs (and diag) of every row and every slot's
+    write, pad rows included; a rounded product and add per unmasked lane
+    and a subtract (and divide) per row."""
+    import numpy as np
+
+    c = np.asarray(sched.cols_local[:, lo:hi])  # (D, levels, maxr, W)
+    mask = c < sched.scratch
+    lanes = int(mask.sum())
+    gathered = sum(np.unique(c[d][mask[d]]).size for d in range(c.shape[0]))
+    rows = c.shape[0] * c.shape[1] * c.shape[2]
+    nbytes = 4 * c.size + 4 * lanes + 4 * nb * gathered + 8 * nb * rows
+    nops = nb * (2 * lanes + rows)
+    if with_diag:
+        nbytes += 4 * rows
+        nops += nb * rows
+    return nbytes, nops
+
+
+def phase_distributed_kernels(dev, fact, nx_small=64):
+    """[kernels] rows of the distributed path: ``epoch_sweep`` held bitwise
+    against its plain version over every epoch of both sweeps at the
+    full-size tables of ``fact`` (single and nb=NB right-hand sides), and
+    ``superstep_factor`` over every superstep at poisson_2d(nx_small) for
+    D = 1, 2, 4 and both broadcasts; then their times at full size."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.matgen import poisson_2d
+    from repro_torch.core.numeric import (
+        make_superstep_factorizer,
+        plan_device_arrays,
+        plan_state_array,
+    )
+    from repro_torch.core.numeric_ref import numeric_ilu_ref
+    from repro_torch.core.planner import make_plan
+    from repro_torch.core.symbolic import pilu1_symbolic
+    from repro_torch.core.top_ilu import BandGroup, _values_to_csr_order
+    from repro_torch.kernels import ops, ref
+
+    rng = np.random.default_rng(SEED + 6)
+    apply = fact.precond()
+    tp, eng = apply.plan, apply._engine
+    sides = (("L", tp.l_sched, eng._l_cols, apply._lv, None),
+             ("U", tp.u_sched, eng._u_cols, apply._uv, apply._dg))
+    t0 = time.perf_counter()
+    for nb in (1, NB):
+        for side, sched, cols, vals, diag in sides:
+            D, nlev, maxr, _ = cols.shape
+            x0 = torch.as_tensor(rng.standard_normal((D, nb, sched.scratch + 1))
+                                 .astype(np.float32), device=dev)
+            rhs = torch.as_tensor(rng.standard_normal((D, nb, nlev, maxr)).astype(np.float32),
+                                  device=dev)
+            xk, xp = x0.clone(), x0
+            bounds = [int(v) for v in sched.epoch_bounds]
+            for lo, hi in zip(bounds[:-1], bounds[1:]):
+                ops.epoch_sweep(xk, cols, vals, rhs, diag, lo, hi, sched.scratch)
+                xp = ref.epoch_sweep_ref(xp, cols, vals, rhs, diag, lo, hi, sched.scratch)
+            require(bits_equal(xk, xp), f"epoch_sweep ({side}, nb={nb}) kernel != plain version "
+                    "over the full-size epochs")
+    say(f"[kernels] epoch_sweep: every epoch of the L ({tp.l_sched.n_epochs}) and U "
+        f"({tp.u_sched.n_epochs}) sweeps of the n={tp.n} plan over {tp.n_devices} owners, "
+        f"single and nb={NB}, bitwise equal to plain on the card "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    a = poisson_2d(nx_small)
+    pattern = pilu1_symbolic(a)
+    want = numeric_ilu_ref(a, pattern)
+    for d in (1, 2, 4):
+        for bc in ("gather", "ring"):
+            plan = make_plan(a, pattern, BAND_ROWS, d)
+            fac = make_superstep_factorizer(plan, BandGroup(d, dev), broadcast=bc)
+            loc = fac(plan_state_array(plan, a), step=checked_superstep)
+            dm = loc.cpu().numpy().reshape(plan.n_pad, plan.width)
+            got = _values_to_csr_order(plan, pattern, plan.rows_from_device_major(dm))
+            require(np.array_equal(got.view(np.int32), want.view(np.int32)),
+                    f"superstep factorization of poisson_2d({nx_small}) D={d} {bc} != oracle")
+            say(f"[kernels] superstep_factor: poisson_2d({nx_small}) D={d} {bc}: each of "
+                f"{plan.n_supersteps} supersteps bitwise equal to plain, the factor to "
+                "numeric_ilu_ref")
+
+    # times at full size: the epoch of median length, and the fullest superstep
+    side, sched, cols, vals, diag = sides[0]
+    bounds = np.asarray(sched.epoch_bounds)
+    lens = np.diff(bounds)
+    e = int(np.argsort(lens, kind="stable")[len(lens) // 2])
+    lo, hi = int(bounds[e]), int(bounds[e + 1])
+    D, nlev, maxr, w = cols.shape
+    x = torch.zeros((D, 1, sched.scratch + 1), dtype=torch.float32, device=dev)
+    rhs = torch.as_tensor(rng.standard_normal((D, 1, nlev, maxr)).astype(np.float32), device=dev)
+    b_ms, b_by = bound(*epoch_bound(sched, lo, hi, 1, False))
+    run = lambda: ops.epoch_sweep(x, cols, vals, rhs, None, lo, hi, sched.scratch)  # noqa: E731
+
+    def all_epochs():
+        for s_, sc, cl, vl, dg in sides:
+            bd = [int(v) for v in sc.epoch_bounds]
+            xs = torch.zeros((D, 1, sc.scratch + 1), dtype=torch.float32, device=dev)
+            rs = torch.zeros((D, 1, cl.shape[1], cl.shape[2]), dtype=torch.float32, device=dev)
+            for l0, h0 in zip(bd[:-1], bd[1:]):
+                ops.epoch_sweep(xs, cl, vl, rs, dg, l0, h0, sc.scratch)
+
+    n_ep = tp.l_sched.n_epochs + tp.u_sched.n_epochs
+    rows_out = {"epoch_sweep": dict(
+        name="epoch_sweep", route="cuda", source="src/repro_torch/kernels/csrc/epoch_sweep.cu",
+        replaces="src/repro/kernels/tri_sweep_epoch.py:49", launches=0,
+        max_abs_err=max_abs_err(xk, xp), ms=time_ms(run, reps=50),
+        plain_ms=time_ms(lambda: ref.epoch_sweep_ref(x, cols, vals, rhs, None, lo, hi,
+                                                     sched.scratch), reps=10),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, epoch_levels=hi - lo,
+        launches_per_apply=n_ep, all_epochs_ms=time_ms(all_epochs, reps=3),
+        device_ms=device_ms(run, "epoch_sweep_kernel", reps=20))}
+
+    plan = fact.plan
+    members = (plan.superstep_bands < plan.n_bands).sum(axis=(1, 2))
+    s = int(np.argmax(members))
+    before = {}
+
+    def capture(st, sched, ss, *rest):  # the state superstep s finds on the path
+        if ss == s:
+            before["state"] = st.clone()
+        ops.superstep_factor(st, sched, ss, *rest)
+
+    make_superstep_factorizer(plan, fact.group)(plan_state_array(plan, fact.a), step=capture)
+    state = before["state"]
+    arrs = {k: torch.as_tensor(np.ascontiguousarray(v), dtype=torch.int32, device=dev)
+            for k, v in plan_device_arrays(plan, keys=("sched", "piv_addr", "piv_dlane",
+                                                       "piv_dst", "n_piv")).items()}
+    targs = (arrs["sched"], s, arrs["piv_addr"], arrs["piv_dlane"], arrs["piv_dst"],
+             arrs["n_piv"], plan.n_bands, plan.band_rows)
+    want_s = ref.superstep_factor_ref(state, *targs)
+    got_s = ops.superstep_factor(state.clone(), *targs)
+    require(bits_equal(got_s, want_s), "superstep_factor kernel != plain at full size")
+    require(bool(torch.isfinite(got_s).all()),
+            f"superstep_factor at full size: the state of superstep {s} holds non-finite values")
+    nbytes, nops = superstep_bound(plan, s)
+    b_ms, b_by = bound(nbytes, nops)
+    st = state.clone()
+    rows_out["superstep_factor"] = dict(
+        name="superstep_factor", route="cuda",
+        source="src/repro_torch/kernels/csrc/superstep_factor.cu",
+        replaces="src/repro/core/numeric_jax.py:122", launches=0,
+        max_abs_err=max_abs_err(got_s, want_s),
+        ms=time_ms(lambda: ops.superstep_factor(st, *targs), reps=50),
+        plain_ms=time_ms(lambda: ref.superstep_factor_ref(state, *targs), reps=5),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, port_only=True,
+        note="no TPU kernel: the JAX package runs the superstep body as plain JAX",
+        superstep_members=int(members[s]), supersteps=plan.n_supersteps,
+        device_ms=device_ms(lambda: ops.superstep_factor(st, *targs), "superstep_factor_kernel",
+                            reps=20))
+    for r in rows_out.values():
+        dms = "not measured" if r["device_ms"] is None else f"{r['device_ms']:.4f} ms"
+        say(f"[kernels] {r['name']}: bitwise equal to plain; {r['ms']:.4f} ms per call (device "
+            f"{dms}; plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.5f} ms by "
+            f"{r['bound_by']}, no library call)"
+            + (f"; {n_ep} launches per apply, all of them back to back "
+               f"{r['all_epochs_ms']:.2f} ms" if r["name"] == "epoch_sweep" else
+               f"; superstep {s} of {plan.n_supersteps}, {r['superstep_members']} bands"))
+    return rows_out
+
+
+def phase_sharded_apply(dev, main_fact, fact4, nx=400):
+    """[sharded-apply]: the band-partitioned apply at D = 1 and D =
+    SHARDED_D, single and nb=NB, bitwise equal to the main path's
+    PrecondApply; exactly one epoch_sweep launch per epoch per apply and the
+    plan's exchanges; the time per apply."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.api import ilu_sharded
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(SEED + 7)
+    want = main_fact.precond()
+    fact1 = ilu_sharded(main_fact.a, 1, band_rows=BAND_ROWS, n_devices=1, device=dev)
+    b = torch.as_tensor(rng.standard_normal(main_fact.a.n).astype(np.float32), device=dev)
+    bs = torch.as_tensor(rng.standard_normal((NB, main_fact.a.n)).astype(np.float32), device=dev)
+    ref_ms = time_ms(lambda: want(b), reps=10)
+    for f in (fact1, fact4):
+        apply = f.precond()
+        tp = apply.plan
+        n_ep = tp.l_sched.n_epochs + tp.u_sched.n_epochs
+        f.group.reset_counts()
+        ops.reset_launch_counts()
+        got = apply(b)
+        counts = ops.launch_counts()
+        tag = f"sharded-apply D={f.n_devices}"
+        check_launches(tag, counts, ("epoch_sweep",),
+                       idle=("tri_solve_wavefront", "spmv_ell", "inverse_chain"))
+        require(counts["epoch_sweep"] == n_ep, f"{tag}: {counts['epoch_sweep']} epoch_sweep "
+                f"launches for {n_ep} epochs")
+        require(f.group.collectives == tp.sweep_collectives_per_apply("gather"),
+                f"{tag}: {f.group.collectives} exchanges, the plan models "
+                f"{tp.sweep_collectives_per_apply('gather')}")
+        require(bits_equal(got, want(b)), f"{tag} != the single-device PrecondApply")
+        got_b = apply.batched(bs)
+        require(bits_equal(got_b, want.batched(bs)), f"{tag} nb={NB} != PrecondApply nb={NB}")
+        reps = 10 if f.n_devices == 1 else 3
+        ms = time_ms(lambda: apply(b), reps=reps)
+        ms_b = time_ms(lambda: apply.batched(bs), reps=reps)
+        say(f"[{tag}] {tp.nl_levels}+{tp.nu_levels} levels in {tp.l_sched.n_epochs}+"
+            f"{tp.u_sched.n_epochs} epochs, {tp.sweep_collectives_per_apply()} exchanges and "
+            f"{tp.sweep_payload_slots()} payload slots per apply (comm_summary "
+            f"{json.dumps(tp.comm_summary())}); single and nb={NB} bitwise equal to "
+            f"PrecondApply; {ms:.3f} ms per apply, nb={NB} {ms_b:.3f} ms "
+            f"(tri_solve_wavefront {ref_ms:.3f} ms)")
+    return fact1
+
+
+def phase_distributed(dev, b, single, nx=400):
+    """Path E: solve_sharded on poisson_2d(nx), ILU(1) over SHARDED_D band
+    owners, GMRES(30), tol TOL: steps, restarts and x bitwise equal to the
+    main path's single-device solve; wall split into factor and solve; one
+    profiled restart."""
+    import numpy as np
+
+    from repro_torch.core.matgen import poisson_2d
+    from repro_torch.core.solvers import solve_sharded
+    from repro_torch.kernels import ops
+
+    a = poisson_2d(nx)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res, fact = solve_sharded(a, b, k=1, n_devices=SHARDED_D, band_rows=BAND_ROWS,
+                              broadcast="gather", tol=TOL, device=dev)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    factor_s = fact.symbolic_seconds + fact.numeric_seconds
+    true_rel = true_residual(a, b, res.x)
+    tp = fact.precond().plan
+    say(f"[distributed] poisson_2d({nx}) n={a.n} ILU(1) over {SHARDED_D} band owners, "
+        f"GMRES(30) tol={TOL}: verdict={res.verdict} inner steps={res.iterations} restarts="
+        f"{len(res.history)} residual={res.residual:.3e} float64 true residual={true_rel:.3e}")
+    say(f"[distributed] wall {wall:.3f} s = factor {factor_s:.3f} s (symbolic "
+        f"{fact.symbolic_seconds:.3f} s, plan + supersteps + audit {fact.numeric_seconds:.3f} s)"
+        f" + solve {wall - factor_s:.3f} s (row-block ELL, sweep plan + extract, GMRES; "
+        f"{tp.l_sched.n_epochs + tp.u_sched.n_epochs} epoch launches and "
+        f"{tp.sweep_collectives_per_apply()} exchanges per apply)")
+    check_launches("distributed", counts, ("epoch_sweep", "superstep_factor", "spmv_ell"),
+                   idle=("factor_wavefront", "tri_solve_wavefront", "inverse_chain"))
+    require(res.verdict == single.verdict and res.iterations == single.iterations
+            and len(res.history) == len(single.history),
+            f"distributed solve ({res.verdict}, {res.iterations} steps) != main "
+            f"({single.verdict}, {single.iterations} steps)")
+    require(np.array_equal(res.x.view(np.int32), single.x.view(np.int32)),
+            "distributed x != the main path's x")
+    say("[distributed] steps, restarts, verdict and x bitwise equal to [main]")
+    profile_resolve("distributed", a, b, dev, solve=solve_sharded, activities=("cuda",),
+                    tol=TOL, n_devices=SHARDED_D, band_rows=BAND_ROWS)
+    return counts
+
+
+def phase_distributed_inverse(dev, b, single, nx=400):
+    """solve_sharded with precond_method="inverse" at tol INV_TOL: x
+    bitwise equal to [main-inverse]."""
+    import numpy as np
+
+    from repro_torch.core.matgen import poisson_2d
+    from repro_torch.core.solvers import solve_sharded
+    from repro_torch.kernels import ops
+
+    a = poisson_2d(nx)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res, fact = solve_sharded(a, b, k=1, n_devices=SHARDED_D, band_rows=BAND_ROWS,
+                              tol=INV_TOL, precond_method="inverse", device=dev)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    factor_s = fact.symbolic_seconds + fact.numeric_seconds
+    say(f"[distributed-inverse] poisson_2d({nx}) over {SHARDED_D} owners, inverse GMRES(30) "
+        f"tol={INV_TOL}: verdict={res.verdict} inner steps={res.iterations} restarts="
+        f"{len(res.history)}; wall {wall:.3f} s = factor {factor_s:.3f} s + solve "
+        f"{wall - factor_s:.3f} s (inverse plan and values, two exchanges per apply); "
+        f"'auto' resolves to {fact.resolve_method('auto')!r}")
+    check_launches("distributed-inverse", counts, ("superstep_factor", "spmv_ell"),
+                   idle=("epoch_sweep", "factor_wavefront", "tri_solve_wavefront",
+                         "inverse_chain"))
+    require((res.verdict, res.iterations) == (single.verdict, single.iterations)
+            and np.array_equal(res.x.view(np.int32), single.x.view(np.int32)),
+            "distributed inverse solve != [main-inverse]")
+    say("[distributed-inverse] steps, verdict and x bitwise equal to [main-inverse]")
+    return counts
+
+
+def phase_sharded_card_vs_cpu(dev, nx=32):
+    import numpy as np
+
+    from repro_torch.core.matgen import poisson_2d
+    from repro_torch.core.solvers import solve_sharded
+
+    a = poisson_2d(nx)
+    b = np.random.default_rng(SEED + 2).standard_normal(a.n).astype(np.float32)
+    cpu, _ = solve_sharded(a, b, k=1, n_devices=2, band_rows=BAND_ROWS, tol=TOL, device="cpu")
+    for bc in ("gather", "ring"):
+        gpu, _ = solve_sharded(a, b, k=1, n_devices=2, band_rows=BAND_ROWS, broadcast=bc,
+                               tol=TOL, device=dev)
+        same = np.array_equal(gpu.x.view(np.int32), cpu.x.view(np.int32))
+        say(f"[card-vs-cpu] poisson_2d({nx}) solve_sharded D=2 {bc}: {gpu.iterations} (card) vs "
+            f"{cpu.iterations} (cpu) steps, verdict {gpu.verdict}/{cpu.verdict}, x bitwise "
+            f"equal: {same}")
+        require(same and (gpu.iterations, gpu.verdict) == (cpu.iterations, cpu.verdict),
+                f"card sharded solve ({bc}) != CPU sharded solve on poisson_2d({nx})")
+
+
 def run(oracles):
     import torch
 
@@ -938,19 +1355,26 @@ def run(oracles):
     phase_factors(dev)
     phase_inverse_oracles(dev, oracles)
     by_path = {}
-    counts, b, single, single_wall = phase_main_path(dev)
+    counts, b, single, single_wall, main_fact = phase_main_path(dev)
     by_path["main"] = counts
-    by_path["main-inverse"] = phase_main_inverse(dev, b)
+    by_path["main-inverse"], inv_single = phase_main_inverse(dev, b)
     by_path["multi-rhs"] = phase_multi_rhs(dev, b, single, single_wall)
     phase_card_vs_cpu(dev)
     for bs in (BS_TILE, 32):
         by_path[f"bilu-bs{bs}"] = phase_bilu(dev, bs)
     phase_bilu_card_vs_cpu(dev)
     by_path["cg"] = phase_cg(dev, b)
+    fact4, _ = phase_topilu(dev, main_fact)
+    rows.update(phase_distributed_kernels(dev, fact4))
+    phase_sharded_apply(dev, main_fact, fact4)
+    by_path["distributed"] = phase_distributed(dev, b, single)
+    by_path["distributed-inverse"] = phase_distributed_inverse(dev, b, inv_single)
+    phase_sharded_card_vs_cpu(dev)
 
     for name, r in rows.items():
         path = ("main-inverse" if name == "inverse_chain"
-                else f"bilu-bs{BS_TILE}" if name in TILE_KERNELS else "main")
+                else f"bilu-bs{BS_TILE}" if name in TILE_KERNELS
+                else "distributed" if name in DISTRIBUTED_KERNELS else "main")
         r["launches"] = by_path[path][name]
         r["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
     say(json.dumps({"kernels": list(rows.values())}))

@@ -5,14 +5,17 @@
     x = fact.solve(b)                  # apply M^{-1} (two triangular sweeps)
     M = fact.precond("inverse")        # or M^{-1} ~= Z W, the incomplete-inverse chain
 
-The counterpart of ``repro/core/api.py`` for one device. Backends:
+The counterpart of ``repro/core/api.py``. Backends:
 
 * ``torch``  — the wavefront factorization over a cached ``FactorPlan``:
   the ``factor_wavefront`` CUDA kernel on a GPU, its plain PyTorch version
   on the CPU.
 * ``oracle`` — the sequential NumPy oracle (the paper's algorithm).
+* ``topilu`` — the distributed band-superstep factorization (TOP-ILU, paper
+  §IV) over D band owners, gathered to the host; :func:`ilu_sharded` keeps
+  its output sharded on the device.
 
-Both give the same bits. ``device=None`` means CUDA and raises when no GPU
+All give the same bits. ``device=None`` means CUDA and raises when no GPU
 is present; pass ``device="cpu"`` to run on the CPU.
 """
 from __future__ import annotations
@@ -99,6 +102,80 @@ def _symbolic(a: CSRMatrix, k: int, rule: str):
     return symbolic_ilu_k(a, k, rule=rule)
 
 
+def _check_ordering(ordering) -> None:
+    if ordering not in (None, "natural"):
+        raise NotImplementedError(
+            f"ordering={ordering!r}: only the natural ordering is ported so far; the RCM "
+            "and fusion orderings come with ROADMAP Queue A item 7")
+
+
+def _group(n_devices: int, device, group):
+    """The band owners of a distributed factorization: ``group`` itself, or
+    a new :class:`~repro_torch.core.top_ilu.BandGroup` of ``n_devices``."""
+    from .top_ilu import BandGroup
+
+    if group is not None:
+        if device is not None and resolve_device(device) != group.device:
+            raise ValueError(f"device {device} is not the group's device {group.device}")
+        return group
+    return BandGroup(n_devices, resolve_device(device))
+
+
+def ilu_sharded(
+    a: CSRMatrix,
+    k: int,
+    rule: str = "sum",
+    band_rows: int = 32,
+    n_devices: int = 1,
+    broadcast: str = "gather",
+    ordering=None,
+    precond_method: str = "sweep",
+    on_breakdown: str = "raise",
+    pivot_tol: Optional[float] = None,
+    shift0: Optional[float] = None,
+    max_shifts: Optional[int] = None,
+    group=None,
+    device=None,
+):
+    """Distributed factorization over ``n_devices`` band owners (or the
+    owners of ``group``) whose output **stays sharded**: a
+    :class:`~repro_torch.core.top_ilu.ShardedILUFactorization`, each
+    owner's block of factor values on the device, the preconditioner
+    applying in place, ``values_csr()`` gathering to the host only on
+    request. Bitwise contract identical to every other backend: the values
+    equal the sequential oracle's. ``device=None`` means CUDA and raises
+    without a GPU; ``device="cpu"`` runs the plain PyTorch versions.
+
+    ``on_breakdown`` selects the pivot-guard policy (``core.guard``): every
+    factorization is audited on the device (a pure read); on a breakdown the
+    shift ladder refactors ``A + α·diag(‖row‖₁)`` through the same cached
+    engine (the shifted matrix shares A's structure, so a rung re-scatters
+    values and re-runs), each shifted factor bitwise equal to the sequential
+    oracle of the shifted matrix. ``ordering`` other than the natural one is
+    not ported yet (ROADMAP Queue A item 7)."""
+    from .guard import audit_sharded
+    from .top_ilu import topilu_factor_sharded
+
+    _check_ordering(ordering)
+    grp = _group(n_devices, device, group)
+    t0 = time.perf_counter()
+    pattern = _symbolic(a, k, rule)
+    t1 = time.perf_counter()
+
+    def factor(mat):
+        return topilu_factor_sharded(mat, pattern, band_rows=band_rows, group=grp,
+                                     broadcast=broadcast)
+
+    _sysmat, fact, health = run_ladder(
+        a, factor, lambda f: audit_sharded(f, pivot_tol), on_breakdown,
+        shift0=shift0, max_shifts=max_shifts)
+    fact.symbolic_seconds = t1 - t0
+    fact.numeric_seconds = time.perf_counter() - t1
+    fact.precond_method = precond_method
+    fact.health = health
+    return fact
+
+
 def ilu(
     a: CSRMatrix,
     k: int,
@@ -110,25 +187,43 @@ def ilu(
     max_shifts: Optional[int] = None,
     precond_method: str = "sweep",
     device=None,
+    band_rows: int = 32,
+    n_devices: int = 1,
+    broadcast: str = "gather",
+    ordering=None,
+    group=None,
 ) -> ILUFactorization:
     """ILU(k) of ``a``. ``on_breakdown`` (``"raise"|"shift"|"fallback"|
     "ignore"``) is the pivot-guard policy of :mod:`repro_torch.core.guard`:
     the audit is a pure read, so a healthy factorization is bitwise
     unaffected; when the ladder engages, the returned ``a``/``vals``
     describe the shifted system. ``precond_method`` is the factorization's
-    default apply (see :class:`ILUFactorization`)."""
-    if backend not in ("torch", "oracle"):
-        raise ValueError(f"unknown backend {backend!r}: expected 'torch' or 'oracle'")
-    dev = resolve_device(device)
+    default apply (see :class:`ILUFactorization`). ``backend="topilu"`` runs
+    the band-superstep factorization over ``n_devices`` band owners (or
+    ``group``'s) with ``band_rows``-row bands and ``broadcast`` exchanges,
+    and gathers its values to the host; :func:`ilu_sharded` keeps them
+    sharded."""
+    if backend not in ("torch", "oracle", "topilu"):
+        raise ValueError(f"unknown backend {backend!r}: expected 'torch', 'oracle' or "
+                         "'topilu'")
+    _check_ordering(ordering)
+    dev = resolve_device(device if group is None or device is not None else group.device)
+    grp = _group(n_devices, dev, group) if backend == "topilu" else None
     t0 = time.perf_counter()
     pattern = _symbolic(a, k, rule)
     t1 = time.perf_counter()
 
     # the ladder refactors shifted matrices through this closure; a shifted
-    # matrix adopts a's cached FactorPlan, so a rung does not re-plan
+    # matrix adopts a's cached FactorPlan (and TOP-ILU engine), so a rung
+    # does not re-plan
     def numeric(mat):
         if backend == "oracle":
             return np.asarray(numeric_ilu_ref(mat, pattern), np.float32)
+        if backend == "topilu":
+            from .top_ilu import topilu_numeric
+
+            return topilu_numeric(mat, pattern, band_rows=band_rows, group=grp,
+                                  broadcast=broadcast)
         from .factor_plan import factor_plan_for
 
         return factor_plan_for(mat, pattern).factorize(mat, dev)

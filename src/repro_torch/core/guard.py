@@ -1,6 +1,6 @@
 """Pivot guard + shifted-refactorization ladder (breakdown hardening).
 
-A copy of the single-device part of ``repro/core/guard.py``. ILU(k) without
+A copy of ``repro/core/guard.py``. ILU(k) without
 pivoting breaks down silently: a zero, denormal or relatively tiny pivot
 factors into Inf/NaN that surfaces only later as a diverged solve.
 
@@ -33,6 +33,9 @@ from typing import Callable, Optional
 import numpy as np
 
 from .factor_plan import PLAN_CACHE_KEY
+
+#: the TOP-ILU engine store (``repro_torch.core.top_ilu.ENGINE_CACHE_KEY``)
+ENGINE_CACHE_KEY = "_torch_topilu_engines"
 
 
 #: default relative pivot tolerance τ for ``|piv| < τ·‖row‖_∞``
@@ -74,6 +77,8 @@ class FactorHealth:
     #: True ⇒ the ladder exhausted under ``on_breakdown="fallback"`` and
     #: the factorization preconditions with the identity instead
     degraded: bool = False
+    #: sharded TOP-ILU only: per-band min |piv|/‖row‖ in global band order
+    band_worst_ratio: Optional[np.ndarray] = None
 
     def summary(self) -> str:
         if self.ok and self.shift == 0.0 and not self.degraded:
@@ -170,6 +175,73 @@ def audit_values(pattern, vals: np.ndarray,
         worst_ratio=float(ratio_clean[worst]), first_nonfinite_row=first_bad)
 
 
+def _sharded_audit_maps(fact):
+    """Host-side index maps for the owner-major audit, cached in the
+    factorization's structure-keyed ``_shared`` store (on its device)."""
+    maps = fact._shared.get("audit_maps")
+    if maps is None:
+        import torch
+
+        plan = fact.plan
+        gid = plan.rows_device_major(np.arange(plan.n_pad, dtype=np.int64))
+        dlane = plan.rows_device_major(np.asarray(plan.diag_pos, np.int64))
+        # owner-major slot p holds one band's R contiguous rows; its global
+        # band id recovers from the first row it holds
+        slot_band = gid.reshape(-1, plan.band_rows)[:, 0] // plan.band_rows
+        dev = fact.loc_vals.device
+        maps = fact._shared["audit_maps"] = {
+            "gid": gid, "slot_band": slot_band,
+            "gid_t": torch.as_tensor(gid, device=dev),
+            "dlane_t": torch.as_tensor(dlane, device=dev),
+            "valid_t": torch.as_tensor(gid < fact.pattern.n, device=dev),
+        }
+    return maps
+
+
+def audit_sharded(fact, pivot_tol: Optional[float] = None) -> FactorHealth:
+    """Audit a :class:`~repro_torch.core.top_ilu.ShardedILUFactorization` on
+    its device, in place: eager reductions over the ``(D, s_loc, W)`` value
+    tensor, so the factor never gathers to the host; only a few scalars and
+    the O(n_bands) per-band worst-pivot summary (global band order, so a
+    breakdown localizes to its owner and band) come back."""
+    import torch
+
+    tol = PIVOT_TOL if pivot_tol is None else float(pivot_tol)
+    plan = fact.plan
+    maps = _sharded_audit_maps(fact)
+    n_pad, w = plan.n_pad, plan.width
+    v = fact.loc_vals.reshape(n_pad, w)
+    valid, gid = maps["valid_t"], maps["gid_t"]
+
+    finite = torch.isfinite(v)
+    bad_entry = (~finite) & valid[:, None]
+    n_nonfinite = int(bad_entry.sum())
+    bad_row = bad_entry.any(dim=1)
+    first_bad = int(torch.where(bad_row, gid, n_pad).min())
+    piv = torch.gather(v, 1, maps["dlane_t"][:, None])[:, 0]
+    apiv = piv.abs()
+    rownorm = torch.where(valid[:, None] & finite, v, 0.0).abs().amax(dim=1)
+    ratio = apiv / torch.clamp_min(rownorm, NORM_FLOOR)
+    ratio_clean = torch.where(torch.isfinite(ratio) & valid, ratio, float("inf"))
+    n_zero = int(((apiv == 0.0) & valid).sum())
+    n_denormal = int(((apiv > 0.0) & (apiv < TINY_PIVOT) & valid).sum())
+    n_small = int((ratio_clean < tol).sum())
+    worst_dm = int(torch.argmin(ratio_clean))
+    band_worst_dm = ratio_clean.reshape(-1, plan.band_rows).amin(dim=1).double().cpu().numpy()
+    band_worst = np.full(plan.n_bands, np.inf, np.float64)
+    band_worst[maps["slot_band"]] = band_worst_dm
+    worst_piv = float(piv[worst_dm])
+    ok = (n_nonfinite == 0 and n_zero == 0 and n_denormal == 0 and n_small == 0)
+    return FactorHealth(
+        ok=ok, n=int(fact.pattern.n), pivot_tol=tol, n_nonfinite=n_nonfinite,
+        n_zero_pivots=n_zero, n_denormal_pivots=n_denormal,
+        n_small_pivots=n_small, worst_row=int(maps["gid"][worst_dm]),
+        worst_pivot=worst_piv if np.isfinite(worst_piv) else float("nan"),
+        worst_ratio=float(ratio_clean[worst_dm]),
+        first_nonfinite_row=-1 if first_bad >= n_pad else first_bad,
+        band_worst_ratio=band_worst)
+
+
 # --------------------------------------------------------------------------
 # the shift ladder
 # --------------------------------------------------------------------------
@@ -209,9 +281,10 @@ def shifted_matrix(a, alpha: float):
     data = np.asarray(a.data, np.float32).copy()
     data[dpos] = (data[dpos].astype(np.float64) + alpha * scale).astype(np.float32)
     out = CSRMatrix(n=a.n, indptr=a.indptr, indices=a.indices, data=data)
-    store = a.__dict__.get(PLAN_CACHE_KEY)
-    if store is not None:
-        out.__dict__[PLAN_CACHE_KEY] = store  # shared by reference: same structure
+    for key in (PLAN_CACHE_KEY, ENGINE_CACHE_KEY):
+        store = a.__dict__.get(key)
+        if store is not None:
+            out.__dict__[key] = store  # shared by reference: same structure
     return out
 
 

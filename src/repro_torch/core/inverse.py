@@ -37,6 +37,7 @@ from .bitmath import masked_lane_sum
 from .device import resolve_device
 from .inverse_ref import inverse_pattern_ref
 from .planner import COL_SENTINEL, wavefront_schedule_ell
+from .solvers import RowBlockELL
 from .sparse import ILUPattern
 
 PRECOND_METHODS = ("sweep", "inverse", "auto")
@@ -261,15 +262,107 @@ class InversePrecondApply:
         return self(bs)
 
 
-def resolve_precond_method(method: str, n_devices: int = 1) -> str:
-    """Resolve ``precond_method`` ("sweep" | "inverse" | "auto") for one
-    device: ``"auto"`` is the sweep, the exact apply with fewer Krylov
-    iterations (the JAX package's rule at one device). The distributed cost
-    model that can pick the inverse chain comes with the distributed path."""
+class ShardedInversePrecondApply:
+    """Row-block sharded M^{-1} ~= Z W apply over the D owners of a
+    :class:`~repro_torch.core.top_ilu.BandGroup`: the distributed SpMV chain.
+
+    The inverse values are computed once by the single-device engine on the
+    group's device (the bitwise anchor holds for any owner count because the
+    values *are* the single-device values), then split into D contiguous
+    row blocks of ``ceil(n/D)`` rows, owner d holding block d. Each apply
+    is two row-blocked SpMVs: every owner reduces its own rows through
+    ``spmv_ell`` (the same lanes in the same order as the single-device
+    chain, hence bitwise equal), and ONE exchange per SpMV reassembles the
+    replicated vector — two exchanges per apply whatever the wavefront
+    depth, each carrying the whole right-hand-side batch.
+    """
+
+    def __init__(self, pattern: ILUPattern, vals: np.ndarray, group):
+        self.base = base = InversePrecondApply(pattern, vals, group.device)
+        self.plan = base.plan
+        self.group = group
+        self.n = base.n
+        self.n_devices = group.n_devices
+        self._w = RowBlockELL(base.w_cols, base.w_vals, group)
+        self._z = RowBlockELL(base.z_cols, base.z_vals, group)
+
+    def batched(self, bs: torch.Tensor) -> torch.Tensor:
+        """Apply to an (nb, n) stack; both exchanges carry the whole batch."""
+        if bs.ndim != 2 or bs.shape[1] != self.n:
+            raise ValueError(f"batched expects (nb, {self.n}), got shape {tuple(bs.shape)}")
+        return self._z(self._w(bs).contiguous())
+
+    def __call__(self, b: torch.Tensor) -> torch.Tensor:
+        if b.ndim == 2:
+            return self.batched(b)
+        return self.batched(b[None])[0]
+
+    apply = __call__
+
+
+# --------------------------------------------------------------------------
+# the "auto" cost model: sweep epochs vs the SpMV chain
+# --------------------------------------------------------------------------
+# modeled fixed cost of one collective, in payload-byte equivalents — the
+# latency term that makes many small epoch exchanges lose to two big
+# vector-slice gathers (and a single cheap assembly beat them back)
+AUTO_COLLECTIVE_COST_BYTES = 4096
+
+
+def inverse_comm_model(n: int, n_devices: int, nb: int = 1) -> dict:
+    """The SpMV-chain communication record, same schema as the sweep's
+    ``comm_summary``: two all-gathers per apply, each shipping one owner's
+    ceil(n/D) vector slice to the D-1 others (ring model), amortized over
+    the whole right-hand-side batch."""
+    D = int(n_devices)
+    if D <= 1:
+        return {"n_devices": 1, "collectives_per_apply": 0,
+                "payload_slots_per_apply": 0, "bytes_per_apply": 0}
+    rows_loc = -(-int(n) // D)
+    return {
+        "n_devices": D,
+        "collectives_per_apply": 2,
+        "payload_slots_per_apply": 2 * rows_loc,
+        "bytes_per_apply": (D - 1) * 2 * rows_loc * 4 * nb,
+    }
+
+
+def modeled_apply_cost(summary: dict) -> int:
+    """Scalar cost of one preconditioner apply from a communication record
+    (the sweep's ``comm_summary`` or :func:`inverse_comm_model`):
+    per-collective latency plus wire bytes."""
+    return (summary["collectives_per_apply"] * AUTO_COLLECTIVE_COST_BYTES
+            + summary["bytes_per_apply"])
+
+
+def resolve_precond_method(method: str, pattern: Optional[ILUPattern] = None,
+                           n_devices: int = 1, band_rows: int = 32,
+                           sweep_summary: Optional[dict] = None) -> str:
+    """Resolve ``precond_method`` ("sweep" | "inverse" | "auto").
+
+    ``"auto"`` picks per matrix: one owner always sweeps (the exact apply,
+    no exchanges either way, fewer Krylov iterations); over D > 1 owners
+    the modeled sweep cost (epoch exchanges + exact read-set bytes, from a
+    ``comm_summary``) races the modeled SpMV-chain cost
+    (:func:`inverse_comm_model`) and the cheaper apply wins. That race
+    needs ``pattern`` (the inverse model's size is ``pattern.n``; a
+    ``comm_summary`` does not carry n). Pass ``sweep_summary`` to reuse an
+    existing plan's record; otherwise one is built from ``pattern`` (the
+    sharded triangular plan, host NumPy).
+    """
     if method not in PRECOND_METHODS:
         raise ValueError(f"precond_method must be 'sweep', 'inverse' or 'auto', got {method!r}")
-    if n_devices > 1:
-        raise NotImplementedError(
-            "precond_method across devices needs the distributed path, not ported yet "
-            "(ROADMAP Queue A 9)")
-    return "sweep" if method == "auto" else method
+    if method != "auto":
+        return method
+    if n_devices <= 1:
+        return "sweep"
+    if pattern is None:
+        raise ValueError("precond_method='auto' over several owners needs the pattern: the "
+                         "inverse comm model is sized by pattern.n")
+    if sweep_summary is None:
+        from .triangular import build_sharded_triangular_plan
+
+        sweep_summary = build_sharded_triangular_plan(pattern, band_rows,
+                                                      n_devices).comm_summary()
+    inv = inverse_comm_model(pattern.n, n_devices)
+    return "inverse" if modeled_apply_cost(inv) < modeled_apply_cost(sweep_summary) else "sweep"

@@ -1,14 +1,21 @@
-"""Device-side numeric factorization (Phase II) over a FactorPlan.
+"""Device-side numeric factorization (Phase II): two executors.
 
-The port's counterpart of the single-device engine of
-``repro/core/numeric_jax.py``: the round-major pivot-op wavefront sweep,
-run by the ``factor_wavefront`` CUDA kernel on a GPU and by its plain
-PyTorch version on the CPU (:func:`repro_torch.kernels.ops.factor_wavefront`).
+The port's counterpart of ``repro/core/numeric_jax.py``:
+
+* :func:`make_wavefront_factorizer` — the single-device path, the
+  round-major pivot-op wavefront sweep over a FactorPlan, run by the
+  ``factor_wavefront`` CUDA kernel on a GPU and by its plain PyTorch
+  version on the CPU (:func:`repro_torch.kernels.ops.factor_wavefront`);
+* :func:`make_superstep_factorizer` — the banded TOP-ILU executor over a
+  :class:`~repro_torch.core.planner.NumericPlan`: D band owners, one
+  ``superstep_factor`` launch and one halo exchange per superstep.
+
 Both give the values of :func:`repro_torch.core.numeric_ref.numeric_ilu_ref`
 bitwise.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ops
@@ -28,5 +35,107 @@ def make_wavefront_factorizer(plan, device):
         return ops.factor_wavefront(sched["op_row"], sched["op_lane"], sched["op_piv"],
                                     sched["op_dlane"], sched["op_dst"], sched["dst_flat"],
                                     a_vals_ext)
+
+    return factorize
+
+
+# --------------------------------------------------------------------------
+# band superstep executor (TOP-ILU over D band owners, sharded values)
+# --------------------------------------------------------------------------
+def _device_major(plan, x):
+    """(n_pad, ...) row table -> (D, s_loc, ...) owner blocks."""
+    return plan.rows_device_major(x).reshape((plan.n_devices, plan.s_loc) + x.shape[1:])
+
+
+def plan_state_array(plan, a=None) -> np.ndarray:
+    """The (D, state_rows, W) initial value state: band-local A values
+    (owner-major), zero halo, zero scratch. ``a=None`` uses the values
+    captured at plan build; a matrix with the same structure re-scatters its
+    current data (the refactorization path)."""
+    vals = plan.a_vals if a is None else plan.scatter_values(a)
+    state = np.zeros((plan.n_devices, plan.state_rows, plan.width), np.float32)
+    state[:, : plan.s_loc] = _device_major(plan, vals)
+    return state
+
+
+def plan_device_arrays(plan, keys=None) -> dict:
+    """Host-side inputs of the superstep factorizer, each with a leading
+    owner axis: every per-row table is permuted owner-major, so owner d's
+    block holds exactly the rows it owns. ``keys`` restricts which arrays
+    are built (the value ``state`` is rebuilt per factorization)."""
+    def dm(x):
+        return _device_major(plan, x)
+
+    builders = dict(
+        state=lambda: plan_state_array(plan),
+        sched=lambda: plan.superstep_bands,
+        piv_addr=lambda: dm(plan.piv_addr),
+        piv_dlane=lambda: dm(plan.piv_dlane),
+        piv_dst=lambda: dm(plan.piv_dst),
+        n_piv=lambda: dm(plan.diag_pos.astype(np.int32)),
+        egress=lambda: plan.egress_idx,
+        ingress=lambda: plan.ingress_idx,
+    )
+    keys = builders.keys() if keys is None else keys
+    return {k: builders[k]() for k in keys}
+
+
+def make_superstep_factorizer(plan, group, broadcast: str = "gather"):
+    """``(D, state_rows, W) state -> (D, s_loc, W)`` factored local values,
+    over the D band owners of ``group`` (a
+    :class:`~repro_torch.core.top_ilu.BandGroup` of ``plan.n_devices``).
+
+    Per superstep: one ``superstep_factor`` launch finishes every owner's
+    bands of the wave (in-band pivots from the band being built, the rest
+    from local rows or the halo through ``piv_addr``); then, when some owner
+    consumes another's rows, ONE exchange ships each owner's (E, W) egress
+    payload — the finalized rows another owner needs — to every owner, which
+    scatters it into its halo through the ingress map (``broadcast="gather"``
+    is one collective, ``"ring"`` D-1 hops; ``"psum"`` is ``"gather"``).
+    Both are copies of finished float32 rows, so the exchange cannot change
+    a bit, and the values equal the sequential oracle's.
+    """
+    from .top_ilu import _broadcast
+
+    D = plan.n_devices
+    if group.n_devices != D:
+        raise ValueError(f"the plan has {D} band owners, the group {group.n_devices}")
+    broadcast = _broadcast(broadcast)
+    bound_group, dev = group, group.device
+    tabs = {k: torch.as_tensor(np.ascontiguousarray(v), dtype=torch.int32, device=dev)
+            for k, v in plan_device_arrays(plan, keys=("sched", "piv_addr", "piv_dlane",
+                                                       "piv_dst", "n_piv")).items()}
+    exchange = D > 1 and plan.halo_size > 0
+    srows, W = plan.state_rows, plan.width
+    if exchange:
+        eg = torch.as_tensor(plan.egress_idx, dtype=torch.int64, device=dev)  # (n_sup, D, E)
+        # receiver d's flat state row of each (sender, payload row); padding
+        # lands in the receiver's scratch row, as in the reference
+        own = torch.arange(D, device=dev)[None, :, None] * srows
+        ing = (torch.as_tensor(plan.ingress_idx, dtype=torch.int64, device=dev).reshape(
+            plan.n_supersteps, D, -1) + own).reshape(plan.n_supersteps, -1)
+        owners = torch.arange(D, device=dev)[:, None]
+
+    def factorize(state, step=None, group=None) -> torch.Tensor:
+        """``step`` runs one superstep in place: ``ops.superstep_factor`` by
+        default; a check may pass a function that also runs the plain
+        version. ``group`` is the BandGroup the exchanges go through (the
+        one given at build time by default): a factorizer cached per
+        structure serves every group of its owner count and device."""
+        step = step or ops.superstep_factor
+        group = bound_group if group is None else group
+        if group.n_devices != D:
+            raise ValueError(f"factorize: a group of {group.n_devices} owners, the plan has {D}")
+        st = torch.as_tensor(state, dtype=torch.float32, device=dev).contiguous()
+        if tuple(st.shape) != (D, srows, W):
+            raise ValueError(f"state: expected {(D, srows, W)}, got {tuple(st.shape)}")
+        for s in range(plan.n_supersteps):
+            step(st, tabs["sched"], s, tabs["piv_addr"], tabs["piv_dlane"], tabs["piv_dst"],
+                 tabs["n_piv"], plan.n_bands, plan.band_rows)
+            if exchange:
+                payload = st[owners, eg[s]]  # (D, E, W): each owner's finalized rows
+                got = group.exchange(payload, broadcast)  # (D recv, D send, E, W)
+                st.view(-1, W).index_copy_(0, ing[s], got.reshape(-1, W))
+        return st[:, :plan.s_loc]
 
     return factorize

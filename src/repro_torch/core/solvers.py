@@ -124,6 +124,49 @@ def make_ell_matvec(cols: torch.Tensor, vals: torch.Tensor, n: int) -> Callable:
     return matvec
 
 
+class RowBlockELL:
+    """A sentinel-padded ELL matrix (n, W) split into D contiguous row blocks
+    of ``ceil(n/D)`` rows over the owners of a
+    :class:`~repro_torch.core.top_ilu.BandGroup`, owner d holding block d.
+
+    Calling it on a replicated (n,) or (nb, n) ``x`` has each owner reduce
+    its own rows through ``spmv_ell`` (the same lanes in the same order as
+    the whole matrix's SpMV, so every output entry is bitwise identical to
+    it), then one exchange of the row-block results — a copy — assembles
+    the replicated output; the exchange carries the whole batch.
+    """
+
+    def __init__(self, cols: torch.Tensor, vals: torch.Tensor, group):
+        D = group.n_devices
+        n = cols.shape[0]
+        rows_loc = -(-n // D)
+        pad = rows_loc * D - n
+        cols = torch.cat([cols, cols.new_full((pad, cols.shape[1]), int(COL_SENTINEL))])
+        vals = torch.cat([vals, vals.new_zeros((pad, vals.shape[1]))])
+        self.n, self.group = n, group
+        self._blocks = [(c.contiguous(), v.contiguous()) for c, v in
+                        zip(cols.view(D, rows_loc, -1), vals.view(D, rows_loc, -1))]
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        xb = x if x.ndim == 2 else x[None]
+        y = torch.stack([ops.spmv_ell(c, v, xb, row_block=True)
+                         for c, v in self._blocks])  # (D, nb, rows_loc)
+        if self.group.n_devices > 1:
+            y = self.group.exchange(y)[0]
+        y = y.transpose(0, 1).reshape(xb.shape[0], -1)[:, :self.n]
+        return y if x.ndim == 2 else y[0]
+
+
+def make_sharded_ell_matvec(a, group) -> Callable:
+    """Row-block sharded ELL SpMV of ``a`` over the D owners of a
+    :class:`~repro_torch.core.top_ilu.BandGroup` (a :class:`RowBlockELL` on
+    the group's device): each owner holds ``ceil(n/D)`` rows of A, ``x`` is
+    replicated (it is O(n) — the factors and the matrix are the memory
+    hogs), and every output entry is bitwise identical to
+    :func:`make_ell_matvec`'s."""
+    return RowBlockELL(*csr_to_ell_arrays(a, group.device), group)
+
+
 def _identity(x):
     return x
 
@@ -440,4 +483,81 @@ def solve_with_ilu(a, b, k=1, method="gmres", backend="torch", tol=1e-5,
         res = fn(matvec, b.contiguous(), precond, tol=tol, **kw)
     else:
         raise ValueError(f"solve_with_ilu expects b of shape (n,) or (nb, n), got {tuple(b.shape)}")
+    return _annotate_reports(res, fact), fact
+
+
+def solve_sharded(a, b, k=1, n_devices=1, band_rows=32, rule="sum", broadcast="gather",
+                  method="gmres", tol=1e-5, fact=None, bucket=False, ordering=None,
+                  precond_method=None, on_breakdown="raise", pivot_tol=None, group=None,
+                  device=None, **kw):
+    """Distributed end-to-end solve: the sharded TOP-ILU factorization
+    (:func:`~repro_torch.core.api.ilu_sharded`) over ``n_devices`` band
+    owners (or ``group``'s), the epoch-fused band-partitioned sweeps (or
+    the sharded inverse chain) as the preconditioner, and the row-block
+    sharded SpMV as the matvec. L/U and A stay in their owners' blocks; only
+    O(n) vectors are replicated. The Krylov iteration is the single-device
+    one, so with bitwise-equal matvec and preconditioner outputs the
+    iterates, the verdict and ``x`` equal :func:`solve_with_ilu`'s.
+
+    Returns ``(SolveResult, ShardedILUFactorization)``, or a list of results
+    for an (nb, n) ``b`` (GMRES only; ``tol`` a scalar or an (nb,) array).
+    The matvec and the factorization are cached on the matrix per group
+    configuration; pass an already-built ``fact`` (a
+    ``ShardedILUFactorization`` of this matrix) to reuse it and its cached
+    preconditioners — ``group``/``n_devices``, when given, must describe its
+    owners. ``bucket=`` padding of ragged batches and ``ordering=`` other
+    than the natural one come with ROADMAP Queue A item 7 and raise here.
+    ``**kw`` goes to :func:`gmres` (``restart``, ``maxiter``) or :func:`cg`.
+    """
+    from .api import _check_ordering, _group, ilu_sharded
+
+    if bucket:
+        raise NotImplementedError("solve_sharded(bucket=True): batch buckets come with the "
+                                  "warm-bucket item, ROADMAP Queue A item 7")
+    _check_ordering(ordering)
+    if method not in ("gmres", "cg"):
+        raise NotImplementedError(f"method={method!r}: 'gmres' and 'cg' are ported so far")
+    if fact is not None:
+        if group is not None and group is not fact.group:
+            raise ValueError("solve_sharded: `fact` was factored over another BandGroup than "
+                             "`group` — the SpMV and the preconditioner must share one group")
+        if group is None and n_devices not in (1, fact.n_devices):
+            raise ValueError(f"solve_sharded: `fact` has {fact.n_devices} band owners, "
+                             f"n_devices={n_devices}")
+        if device is not None and resolve_device(device) != fact.device:
+            raise ValueError(f"solve_sharded: `fact` lives on {fact.device}, not {device}")
+        group = fact.group
+    cache = a.__dict__.setdefault(SOLVE_CACHE_KEY, {})
+    if group is None:  # one group per (owners, device), so repeated solves hit the caches
+        dev = resolve_device(device)
+        group = cache.setdefault(("band_group", n_devices, str(dev)),
+                                 _group(n_devices, dev, None))
+    gkey = (group.n_devices, str(group.device), id(group))
+    mv_key = ("sharded_matvec", gkey)
+    if mv_key not in cache:
+        cache[mv_key] = (group, make_sharded_ell_matvec(a, group))
+    matvec = cache[mv_key][1]
+    precond = None
+    if fact is None and k is not None:
+        f_key = ("sharded_fact", k, rule, band_rows, broadcast, gkey)
+        if on_breakdown != "raise" or pivot_tol is not None:
+            f_key = f_key + (on_breakdown, pivot_tol)
+        if f_key not in cache:
+            cache[f_key] = ilu_sharded(a, k, rule=rule, band_rows=band_rows,
+                                       broadcast=broadcast, on_breakdown=on_breakdown,
+                                       pivot_tol=pivot_tol, group=group)
+        fact = cache[f_key]
+    if fact is not None:
+        precond = fact.precond(broadcast=broadcast, method=precond_method)
+    b = torch.as_tensor(b, dtype=_F32).to(group.device)
+    if b.ndim == 2:
+        if method != "gmres":
+            raise ValueError("batched right-hand sides are supported for method='gmres' only")
+        res = gmres_batched(matvec, b, precond, tol=tol, **kw)
+    elif b.ndim == 1:
+        fn = {"gmres": gmres, "cg": cg}[method]
+        res = fn(matvec, b.contiguous(), precond, tol=tol, **kw)
+    else:
+        raise ValueError(f"solve_sharded expects b of shape (n,) or (nb, n), got "
+                         f"{tuple(b.shape)}")
     return _annotate_reports(res, fact), fact

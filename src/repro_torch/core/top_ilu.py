@@ -1,0 +1,311 @@
+"""TOP-ILU — the paper's distributed ILU(k) over D band owners (paper §IV).
+
+The port's counterpart of ``repro/core/top_ilu.py``. The JAX package runs
+the D band owners as the devices of a 1-D ``band`` mesh under
+``shard_map``; the port runs them as the leading axis of its tensors on one
+device, in the same ``(D, …)`` owner-major layout ``shard_map`` hands each
+device:
+
+* bands → round-robin ownership (owner ``d`` holds bands ``b ≡ d (mod
+  D)``, static load balancing, §IV-D);
+* values → **sharded**: owner ``d``'s slice of the ``(D, s_loc+H+1, W)``
+  state holds only its bands' values plus a halo of the finalized foreign
+  pivot rows it consumes (``planner._halo_exchange_schedule``);
+* the frontier loop → one ``superstep_factor`` launch per band-dependency
+  wavefront, every owner's bands of the wave at once;
+* the Fig-4 ring pipeline → ONE exchange per superstep through
+  :class:`BandGroup`, of exactly the rows another owner needs.
+
+No kernel reads another owner's slice: values cross owners only through
+:meth:`BandGroup.exchange`, a pure copy. A backend over several cards
+replaces that method and nothing else (ROADMAP). The factorization stays on
+the device as a :class:`ShardedILUFactorization`, whose ``precond()`` and
+``solve`` consume the sharded values in place.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from . import guard
+from .device import resolve_device
+from .factor_plan import _pattern_fingerprint
+from .numeric import make_superstep_factorizer, plan_state_array
+from .planner import NumericPlan, make_plan
+from .sparse import CSRMatrix, ILUPattern
+
+#: attribute of a CSRMatrix that holds its TOP-ILU engines (the JAX package
+#: uses ``_topilu_engines``; the two caches must not share a key). A shifted
+#: matrix of the breakdown ladder shares it (``guard.shifted_matrix``).
+ENGINE_CACHE_KEY = guard.ENGINE_CACHE_KEY
+
+BROADCASTS = ("gather", "ring")
+
+
+def _broadcast(name: str) -> str:
+    if name == "psum":  # the JAX package's historical alias of "gather"
+        return "gather"
+    if name not in BROADCASTS:
+        raise ValueError(f"broadcast must be 'gather', 'ring' or 'psum', got {name!r}")
+    return name
+
+
+class BandGroup:
+    """D band owners on one torch device: the port's stand-in for the JAX
+    package's 1-D ``band`` mesh (``repro.core.top_ilu.band_mesh``).
+
+    Owner ``d``'s data is slice ``d`` of the leading axis of every sharded
+    tensor. :meth:`exchange` is the only way a value crosses owners, and it
+    counts what it does: ``exchanges`` (calls), ``collectives`` (one per
+    ``"gather"``, D-1 hops per ``"ring"``) and ``payload_bytes`` (bytes one
+    owner sends per exchange, summed) — the quantities the plans' comm
+    models predict.
+    """
+
+    def __init__(self, n_devices: int, device=None):
+        if int(n_devices) < 1:
+            raise ValueError(f"a band group needs at least one owner, got {n_devices}")
+        self.n_devices = int(n_devices)
+        self.device = resolve_device(device)
+        self.reset_counts()
+
+    def reset_counts(self) -> None:
+        self.exchanges = 0
+        self.collectives = 0
+        self.payload_bytes = 0
+
+    def counts(self) -> dict:
+        return {"exchanges": self.exchanges, "collectives": self.collectives,
+                "payload_bytes": self.payload_bytes}
+
+    def exchange(self, payload: torch.Tensor, broadcast: str = "gather") -> torch.Tensor:
+        """All-to-all copy of each owner's payload: ``payload`` is (D, E, …),
+        row d the payload owner d sends; returns (D, D, E, …), where
+        ``[r, s]`` is owner s's payload as owner r received it.
+
+        ``"gather"`` is one collective (an all-gather: one buffer that every
+        owner reads); ``"ring"`` is the explicit directed ring of the
+        paper's Fig 4, D-1 hops done one by one in the reference's order —
+        each hop forwards every owner's current buffer to owner d+1, and
+        owner r files what it holds after hop h as the payload of owner
+        r-h. Both only copy: no arithmetic touches the wire."""
+        D = self.n_devices
+        if payload.shape[0] != D:
+            raise ValueError(f"exchange: payload of {payload.shape[0]} owners, group of {D}")
+        broadcast = _broadcast(broadcast)
+        self.exchanges += 1
+        self.payload_bytes += payload[0].numel() * payload.element_size()
+        if broadcast == "gather":
+            self.collectives += 1
+            return payload.clone().unsqueeze(0).expand((D,) + tuple(payload.shape))
+        self.collectives += D - 1
+        out = torch.empty((D,) + tuple(payload.shape), dtype=payload.dtype,
+                          device=payload.device)
+        me = torch.arange(D, device=payload.device)
+        out[me, me] = payload
+        cur = payload
+        for hop in range(1, D):
+            cur = torch.roll(cur, 1, dims=0)  # owner d now holds what d-1 held
+            out[me, (me - hop) % D] = cur
+        return out
+
+
+def _values_to_csr_order(plan: NumericPlan, pattern: ILUPattern, vals_rm: np.ndarray) -> np.ndarray:
+    """Padded row-major values -> CSR-aligned flat values (one gather)."""
+    vals_rm = np.asarray(vals_rm)
+    rowlen = np.diff(pattern.indptr).astype(np.int64)
+    row_of = np.repeat(np.arange(pattern.n, dtype=np.int64), rowlen)
+    lane = np.arange(pattern.nnz, dtype=np.int64) - pattern.indptr[row_of]
+    return vals_rm[row_of, lane].astype(np.float32)
+
+
+@dataclasses.dataclass
+class ShardedILUFactorization:
+    """Device-resident sharded factorization output.
+
+    ``loc_vals`` is a (D, s_loc, W) float32 tensor on ``group.device`` — the
+    factored ELL values in owner-major band order, owner d's block its own
+    rows. The preconditioner apply (:meth:`precond`) and the distributed
+    solve consume it in place; :meth:`values_csr` gathers to the host only
+    when asked (tests, interop), on no solve path.
+    """
+
+    a: CSRMatrix
+    k: int
+    pattern: ILUPattern
+    plan: NumericPlan
+    group: BandGroup
+    loc_vals: torch.Tensor  # (D, s_loc, W) f32
+    broadcast: str = "gather"
+    symbolic_seconds: float = 0.0
+    numeric_seconds: float = 0.0
+    # "sweep" (epoch-scheduled triangular sweeps), "inverse" (the
+    # incomplete-inverse SpMV chain, two exchanges per apply) or "auto"
+    # (the cheaper of the two comm models)
+    precond_method: str = "sweep"
+    # pivot-guard audit (core.guard.FactorHealth); ``health.shift`` > 0
+    # means this factorization describes the diagonally shifted system, and
+    # ``health.degraded`` routes ``precond()`` to the identity
+    health: Optional[object] = None
+    # structure-keyed shared cache (the engine-store entry): the sharded
+    # triangular plan and its engines live here, so refactorizations of
+    # the same structure reuse them
+    _shared: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
+    _preconds: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
+
+    @property
+    def nnz(self) -> int:
+        return self.pattern.nnz
+
+    @property
+    def n_devices(self) -> int:
+        return self.group.n_devices
+
+    @property
+    def device(self) -> torch.device:
+        return self.group.device
+
+    def per_device_value_bytes(self) -> int:
+        return self.plan.per_device_value_bytes()
+
+    def values_csr(self) -> np.ndarray:
+        """Gather the sharded factors to the host as CSR-aligned values."""
+        dm = self.loc_vals.cpu().numpy().reshape(self.plan.n_pad, self.plan.width)
+        return _values_to_csr_order(self.plan, self.pattern, self.plan.rows_from_device_major(dm))
+
+    def _tri_plan(self):
+        """The structure-keyed sharded triangular plan (built on demand)."""
+        from .triangular import build_sharded_triangular_plan
+
+        tp = self._shared.get("tri_plan")
+        if tp is None:
+            tp = self._shared["tri_plan"] = build_sharded_triangular_plan(
+                self.pattern, self.plan.band_rows, self.n_devices)
+        return tp
+
+    def resolve_method(self, method: Optional[str] = None) -> str:
+        """Resolve ``precond_method`` for these owners: ``"auto"`` races the
+        sweep plan's ``comm_summary`` (epoch exchanges + exact read-set
+        bytes) against the SpMV-chain model and returns the cheaper apply."""
+        from .inverse import resolve_precond_method
+
+        method = method if method is not None else self.precond_method
+        summary = (self._tri_plan().comm_summary()
+                   if method == "auto" and self.n_devices > 1 else None)
+        return resolve_precond_method(method, self.pattern, self.n_devices,
+                                      self.plan.band_rows, sweep_summary=summary)
+
+    def precond(self, broadcast: Optional[str] = None, method: Optional[str] = None):
+        """Cached band-partitioned M^{-1} apply over the sharded values.
+
+        ``"sweep"`` → :class:`~repro_torch.core.triangular.ShardedPrecondApply`
+        (L/U extracted on the device from the local blocks, the epoch-fused
+        sweep, ``broadcast`` — this factorization's by default — choosing
+        the exchange); ``"inverse"`` →
+        :class:`~repro_torch.core.inverse.ShardedInversePrecondApply` (two
+        row-blocked SpMVs, two exchanges per apply); ``"auto"`` races the
+        two cost models."""
+        if self.health is not None and self.health.degraded:
+            from .guard import IdentityPrecondApply
+
+            return self._preconds.setdefault("identity", IdentityPrecondApply())
+        method = self.resolve_method(method)
+        if method == "inverse":
+            if "inverse" not in self._preconds:
+                from .inverse import ShardedInversePrecondApply
+
+                self._preconds["inverse"] = ShardedInversePrecondApply(
+                    self.pattern, self.values_csr(), self.group)
+            return self._preconds["inverse"]
+        broadcast = _broadcast(self.broadcast if broadcast is None else broadcast)
+        if broadcast not in self._preconds:
+            from .triangular import ShardedPrecondApply, ShardedTriangularEngine
+
+            eng = self._shared.get(("tri_engine", broadcast))
+            if eng is None:
+                eng = self._shared[("tri_engine", broadcast)] = ShardedTriangularEngine(
+                    self._tri_plan(), self.group, broadcast=broadcast)
+            self._preconds[broadcast] = ShardedPrecondApply(eng.plan, self.loc_vals,
+                                                            self.group, engine=eng)
+        return self._preconds[broadcast]
+
+    def solve(self, b: np.ndarray) -> np.ndarray:
+        """Apply the preconditioner to an (n,) or (nb, n) host array:
+        L y = b then U x = y, distributed."""
+        bt = torch.as_tensor(np.asarray(b, np.float32)).to(self.device).contiguous()
+        apply = self.precond()
+        return (apply.batched(bt) if bt.ndim == 2 else apply(bt)).cpu().numpy()
+
+    def to_host(self):
+        """Materialize as the port's single-device
+        :class:`repro_torch.core.api.ILUFactorization` (on the same device)."""
+        from .api import ILUFactorization
+
+        return ILUFactorization(
+            a=self.a, k=self.k, pattern=self.pattern, vals=self.values_csr(),
+            symbolic_seconds=self.symbolic_seconds, numeric_seconds=self.numeric_seconds,
+            device=self.device, health=self.health, precond_method=self.precond_method)
+
+
+def _build_topilu_engine(a, pattern, band_rows, group, broadcast):
+    """Structure-keyed engine-store entry: the plan, the superstep
+    factorizer (its schedule tables on the device) and a dict the
+    solve-side engines cache into."""
+    t0 = time.perf_counter()
+    plan = make_plan(a, pattern, band_rows=band_rows, n_devices=group.n_devices)
+    plan_s = time.perf_counter() - t0
+    fac = make_superstep_factorizer(plan, group, broadcast=broadcast)
+    return dict(plan=plan, fn=fac, shared={}, plan_seconds=plan_s)
+
+
+def topilu_factor_sharded(
+    a: CSRMatrix,
+    pattern: ILUPattern,
+    band_rows: int = 32,
+    group: Optional[BandGroup] = None,
+    broadcast: str = "gather",
+) -> ShardedILUFactorization:
+    """Parallel numeric factorization over the D band owners of ``group``
+    (one owner on CUDA when None); the output stays sharded on the device.
+
+    The plan and the factorizer are memoized on the matrix object under
+    :data:`ENGINE_CACHE_KEY`, keyed by the pattern, the band size, the
+    group's owners and device, and the broadcast; they bind no group: every
+    exchange of a call, and of the sweeps of its ``precond()``, goes through
+    that call's ``group``. The *value* state is rebuilt from ``a.data`` on
+    every call, so refactorizing with updated values never reuses stale
+    numbers.
+    """
+    group = group if group is not None else BandGroup(1)
+    broadcast = _broadcast(broadcast)
+    key = ("topilu", _pattern_fingerprint(pattern), band_rows, group.n_devices, str(group.device),
+           broadcast)
+    try:
+        store = a.__dict__.setdefault(ENGINE_CACHE_KEY, {})
+    except AttributeError:  # a container without __dict__: no caching
+        store = {}
+    entry = store.get(key)
+    if entry is None:
+        entry = store[key] = _build_topilu_engine(a, pattern, band_rows, group, broadcast)
+    plan = entry["plan"]
+    state = plan_state_array(plan, a)
+    return ShardedILUFactorization(
+        a=a, k=pattern.k, pattern=pattern, plan=plan, group=group,
+        loc_vals=entry["fn"](state, group=group), broadcast=broadcast, _shared=entry["shared"])
+
+
+def topilu_numeric(
+    a: CSRMatrix,
+    pattern: ILUPattern,
+    band_rows: int = 32,
+    group: Optional[BandGroup] = None,
+    broadcast: str = "gather",
+) -> np.ndarray:
+    """Parallel numeric factorization; returns CSR-aligned host values (the
+    host-gathering wrapper of :func:`topilu_factor_sharded`)."""
+    return topilu_factor_sharded(a, pattern, band_rows=band_rows, group=group,
+                                 broadcast=broadcast).values_csr()

@@ -13,10 +13,10 @@ into an FMA (the kernels also use the round-to-nearest intrinsics
 explicitly). ``--use_fast_math`` is never used: it flushes subnormals and
 approximates division.
 
-The library goes into ``_build/<hash of sources and flags>/`` beside this
-file (listed in ``.gitignore``); a changed source builds a new one. The
-library is loaded with ``ctypes``; every pointer and the stream are
-``c_void_p``.
+The library goes into ``_build/<hash of sources, headers and flags>/``
+beside this file (listed in ``.gitignore``); a changed source builds a new
+one. The library is loaded with ``ctypes``; every pointer and the stream
+are ``c_void_p``.
 """
 from __future__ import annotations
 
@@ -31,14 +31,16 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 SOURCES = ("spmv_ell.cu", "factor_wavefront.cu", "tri_solve_wavefront.cu",
-           "inverse_chain.cu", "panel_update.cu", "trsm.cu", "tile_lu.cu")
+           "inverse_chain.cu", "panel_update.cu", "trsm.cu", "tile_lu.cu",
+           "epoch_sweep.cu", "superstep_factor.cu")
+HEADERS = ("level_row.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "librepro_torch_kernels.so"
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "spmv_ell_launch": [_P] * 4 + [_I] * 3 + [_P],
+    "spmv_ell_launch": [_P] * 4 + [_I] * 4 + [_P],
     "factor_wavefront_launch": [_P] * 7 + [_I] * 4 + [_P],
     "tri_solve_wavefront_launch": [_P] * 12 + [_I] * 8 + [_P],
     "inverse_chain_launch": [_P] * 7 + [_I] * 4 + [_P],
@@ -46,6 +48,8 @@ _SIGNATURES = {
     "trsm_right_upper_launch": [_P] * 3 + [_I] * 2 + [_P],
     "trsm_left_unit_lower_launch": [_P] * 3 + [_I] * 2 + [_P],
     "tile_lu_launch": [_P] * 2 + [_I] + [_P],
+    "epoch_sweep_launch": [_P] * 5 + [_I] * 9 + [_P],
+    "superstep_factor_launch": [_P] * 6 + [_I] * 9 + [_P],
 }
 
 _lock = threading.Lock()
@@ -65,7 +69,7 @@ def nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16] / LIB_NAME

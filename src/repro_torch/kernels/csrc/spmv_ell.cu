@@ -17,19 +17,21 @@
 // for the gathers. Rows are stored row-major, so a warp's lane-q loads are
 // strided by W; a column-major copy of the ELL arrays would coalesce them
 // and is later work. A batch of nb right-hand sides is the grid's second
-// dimension: lane blockIdx.y reads x + lane*n and writes y + lane*n with
-// the same per-row loop, so a row's bits do not depend on nb.
+// dimension: lane blockIdx.y reads x + lane*n and writes y + lane*m with
+// the same per-row loop, so a row's bits do not depend on nb. The m rows
+// may be a row block of a larger matrix (m != n): the distributed path's
+// owners each reduce their own block against the whole x.
 #include <cuda_runtime.h>
 
 #define COL_SENTINEL (1 << 30)
 
 __global__ void spmv_ell_kernel(const int* cols, const float* vals, const float* x,
-                                float* y, int n, int w) {
+                                float* y, int m, int n, int w) {
   int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= n) return;
+  if (row >= m) return;
   const size_t lane = blockIdx.y;
   x += lane * n;
-  y += lane * n;
+  y += lane * m;
   const int* c = cols + (size_t)row * w;
   const float* v = vals + (size_t)row * w;
   float acc = 0.0f;
@@ -44,11 +46,11 @@ __global__ void spmv_ell_kernel(const int* cols, const float* vals, const float*
 }
 
 extern "C" int spmv_ell_launch(const void* cols, const void* vals, const void* x, void* y,
-                               int n, int w, int nb, void* stream) {
+                               int m, int n, int w, int nb, void* stream) {
   const int threads = 256;
-  const dim3 grid((n + threads - 1) / threads, nb);
+  const dim3 grid((m + threads - 1) / threads, nb);
   spmv_ell_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      (const int*)cols, (const float*)vals, (const float*)x, (float*)y, n, w);
+      (const int*)cols, (const float*)vals, (const float*)x, (float*)y, m, n, w);
   return (int)cudaGetLastError();
 }
 

@@ -10,7 +10,8 @@
 // x_u[s] = (x_l[u_rhs_idx[s]] - acc) / diag[s]; then out[j] = x_u[perm[j]].
 // acc is the lane-ordered masked sum of rounded products from +0.0
 // (__fmul_rn, __fadd_rn), as masked_lane_sum in the reference; lanes whose
-// slot is the scratch slot (n_slots) are skipped, never gathered. Every
+// slot is the scratch slot (n_slots) are skipped, never gathered. The level
+// body is level_row_sum (level_row.cuh), shared with epoch_sweep.cu. Every
 // slot of a level is written, pad rows included, as the reference's
 // dynamic_update_slice does. The wrapper zeroes x_l and x_u, so their
 // scratch slots read 0.
@@ -33,6 +34,8 @@
 // the same chain.
 #include <cuda_runtime.h>
 
+#include "level_row.cuh"
+
 __global__ void tri_solve_wavefront_kernel(
     const int* l_cols, const float* l_vals, const int* l_rhs_idx, const int* u_cols,
     const float* u_vals, const float* u_diag, const int* u_rhs_idx, const int* out_perm,
@@ -48,13 +51,7 @@ __global__ void tri_solve_wavefront_kernel(
   for (int lev = 0; lev < nl_lev; ++lev) {
     for (int r = threadIdx.x; r < maxr_l; r += blockDim.x) {
       size_t s = (size_t)lev * maxr_l + r;
-      const int* c = l_cols + s * wl;
-      const float* v = l_vals + s * wl;
-      float acc = 0.0f;
-      for (int q = 0; q < wl; ++q) {
-        int cq = c[q];
-        if (cq < nl_slots) acc = __fadd_rn(acc, __fmul_rn(v[q], x_l[cq]));
-      }
+      float acc = level_row_sum(l_cols + s * wl, l_vals + s * wl, x_l, wl, nl_slots);
       int ri = l_rhs_idx[s];
       float rhs = ri < n ? b[ri] : 0.0f;
       x_l[s] = __fsub_rn(rhs, acc);
@@ -64,13 +61,7 @@ __global__ void tri_solve_wavefront_kernel(
   for (int lev = 0; lev < nu_lev; ++lev) {
     for (int r = threadIdx.x; r < maxr_u; r += blockDim.x) {
       size_t s = (size_t)lev * maxr_u + r;
-      const int* c = u_cols + s * wu;
-      const float* v = u_vals + s * wu;
-      float acc = 0.0f;
-      for (int q = 0; q < wu; ++q) {
-        int cq = c[q];
-        if (cq < nu_slots) acc = __fadd_rn(acc, __fmul_rn(v[q], x_u[cq]));
-      }
+      float acc = level_row_sum(u_cols + s * wu, u_vals + s * wu, x_u, wu, nu_slots);
       float rhs = x_l[u_rhs_idx[s]];
       x_u[s] = __fdiv_rn(__fsub_rn(rhs, acc), u_diag[s]);
     }

@@ -13,7 +13,10 @@ launches its kernel and nowhere else, so that a run can show which kernels
 its path went through (:func:`reset_launch_counts`, :func:`launch_counts`).
 Outputs and scratch are allocated here; the kernels allocate nothing.
 The dense tile kernels of Block-ILU(k) also take an ``out=`` tensor, so
-that the factorization updates the slots of its tile pool in place.
+that the factorization updates the slots of its tile pool in place; the
+two kernels of the distributed path (``epoch_sweep``, ``superstep_factor``)
+update their state in place, as the one launch per epoch or superstep
+needs no copy.
 """
 from __future__ import annotations
 
@@ -73,22 +76,30 @@ def _rhs(name: str, t: torch.Tensor, n: int, device) -> int:
     return nb
 
 
-def spmv_ell(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """y = A x for sentinel-padded ELL ``cols``/``vals`` (n, W) and x of
-    shape (n,) or (nb, n); y has x's shape, and row i of a batch equals the
-    single form's output for ``x[i]`` bitwise."""
+def spmv_ell(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
+             row_block: bool = False) -> torch.Tensor:
+    """y = A x for sentinel-padded ELL ``cols``/``vals`` (m, W) and x of
+    shape (n,) or (nb, n); y has shape (m,) or (nb, m), and row i of a batch
+    equals the single form's output for ``x[i]`` bitwise. A whole matrix
+    has m == n; with ``row_block=True`` the rows are one owner's row block
+    of a larger matrix, and m may differ from n."""
     dev = x.device
-    n, w = cols.shape
-    _check("spmv_ell cols", cols, _I32, (n, w), dev)
-    _check("spmv_ell vals", vals, _F32, (n, w), dev)
+    m, w = cols.shape
+    _check("spmv_ell cols", cols, _I32, (m, w), dev)
+    _check("spmv_ell vals", vals, _F32, (m, w), dev)
+    if x.ndim not in (1, 2):
+        raise ValueError(f"spmv_ell x: expected shape (n,) or (nb, n), got {tuple(x.shape)}")
+    n = int(x.shape[-1]) if row_block else m
     nb = _rhs("spmv_ell x", x, n, dev)
     if not _route(dev):
         return ref.spmv_ell_ref(cols, vals, x)
-    y = torch.empty_like(x)
-    if n == 0 or nb == 0:
+    y = x.new_empty(tuple(x.shape[:-1]) + (m,))
+    if m == 0 or nb == 0:
         return y
+    if n == 0:
+        raise ValueError("spmv_ell: x is empty but A has rows")
     _launch("spmv_ell_launch", dev, cols.data_ptr(), vals.data_ptr(), x.data_ptr(),
-            y.data_ptr(), n, w, nb)
+            y.data_ptr(), m, n, w, nb)
     spmv_ell.launches += 1
     return y
 
@@ -176,6 +187,85 @@ def inverse_chain(w_cols: torch.Tensor, w_vals: torch.Tensor, z_cols: torch.Tens
             n, wi, zi, nb)
     inverse_chain.launches += 1
     return x
+
+
+def epoch_sweep(x: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor, rhs: torch.Tensor,
+                diag, lo: int, hi: int, limit: int) -> torch.Tensor:
+    """Run levels ``[lo, hi)`` of one collective epoch of the sharded sweep
+    over the owner-local sweep vectors ``x`` (D, nb, xlen), **in place**,
+    and return ``x``. ``cols``/``vals`` (D, nlev, maxr, W), ``rhs`` (D, nb,
+    nlev, maxr), ``diag`` (D, nlev, maxr) for the U sweep or None for L;
+    lanes at or past ``limit`` are masked. One launch, grid (D, nb)."""
+    dev = x.device
+    if x.ndim != 3:
+        raise ValueError(f"epoch_sweep x: expected (D, nb, xlen), got {tuple(x.shape)}")
+    n_own, nb, xlen = x.shape
+    _, nlev, maxr, w = cols.shape
+    _check("epoch_sweep x", x, _F32, (n_own, nb, xlen), dev)
+    _check("epoch_sweep cols", cols, _I32, (n_own, nlev, maxr, w), dev)
+    _check("epoch_sweep vals", vals, _F32, (n_own, nlev, maxr, w), dev)
+    _check("epoch_sweep rhs", rhs, _F32, (n_own, nb, nlev, maxr), dev)
+    if diag is not None:
+        _check("epoch_sweep diag", diag, _F32, (n_own, nlev, maxr), dev)
+    if not 0 <= lo <= hi <= nlev:
+        raise ValueError(f"epoch_sweep: level range [{lo}, {hi}) outside [0, {nlev})")
+    if not 0 <= limit < xlen or hi * maxr > limit:
+        raise ValueError(f"epoch_sweep: limit {limit} must be the scratch address past the "
+                         f"written slots and inside x (xlen {xlen})")
+    if nb > _MAX_GRID_Y:
+        raise ValueError(f"epoch_sweep: at most {_MAX_GRID_Y} right-hand sides, got {nb}")
+    if not _route(dev):
+        return x.copy_(ref.epoch_sweep_ref(x, cols, vals, rhs, diag, lo, hi, limit))
+    if n_own and nb and hi > lo:
+        _launch("epoch_sweep_launch", dev, x.data_ptr(), cols.data_ptr(), vals.data_ptr(),
+                rhs.data_ptr(), None if diag is None else diag.data_ptr(), n_own, nb, nlev,
+                maxr, w, xlen, lo, hi, limit)
+        epoch_sweep.launches += 1
+    return x
+
+
+def superstep_factor(state: torch.Tensor, sched: torch.Tensor, s: int, piv_addr: torch.Tensor,
+                     piv_dlane: torch.Tensor, piv_dst: torch.Tensor, n_piv: torch.Tensor,
+                     n_bands: int, band_rows: int) -> torch.Tensor:
+    """Factor the bands of superstep ``s`` of the band-superstep schedule
+    ``sched`` (n_sup, D, MPD) in the owner-local value state ``state``
+    (D, s_loc+H+1, W), **in place**, and return ``state``. The per-row
+    tables are owner-local: ``piv_addr``/``piv_dlane`` (D, s_loc, MP),
+    ``piv_dst`` (D, s_loc, MP, W), ``n_piv`` (D, s_loc). One launch, one
+    block per (owner, band) member."""
+    dev = state.device
+    if state.ndim != 3:
+        raise ValueError(f"superstep_factor state: expected (D, rows, W), got "
+                         f"{tuple(state.shape)}")
+    n_own, srows, w = state.shape
+    n_sup, mpd = sched.shape[0], sched.shape[2]
+    s_loc, mp = piv_addr.shape[1], piv_addr.shape[2]
+    _check("superstep_factor state", state, _F32, (n_own, srows, w), dev)
+    _check("superstep_factor sched", sched, _I32, (n_sup, n_own, mpd), dev)
+    _check("superstep_factor piv_addr", piv_addr, _I32, (n_own, s_loc, mp), dev)
+    _check("superstep_factor piv_dlane", piv_dlane, _I32, (n_own, s_loc, mp), dev)
+    _check("superstep_factor piv_dst", piv_dst, _I32, (n_own, s_loc, mp, w), dev)
+    _check("superstep_factor n_piv", n_piv, _I32, (n_own, s_loc), dev)
+    if not 0 <= s < n_sup:
+        raise ValueError(f"superstep_factor: superstep {s} outside [0, {n_sup})")
+    if s_loc % band_rows or s_loc >= srows or n_bands != (s_loc // band_rows) * n_own:
+        raise ValueError(f"superstep_factor: {n_bands} bands of {band_rows} rows do not fill "
+                         f"{n_own} owners of {s_loc} local rows")
+    if band_rows * w * 4 > _MAX_SMEM:  # the band's values live in shared memory
+        raise ValueError(f"superstep_factor: a {band_rows} x {w} band does not fit in shared "
+                         "memory")
+    if mpd > _MAX_GRID_Y:
+        raise ValueError(f"superstep_factor: at most {_MAX_GRID_Y} bands per owner and "
+                         f"superstep, got {mpd}")
+    if not _route(dev):
+        return state.copy_(ref.superstep_factor_ref(state, sched, s, piv_addr, piv_dlane,
+                                                    piv_dst, n_piv, n_bands, band_rows))
+    if n_own and mpd:
+        _launch("superstep_factor_launch", dev, state.data_ptr(), sched.data_ptr(),
+                piv_addr.data_ptr(), piv_dlane.data_ptr(), piv_dst.data_ptr(),
+                n_piv.data_ptr(), s, n_own, mpd, srows, s_loc, band_rows, w, mp, n_bands)
+        superstep_factor.launches += 1
+    return state
 
 
 def _matrix(name: str, t: torch.Tensor, device) -> tuple:
@@ -292,7 +382,7 @@ def tile_lu(t: torch.Tensor, out: torch.Tensor = None) -> torch.Tensor:
 
 
 KERNELS = (spmv_ell, factor_wavefront, tri_solve_wavefront, inverse_chain, panel_update,
-           trsm_right_upper, trsm_left_unit_lower, tile_lu)
+           trsm_right_upper, trsm_left_unit_lower, tile_lu, epoch_sweep, superstep_factor)
 for _fn in KERNELS:
     _fn.launches = 0
 

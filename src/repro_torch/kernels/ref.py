@@ -96,6 +96,94 @@ def tri_solve_wavefront_ref(l_cols, l_vals, l_rhs_idx, u_cols, u_vals, u_diag,
     return x_u[..., out_perm.long()]
 
 
+def epoch_sweep_ref(x: torch.Tensor, cols, vals, rhs, diag, lo: int, hi: int,
+                    limit: int) -> torch.Tensor:
+    """One collective epoch of the band-partitioned sweep, for D owners and
+    nb right-hand sides (``repro.core.triangular.epoch_sweep_jnp``, written
+    out over a leading owner axis and a lane axis).
+
+    ``x``: (D, nb, xlen) owner-local sweep vectors ``[local | halo |
+    scratch]``; ``cols``/``vals``: (D, nlev, maxr, W) owner-local dependency
+    addresses and values; ``rhs``: (D, nb, nlev, maxr); ``diag``: (D, nlev,
+    maxr), or None for the unit-diagonal L sweep. Runs levels ``[lo, hi)``:
+    per level one gather from each owner's own vector, the masked lane sum
+    (lanes at or past ``limit`` masked), ``r - acc`` or ``(r - acc) / d``,
+    written at ``level * maxr``. Returns the updated copy of ``x``.
+    """
+    x = x.clone()
+    n_own, nb = x.shape[0], x.shape[1]
+    maxr, w = cols.shape[2], cols.shape[3]
+    cl = cols.long()
+    for lev in range(lo, hi):
+        c = cl[:, lev]  # (D, maxr, W)
+        g = torch.gather(x, 2, c.reshape(n_own, 1, maxr * w).expand(n_own, nb, maxr * w))
+        acc = masked_lane_sum(c[:, None], vals[:, lev][:, None], g.view(n_own, nb, maxr, w),
+                              limit)
+        y = rhs[:, :, lev] - acc
+        if diag is not None:
+            y = y / diag[:, lev][:, None]
+        x[:, :, lev * maxr:(lev + 1) * maxr] = y
+    return x
+
+
+def superstep_factor_ref(state: torch.Tensor, sched, s: int, piv_addr, piv_dlane, piv_dst,
+                         n_piv, n_bands: int, band_rows: int) -> torch.Tensor:
+    """One superstep of the band-superstep factorization
+    (``repro.core.numeric_jax.make_superstep_factorizer``'s superstep body),
+    vectorized over the superstep's (owner, band) members.
+
+    ``state``: (D, s_loc+H+1, W) owner-local values ``[local | halo |
+    scratch]``; ``sched``: (n_sup, D, MPD) band ids, ``n_bands``-padded;
+    ``piv_addr``/``piv_dlane``: (D, s_loc, MP); ``piv_dst``: (D, s_loc, MP,
+    W) destination lanes (W = dropped); ``n_piv``: (D, s_loc). Rows run in
+    order and pivots in ascending ``p``; a pivot row comes from the band
+    being built when it lies in the band, else from the state. Each pivot is
+    ``l = x[p] / piv``, ``x[dst] + (-(l * pivot row))`` (== x - l·row, the
+    product rounded first) through the destination map, then ``x[p] = l``;
+    pivots at or past ``n_piv`` leave the row as it is. Padded bands are
+    skipped. Returns the updated copy of ``state``.
+    """
+    state = state.clone()
+    n_own, _, w = state.shape
+    mpd = sched.shape[2]
+    mp = piv_addr.shape[2]
+    R = band_rows
+    bands = sched[s].long()  # (D, MPD)
+    live = bands < n_bands
+    d_idx = torch.arange(n_own, device=state.device)[:, None].expand(n_own, mpd)[live]
+    if d_idx.numel() == 0:
+        return state
+    base = (bands[live] // n_own) * R  # (M,) owner-local first row of each member
+    m_idx = torch.arange(d_idx.numel(), device=state.device)
+    rows = base[:, None] + torch.arange(R, device=state.device)  # (M, R)
+    buf = state[d_idx[:, None], rows]  # (M, R, W)
+    drop = torch.zeros((d_idx.numel(), 1), dtype=state.dtype, device=state.device)
+    one = torch.ones((), dtype=state.dtype, device=state.device)
+    for r in range(R):
+        jl = base + r
+        x = buf[:, r]
+        npv = n_piv[d_idx, jl]
+        for p in range(min(mp, int(npv.max()))):  # later pivots are no-ops for every member
+            addr = piv_addr[d_idx, jl, p].long()
+            valid = p < npv
+            li = addr - base
+            in_band = (li >= 0) & (li < R)
+            pvals = torch.where(in_band[:, None], buf[m_idx, li.clamp(0, R - 1)],
+                                state[d_idx, addr])
+            piv = torch.where(valid, pvals[m_idx, piv_dlane[d_idx, jl, p].long()], one)
+            pl = min(p, w - 1)
+            xp = x[:, pl]
+            l = xp / piv
+            contrib = l[:, None] * pvals  # rounded before the subtract
+            xw = torch.cat([x, drop], dim=1)
+            xw.scatter_add_(1, piv_dst[d_idx, jl, p].long(), -contrib)  # x + (-c) == x - c
+            x = xw[:, :w]
+            x[:, pl] = torch.where(valid, l, xp)
+        buf[:, r] = x
+    state[d_idx[:, None], rows] = buf
+    return state
+
+
 def inverse_chain_ref(w_cols: torch.Tensor, w_vals: torch.Tensor, z_cols: torch.Tensor,
                       z_vals: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """x = Z (W b), two lane-ordered ELL products whose gathers read

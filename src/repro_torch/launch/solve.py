@@ -1,11 +1,14 @@
 """ILU(k)-preconditioned GMRES solver CLI of the port (the paper's workload).
 
     PYTHONPATH=src python -m repro_torch.launch.solve --n 2000 --k 1 \
-        [--backend torch|oracle] [--device cuda|cpu]
+        [--backend torch|oracle|topilu] [--devices D] [--broadcast gather|ring] \
+        [--band-rows R] [--device cuda|cpu]
 
-The twin of ``repro.launch.solve`` for the single-device path: a random
-diagonally dominant ``matgen`` matrix, a right-hand side from the seed,
-``solve_with_ilu`` with GMRES. ``--device`` defaults to CUDA.
+The twin of ``repro.launch.solve``: a random diagonally dominant ``matgen``
+matrix, a right-hand side from the seed, and GMRES — through
+``solve_with_ilu`` (``--backend torch|oracle``), or through the distributed
+``solve_sharded`` over D band owners of R-row bands (``--backend topilu``).
+``--device`` defaults to CUDA.
 """
 import argparse
 import time
@@ -16,7 +19,10 @@ def main():
     ap.add_argument("--n", type=int, default=2000)
     ap.add_argument("--density", type=float, default=None)
     ap.add_argument("--k", type=int, default=1)
-    ap.add_argument("--backend", default="torch", choices=["torch", "oracle"])
+    ap.add_argument("--backend", default="torch", choices=["torch", "oracle", "topilu"])
+    ap.add_argument("--devices", type=int, default=1, help="band owners (topilu)")
+    ap.add_argument("--broadcast", default="gather", choices=["gather", "ring"])
+    ap.add_argument("--band-rows", type=int, default=32)
     ap.add_argument("--device", default=None, choices=["cuda", "cpu"])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -24,16 +30,25 @@ def main():
     import numpy as np
 
     from repro_torch.core.matgen import matgen
-    from repro_torch.core.solvers import solve_with_ilu
+    from repro_torch.core.solvers import solve_sharded, solve_with_ilu
 
     density = args.density or min(0.08, 20.0 / args.n)
     a = matgen(args.n, density=density, seed=args.seed)
     b = np.random.default_rng(args.seed + 1).standard_normal(args.n).astype(np.float32)
     t0 = time.perf_counter()
-    res, fact = solve_with_ilu(a, b, k=args.k, method="gmres", backend=args.backend,
-                               device=args.device)
+    if args.backend == "topilu":
+        res, fact = solve_sharded(a, b, k=args.k, n_devices=args.devices,
+                                  band_rows=args.band_rows, broadcast=args.broadcast,
+                                  device=args.device)
+        where = (f"devices={fact.n_devices} broadcast={args.broadcast} "
+                 f"band_rows={args.band_rows} supersteps={fact.plan.n_supersteps}")
+    else:
+        res, fact = solve_with_ilu(a, b, k=args.k, method="gmres", backend=args.backend,
+                                   device=args.device)
+        where = ""
     dt = time.perf_counter() - t0
-    print(f"n={args.n} nnz={a.nnz} k={args.k} backend={args.backend} device={fact.device}")
+    print(f"n={args.n} nnz={a.nnz} k={args.k} backend={args.backend} device={fact.device} "
+          f"{where}".rstrip())
     print(f"fill {a.nnz} -> {fact.nnz}; symbolic {fact.symbolic_seconds:.3f}s "
           f"numeric {fact.numeric_seconds:.3f}s")
     print(f"gmres: {res.iterations} iterations, residual {res.residual:.2e}, "

@@ -174,3 +174,111 @@ def test_inverse_plans_and_oracles_match(name, k):
     b = np.random.default_rng(k).standard_normal((2, ja.n)).astype(np.float32)
     _same(tinv_ref.inverse_apply_ref(tplan.w_cols, tw, tplan.z_cols, tz, b),
           jinv_ref.inverse_apply_ref(jplan.w_cols, jw, jplan.z_cols, jz, b))
+
+
+# --------------------------------------------------------------------------
+# the banded plans of the distributed path (make_plan, the sharded sweep plan)
+# --------------------------------------------------------------------------
+BANDED = {
+    "matgen": (lambda m: m.matgen(120, 0.05, seed=2)),
+    "poisson16": (lambda m: m.poisson_2d(16)),
+    "cd12": (lambda m: m.convection_diffusion_2d(12)),
+}
+
+
+def _banded(name, k=1):
+    ja, ta = BANDED[name](jmg), BANDED[name](tmg)
+    jp = jsym.pilu1_symbolic(ja) if k == 1 else jsym.symbolic_ilu_k(ja, k)
+    tp = tsym.pilu1_symbolic(ta) if k == 1 else tsym.symbolic_ilu_k(ta, k)
+    return ja, ta, jp, tp
+
+
+def _same_numeric_plans(tplan, jplan):
+    for f in dataclasses.fields(jplan):
+        want = getattr(jplan, f.name)
+        got = tplan.pivot_start() if f.name == "pivot_start" else getattr(tplan, f.name)
+        _same(got, want)
+    for m in ("state_rows", "bands_per_device"):
+        assert getattr(tplan, m) == getattr(jplan, m), m
+    for m in ("per_device_value_bytes", "halo_bytes_per_superstep", "egress_sizes",
+              "band_to_slot"):
+        _same(getattr(tplan, m)(), getattr(jplan, m)())
+
+
+def _same_sweep_plans(tt, jt):
+    for f in dataclasses.fields(jt):
+        want, got = getattr(jt, f.name), getattr(tt, f.name)
+        if f.name in ("l_sched", "u_sched"):
+            for g in dataclasses.fields(want):
+                w, t = getattr(want, g.name), getattr(got, g.name)
+                if isinstance(w, list):  # per epoch: None or an array
+                    assert len(t) == len(w), g.name
+                    for te, we in zip(t, w):
+                        assert (te is None) == (we is None), g.name
+                        if we is not None:
+                            _same(te, we)
+                else:
+                    _same(t, w)
+            for m in ("n_epochs", "scratch", "n_slots", "exchange_count",
+                      "exchanged_slot_count"):
+                v = getattr(want, m)
+                assert (getattr(got, m)() if callable(v) else getattr(got, m)) == (
+                    v() if callable(v) else v), m
+            _same(got.slot_was_exchanged(), want.slot_was_exchanged())
+        else:
+            _same(got, want)
+
+
+@pytest.mark.parametrize("band_rows", [8, 16])
+@pytest.mark.parametrize("n_devices", [1, 2, 4])
+@pytest.mark.parametrize("name", sorted(BANDED))
+def test_banded_plans_and_comm_models_match(name, n_devices, band_rows):
+    """make_plan (every array the factorizer, the halo schedule and the comm
+    model read), the sharded sweep plan with both epoch schedules, and the
+    comm records behind precond_method="auto"."""
+    ja, ta, jp, tp = _banded(name)
+    _same_numeric_plans(tplanner.make_plan(ta, tp, band_rows, n_devices),
+                        jplanner.make_plan(ja, jp, band_rows, n_devices))
+    jt = jtri.build_sharded_triangular_plan(jp, band_rows, n_devices)
+    tt = ttri.build_sharded_triangular_plan(tp, band_rows, n_devices)
+    _same_sweep_plans(tt, jt)
+    assert tt.comm_summary() == jt.comm_summary()
+    for bc in ("gather", "ring"):
+        assert tt.sweep_collectives_per_apply(bc) == jt.sweep_collectives_per_apply(bc)
+    for nb in (1, 3):
+        assert tt.sweep_bytes_per_apply(nb) == jt.sweep_bytes_per_apply(nb)
+        assert tt.sweep_bytes_per_apply_unfused(nb) == jt.sweep_bytes_per_apply_unfused(nb)
+        assert (tinv.inverse_comm_model(ta.n, n_devices, nb)
+                == jinv.inverse_comm_model(ja.n, n_devices, nb))
+    assert tt.per_device_factor_bytes() == jt.per_device_factor_bytes()
+    assert (tinv.modeled_apply_cost(tt.comm_summary())
+            == jinv.modeled_apply_cost(jt.comm_summary()))
+    for summary in (None, tt.comm_summary()):
+        assert (tinv.resolve_precond_method("auto", tp, n_devices, band_rows, summary)
+                == jinv.resolve_precond_method("auto", jp, n_devices, band_rows, summary))
+
+
+@pytest.mark.parametrize("k", [0, 2])
+def test_banded_plans_match_at_other_levels(k):
+    ja, ta, jp, tp = _banded("cd12", k)
+    _same_numeric_plans(tplanner.make_plan(ta, tp, 8, 4), jplanner.make_plan(ja, jp, 8, 4))
+    _same_sweep_plans(ttri.build_sharded_triangular_plan(tp, 8, 4),
+                      jtri.build_sharded_triangular_plan(jp, 8, 4))
+
+
+def test_make_plan_without_dense_pivot_start():
+    """The port's plan holds no (n_pad, B+1) array: the band pairs and the
+    trip-count bounds come from the strictly-lower entries, at O(nnz)."""
+    ta = tmg.poisson_2d(40)
+    plan = tplanner.make_plan(ta, tsym.pilu1_symbolic(ta), 8, 4)
+    assert not any(isinstance(v, np.ndarray) and v.size >= plan.n_pad * plan.n_bands
+                   for v in vars(plan).values())
+    pairs, max_inter, max_intra = tplanner._band_dependencies(
+        plan.cols, plan.diag_pos, plan.band_rows, plan.n_bands)
+    ps = plan.pivot_start()
+    counts = np.diff(ps, axis=1)
+    own = counts[np.arange(plan.n_pad), plan.band_of_row].copy()
+    counts[np.arange(plan.n_pad), plan.band_of_row] = 0
+    jj, bb = np.nonzero(counts > 0)
+    _same(pairs, np.unique(plan.band_of_row[jj].astype(np.int64) * plan.n_bands + bb))
+    assert (max_inter, max_intra) == (int(counts.max()), int(own.max()))

@@ -32,7 +32,7 @@ from repro_torch.core.api import ilu
 from repro_torch.core.guard import IdentityPrecondApply
 from repro_torch.core.solvers import solve_with_ilu
 from repro_torch.core.sparse import CSRMatrix, ILUPattern
-from repro_torch.core.triangular import PrecondApply
+from repro_torch.core.triangular import PrecondApply, build_sharded_triangular_plan
 from repro_torch.kernels import ops
 
 jmg = importlib.import_module("repro.core.matgen")  # `repro.core.matgen` is also a function
@@ -159,8 +159,13 @@ def test_precond_method_caching_and_resolution():
     assert tinv.resolve_precond_method("inverse") == "inverse"
     with pytest.raises(ValueError, match="precond_method"):
         tinv.resolve_precond_method("sweeps")
-    with pytest.raises(NotImplementedError, match="Queue A 9"):
+    # racing the two models across owners needs n, which only the pattern carries
+    with pytest.raises(ValueError, match="needs the pattern"):
         tinv.resolve_precond_method("auto", n_devices=2)
+    summary = build_sharded_triangular_plan(f.pattern, 8, 2).comm_summary()
+    with pytest.raises(ValueError, match="needs the pattern"):
+        tinv.resolve_precond_method("auto", n_devices=2, sweep_summary=summary)
+    assert tinv.resolve_precond_method("auto", f.pattern, 2, 8, summary) in ("sweep", "inverse")
     f.health.degraded = True  # a degraded factor applies the identity whatever the method
     assert isinstance(f.precond("inverse"), IdentityPrecondApply)
     assert f.precond() is f.precond("sweep")

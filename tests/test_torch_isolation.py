@@ -1,8 +1,8 @@
 """The port stands alone: no jax, nothing of ``repro``, no quiet CPU fallback.
 
 * A child process imports the port with ``jax`` blocked and runs a tiny
-  GMRES and CG solve and a Block-ILU on the CPU; no ``repro`` module may
-  get loaded.
+  GMRES and CG solve, a Block-ILU and a distributed solve over two band
+  owners on the CPU; no ``repro`` module may get loaded.
 * No source file of the port mentions an import of jax or of ``repro``.
 * Without a GPU, the entry points raise unless the caller passes
   ``device="cpu"``; and ``chip_smoke.py`` fails without printing a result.
@@ -37,6 +37,13 @@ r, _ = solve_with_ilu(a, np.ones(a.n, np.float32), k=1, method="cg", device="cpu
 assert r.verdict == "converged", r.verdict
 f = bilu(a, 1, bs=8, device="cpu")
 assert f.tiles.shape == (len(f.tile_index), 8, 8)
+import repro_torch.core.top_ilu, repro_torch.core.numeric, repro_torch.core.guard
+from repro_torch.core.solvers import solve_sharded
+r, f = solve_sharded(a, np.ones(a.n, np.float32), k=1, n_devices=2, band_rows=8, device="cpu")
+assert r.verdict == "converged" and f.n_devices == 2, r.verdict
+r, _ = solve_sharded(a, np.ones(a.n, np.float32), k=1, n_devices=2, band_rows=8, device="cpu",
+                     precond_method="inverse", tol=1e-4)
+assert r.verdict == "converged", r.verdict
 bad = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert not bad, bad
 print("ISOLATED")
@@ -87,6 +94,25 @@ def test_entry_points_raise_without_gpu(monkeypatch):
         solve_with_ilu(a, b, k=1, device="cuda")
     r, _ = solve_with_ilu(a, b, k=1, device="cpu")
     assert r.converged
+
+
+def test_distributed_entry_points_raise_without_gpu(monkeypatch):
+    from repro_torch.core.api import ilu, ilu_sharded
+    from repro_torch.core.matgen import poisson_2d
+    from repro_torch.core.solvers import solve_sharded
+    from repro_torch.core.top_ilu import BandGroup
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    a = poisson_2d(4)
+    b = np.ones(a.n, np.float32)
+    for call in (lambda: solve_sharded(a, b, k=1, n_devices=2, band_rows=4),
+                 lambda: ilu_sharded(a, 1, n_devices=2, band_rows=4),
+                 lambda: ilu(a, 1, backend="topilu", n_devices=2, band_rows=4),
+                 lambda: BandGroup(2)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    r, f = solve_sharded(a, b, k=1, n_devices=2, band_rows=4, device="cpu")
+    assert r.converged and f.device.type == "cpu"
 
 
 def _no_result(out):

@@ -137,7 +137,8 @@ def test_wrappers_route_cpu_tensors_to_plain_versions():
     assert ops.launch_counts() == {"spmv_ell": 0, "factor_wavefront": 0,
                                    "tri_solve_wavefront": 0, "inverse_chain": 0,
                                    "panel_update": 0, "trsm_right_upper": 0,
-                                   "trsm_left_unit_lower": 0, "tile_lu": 0}
+                                   "trsm_left_unit_lower": 0, "tile_lu": 0,
+                                   "epoch_sweep": 0, "superstep_factor": 0}
 
 
 def test_wrappers_reject_bad_inputs():
@@ -406,3 +407,60 @@ def test_cuda_tile_kernels_vs_plain(bs, cuda_device):
         exact = c.double() - a.double() @ b.double()
         limit = 2 * k * 2.0 ** -24 * (c.double().abs() + a.double().abs() @ b.double().abs())
         assert bool(((got - exact).abs() <= limit).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_devices", [1, 2, 4])
+def test_cuda_distributed_kernels_bitwise_vs_plain(n_devices, cuda_device):
+    """epoch_sweep over every epoch of both sweeps, and superstep_factor over
+    every superstep, on the card against their plain versions on the CPU;
+    then the whole sharded factorization and apply on the card against the
+    CPU's."""
+    from repro_torch.core.api import ilu_sharded
+    from repro_torch.core.numeric import make_superstep_factorizer, plan_state_array
+    from repro_torch.core.sparse import CSRMatrix
+    from repro_torch.core.top_ilu import BandGroup
+
+    ja = convection_diffusion_2d(8)
+    a = CSRMatrix.from_arrays(ja.n, ja.indptr, ja.indices, ja.data)
+    cpu = ilu_sharded(a, 1, band_rows=8, n_devices=n_devices, device="cpu")
+    plan = cpu.plan
+    steps = []
+
+    def checked(state, *args):  # each superstep: kernel and plain version on one input
+        want = ref.superstep_factor_ref(state.cpu(), *(t.cpu() if torch.is_tensor(t) else t
+                                                       for t in args))
+        before = ops.superstep_factor.launches
+        ops.superstep_factor(state, *args)
+        assert ops.superstep_factor.launches == before + 1
+        _bits_equal(state.cpu().numpy(), want.numpy())
+        steps.append(args[1])
+
+    for broadcast in ("gather", "ring"):
+        fac = make_superstep_factorizer(plan, BandGroup(n_devices, cuda_device), broadcast)
+        loc = fac(plan_state_array(plan, a), step=checked)
+        _bits_equal(loc.cpu().numpy(), cpu.loc_vals.numpy())
+    assert len(steps) == 2 * plan.n_supersteps
+
+    apply = cpu.precond()
+    tp = apply.plan
+    for sched, vals, diag in ((tp.l_sched, apply._lv, None),
+                              (tp.u_sched, apply._uv, apply._dg)):
+        cols = torch.from_numpy(sched.cols_local)
+        nlev, maxr = cols.shape[1], cols.shape[2]
+        x = torch.from_numpy(RNG.standard_normal((n_devices, 3, sched.scratch + 1))
+                             .astype(np.float32))
+        rhs = torch.from_numpy(RNG.standard_normal((n_devices, 3, nlev, maxr))
+                               .astype(np.float32))
+        dev_args = [t.to(cuda_device) if t is not None else None for t in (cols, vals, rhs, diag)]
+        xd = x.to(cuda_device)
+        bounds = [int(v) for v in sched.epoch_bounds]
+        for lo, hi in zip(bounds[:-1], bounds[1:]):
+            x = ref.epoch_sweep_ref(x, cols, vals, rhs, diag, lo, hi, sched.scratch)
+            ops.epoch_sweep(xd, *dev_args, lo, hi, sched.scratch)
+            _bits_equal(xd.cpu().numpy(), x.numpy())
+
+    card = ilu_sharded(a, 1, band_rows=8, n_devices=n_devices, device=cuda_device)
+    _bits_equal(card.values_csr(), cpu.values_csr())
+    b = RNG.standard_normal((2, a.n)).astype(np.float32)
+    _bits_equal(card.solve(b), cpu.solve(b))

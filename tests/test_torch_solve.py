@@ -108,7 +108,8 @@ def test_solve_with_ilu_matches_jax(name):
     assert ops.launch_counts() == {"spmv_ell": 0, "factor_wavefront": 0,
                                    "tri_solve_wavefront": 0, "inverse_chain": 0,
                                    "panel_update": 0, "trsm_right_upper": 0,
-                                   "trsm_left_unit_lower": 0, "tile_lu": 0}
+                                   "trsm_left_unit_lower": 0, "tile_lu": 0,
+                                   "epoch_sweep": 0, "superstep_factor": 0}
 
 
 @pytest.mark.reference_fault
