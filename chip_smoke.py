@@ -17,7 +17,14 @@ with a non-zero exit; nothing is caught):
    the inverse chain. The (nb=4, n) forms of the three batched kernels
    likewise, with every row equal to the single form's output for it.
    [inverse] lines: the inverse plan and value times at full size, and
-   W/Z on the card bitwise equal to the CPU's.
+   W/Z on the card bitwise equal to the CPU's. [tiles] lines: the four
+   Block-ILU tile kernels at (128, 128) and at ragged shapes against their
+   plain versions (bitwise; the panel product to a stated float32 bound);
+   the batched tile solves bitwise on a pivot of path C with 4 tiles per
+   list, in place on a pool of the path's size; the bf16 panel update to
+   a stated bound; times beside the bound (bytes, and the solves' chain of
+   bs steps), the left-looking solves' earlier times, and cuBLAS/cuSOLVER
+   calls on one tile and on the pivot's 4 tiles as one panel.
 3. factors — the factor values equal the sequential oracle
    ``numeric_ilu_ref``, bitwise, on ``convection_diffusion_2d(32)`` and
    ``poisson_2d(64)`` at k = 0, 1, 2. 3b: the inverse values W/Z computed
@@ -43,15 +50,26 @@ with a non-zero exit; nothing is caught):
    (``repro_torch.core.bilu.bilu``): the host plan and numeric walls, and
    the numeric phase once more under torch.profiler (device busy share);
    the launches of the four tile kernels equal the counts reckoned here from
-   the tile pattern; the tile-wise LU residual, in float64 on the card over
-   every kept tile, is <= 1e-4·max|A|; every scalar ILU(1) position lies in
-   a kept tile. On ``poisson_2d(64)`` the card's tiles agree with the CPU's
-   to 1e-4·max|A|. (The tile kernels themselves are held against their
-   plain versions at bs = 128 in phase 2, the ``[tiles]`` lines.)
+   the tile pattern (one left and one right solve per pivot, beside the
+   tiles they solve); the pool is bitwise equal to the per-tile order run
+   through the single-tile kernels on the card; the tile-wise LU residual,
+   in float64 on the card over every kept tile, is <= 1e-4·max|A|; every
+   scalar ILU(1) position lies in a kept tile. On ``poisson_2d(64)`` the
+   card's tiles agree with the CPU's to 1e-4·max|A|.
 9. cg — ``solve_with_ilu(poisson_2d(400), b, k=1, method="cg")``: at
    tol=1e-5 it must converge (the float64 true residual is printed), and
    at tol=1e-4 the float64 true residual must be <= 2·tol; on
    ``poisson_2d(64)`` the card's CG equals the CPU's bitwise.
+10. topilu and distributed kernels — the TOP-ILU factorization over
+    D = 4 band owners on the card (values equal phase 4's factor), and the
+    ``epoch_sweep`` and ``superstep_factor`` kernels against their plain
+    versions on every epoch and superstep checked.
+11. sharded apply — the band-partitioned apply at D = 1 and D = 4, single
+    and nb = 4, bitwise equal to phase 4's apply, one ``epoch_sweep``
+    launch per epoch.
+12. distributed — ``solve_sharded`` at D = 4 (sweep and inverse): ``x``
+    bitwise equal to phases 4 and 5, and a D = 2 solve on the card equal
+    to the CPU's.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a GPU, or without
@@ -68,6 +86,7 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 F32_FLOP_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12  # H100 SXM, bf16 on the tensor cores, dense
 SEED = 0
 TOL = 1e-5
 INV_TOL = 1e-4  # the inverse method's float32 floor on poisson_2d(400) is just above 1e-5
@@ -75,6 +94,9 @@ NB = 4  # right-hand sides of the batched kernel checks and the multi-RHS solve
 BS_TILE = 128  # the Block-ILU tile of the module's docstring; also bs = 32, bilu's default
 CG_TOL = 1e-4  # float32 CG's recursive residual drifts from the true one at 1e-5 here
 TILE_KERNELS = ("panel_update", "trsm_right_upper", "trsm_left_unit_lower", "tile_lu")
+# the left-looking tile solves' (ms per call, device ms) at (128, 128) on an
+# NVIDIA H100 80GB HBM3 at 700 W (PERF.md), printed beside the new ones
+PREVIOUS_TRSM_MS = {"trsm_right_upper": (0.1950, 0.1441), "trsm_left_unit_lower": (0.2249, 0.1513)}
 DISTRIBUTED_KERNELS = ("epoch_sweep", "superstep_factor")
 SHARDED_D = 4  # band owners of the distributed path, on one card
 BAND_ROWS = 32  # rows per band (the JAX package's default)
@@ -129,8 +151,8 @@ def kernel_events(prof):
     ``prof.events()`` builds costs about a minute at 360k kernels."""
     from torch.autograd import DeviceType
 
-    return [(e.name(), e.duration_ns() / 1e3) for e in prof.profiler.kineto_results.events()
-            if e.device_type() == DeviceType.CUDA]
+    return [(e.name().removeprefix("void "), e.duration_ns() / 1e3)  # templates: "void f<T>(...)"
+            for e in prof.profiler.kineto_results.events() if e.device_type() == DeviceType.CUDA]
 
 
 def device_ms(fn, kernel, reps=5, attempts=3, per_call=1):
@@ -156,9 +178,9 @@ def device_ms(fn, kernel, reps=5, attempts=3, per_call=1):
     return None
 
 
-def bound(nbytes, nops):
+def bound(nbytes, nops, flop_per_s=F32_FLOP_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / F32_FLOP_PER_S * 1e3
+    t_ops = nops / flop_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -463,10 +485,12 @@ def true_residual(a, b, x):
 
 
 def check_launches(path, counts, launched, idle=()):
+    """The path launched each kernel of ``launched`` and none of ``idle``,
+    nor the bf16 panel update, which no path runs (every pool is float32)."""
     say(f"[{path}] kernel launches: {json.dumps(counts)}")
     for name in launched:
         require(counts[name] > 0, f"the {path} path never launched {name}")
-    for name in idle:
+    for name in (*idle, "panel_update_bf16"):
         require(counts[name] == 0, f"the {path} path launched {name}")
 
 
@@ -640,12 +664,25 @@ def dominant_tile(rng, bs):
     return t + np.diag(np.abs(t).sum(1) + 1).astype(np.float32)
 
 
-def phase_tile_kernels(dev, bs=BS_TILE):
+def pivot_lists(nx, bs):
+    """The tile pattern of Block-ILU(1) of poisson_2d(nx) at tile size bs,
+    and its per-pivot slot lists (``bilu._pivot_lists``)."""
+    from repro_torch.core import bilu as bilu_mod
+    from repro_torch.core.matgen import poisson_2d
+    from repro_torch.core.symbolic import symbolic_ilu_k
+
+    tpat = symbolic_ilu_k(bilu_mod.tile_adjacency(poisson_2d(nx), bs), 1)
+    return tpat, bilu_mod._pivot_lists(tpat)
+
+
+def phase_tile_kernels(dev, bs=BS_TILE, nx=400):
     """[tiles]: the four dense-tile kernels of Block-ILU(k) at the path's
     (bs, bs) shapes against their plain versions on the card (bitwise, but
     the panel product, which is held to 2·K·2^-24·(|C| + |A||B|) of a float64
-    product), each at ragged shapes too; then their times beside the bound
-    and a PyTorch yardstick (cuBLAS, cuSOLVER), timed and never used."""
+    product), each at ragged shapes too; the batched tile solves on a real
+    pivot's slot list of path C, in place on a pool; the bf16 panel update;
+    then their times beside the bound and a PyTorch yardstick (cuBLAS,
+    cuSOLVER), timed and never used."""
     import numpy as np
     import torch
 
@@ -667,6 +704,15 @@ def phase_tile_kernels(dev, bs=BS_TILE):
         require(bits_equal(ops.trsm_left_unit_lower(packed, q),
                            ref.trsm_left_unit_lower_ref(packed, q)),
                 f"trsm_left_unit_lower kernel != plain version at N={m}")
+        # mostly zero rows, as path C's L tiles: zero numerators (signed,
+        # against negative pivots too) take the divide's shortcut
+        sp, signed = p.clone(), packed.clone()
+        sp[:, bs // 8:] = 0.0
+        sp[1::2, bs // 4:] = -0.0
+        sp[::3, bs // 3] = 1e-39
+        signed[torch.arange(0, bs, 3), torch.arange(0, bs, 3)] *= -1
+        require(bits_equal(ops.trsm_right_upper(sp, signed), ref.trsm_right_upper_ref(sp, signed)),
+                f"trsm_right_upper kernel != plain version on a sparse panel at M={m}")
     for m, n, k in ((bs, bs, bs), (96, 40, 72), (3 * bs + 5, bs - 3, 2 * bs + 1)):
         pa, pb, pc = (on(rng.standard_normal(s).astype(np.float32))
                       for s in ((m, k), (k, n), (m, n)))
@@ -675,19 +721,83 @@ def phase_tile_kernels(dev, bs=BS_TILE):
         limit = 2 * k * 2.0 ** -24 * (pc.double().abs() + pa.double().abs() @ pb.double().abs())
         require(bool(((got - exact).abs() <= limit).all()),
                 f"panel_update ({m}, {k}) x ({k}, {n}) off by more than 2K*2^-24*(|C|+|A||B|)")
+        # the bf16 form: float32 sums of the same products, then one rounding
+        # to bf16, so within 2^-8 of |exact| on top of the float32 bound
+        ha, hb, hc = (x.to(torch.bfloat16) for x in (pa, pb, pc))
+        got = ops.panel_update(hc, ha, hb)
+        require(got.dtype == torch.bfloat16, "panel_update bf16: the result is not bf16")
+        exact = hc.double() - ha.double() @ hb.double()
+        limit = 2.0 ** -8 * exact.abs() + (1 + 2.0 ** -8) * 2 * k * 2.0 ** -24 * (
+            hc.double().abs() + ha.double().abs() @ hb.double().abs())
+        require(bool(((got.double() - exact).abs() <= limit).all()),
+                f"panel_update bf16 ({m}, {k}) x ({k}, {n}) off by more than "
+                "2^-8*|exact| + (1+2^-8)*2K*2^-24*(|C|+|A||B|)")
     inplace = c.clone()
     ops.panel_update(inplace, a, b, out=inplace)
     require(bits_equal(inplace, ops.panel_update(c, a, b)), "panel_update in place != out of place")
 
-    def row(name, source, replaces, fn, plain, lib, nbytes, nops, got, want, **extra):
-        b_ms, b_by = bound(nbytes, nops)
+    # the batched solves on a pivot of path C with 4 tiles in each list, in
+    # place on a pool of the path's size (random tiles in the listed slots
+    # and the packed LU tile in the diagonal one); every other slot must
+    # keep its bits
+    tpat, (u_ptr, u_slots, l_ptr, l_slots, diag) = pivot_lists(nx, bs)
+    full = np.flatnonzero((np.diff(u_ptr) == 4) & (np.diff(l_ptr) == 4))
+    require(full.size > 0, "no pivot of path C has 4 tiles in both lists")
+    piv = int(full[0])
+    d = int(diag[piv])
+    lists = {"trsm_left_unit_lower": u_slots[u_ptr[piv]:u_ptr[piv + 1]],
+             "trsm_right_upper": l_slots[l_ptr[piv]:l_ptr[piv + 1]]}
+    pool = torch.zeros((tpat.nnz, bs, bs), dtype=torch.float32, device=dev)
+    pool[d] = packed
+    for slots in lists.values():
+        pool[torch.as_tensor(slots, device=dev)] = on(
+            rng.standard_normal((slots.size, bs, bs)).astype(np.float32))
+    batched = {}
+    for name, slots in lists.items():
+        dslots = torch.as_tensor(slots.astype(np.int32), device=dev)
+        got = getattr(ops, f"{name}_slots")(pool.clone(), d, dslots)
+        want = getattr(ref, f"{name}_slots_ref")(pool.clone(), d, dslots)
+        require(bits_equal(got, want), f"{name}_slots kernel != plain version on pivot {piv}'s "
+                f"tiles {slots.tolist()} (or a slot it does not list changed)")
+        # timed on fresh tiles: one copy of the 4 tiles for every call that
+        # time_ms and device_ms make (warm-up, timed runs, every trace
+        # attempt), so no call re-solves a solved tile; a run past the last
+        # copy stops with StopIteration
+        R = 1 + 50 + 1 + 20 * sum(4 ** i for i in range(3))
+        tpool = torch.empty((4 * R + 1, bs, bs), dtype=torch.float32, device=dev)
+        tpool[0] = packed
+        tpool[1:] = pool[torch.as_tensor(slots, device=dev)].repeat(R, 1, 1)
+        sets = iter(torch.arange(1, 4 * R + 1, dtype=torch.int32, device=dev).view(R, 4))
+        fn = getattr(ops, f"{name}_slots")
+        run = lambda: fn(tpool, 0, next(sets))  # noqa: E731
+        tiles = pool[torch.as_tensor(slots, device=dev)]
+        if name == "trsm_right_upper":
+            panel = tiles.reshape(4 * bs, bs)  # the 4 tiles stacked: one (4bs, bs) panel
+            lib = lambda: torch.linalg.solve_triangular(packed, panel, upper=True,  # noqa: E731
+                                                        left=False)
+        else:
+            panel = tiles.permute(1, 0, 2).reshape(bs, 4 * bs).contiguous()  # side by side
+            lib = lambda: torch.linalg.solve_triangular(packed, panel, upper=False,  # noqa: E731
+                                                        unitriangular=True)
+        batched[name] = dict(batched_pivot=piv, batched_tiles=int(slots.size),
+                             batched_ms=time_ms(run, reps=50),
+                             batched_device_ms=device_ms(run, f"{name}_kernel", reps=20,
+                                                         attempts=3),
+                             batched_library_ms=time_ms(lib, reps=50),
+                             batched_library="one solve_triangular on the 4 tiles as one panel")
+
+    def row(name, source, replaces, fn, plain, lib, nbytes, nops, got, want,
+            flop_per_s=F32_FLOP_PER_S, **extra):
+        b_ms, b_by = bound(nbytes, nops, flop_per_s)
         return dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{source}",
                     replaces=replaces, launches=0, max_abs_err=max_abs_err(got, want),
                     ms=time_ms(fn, reps=50), plain_ms=time_ms(plain, reps=3), bound_ms=b_ms,
                     bound_by=b_by, library_ms=time_ms(lib, reps=50),
-                    device_ms=device_ms(fn, f"{name}_kernel", reps=20), **extra)
+                    device_ms=device_ms(fn, f"{name.removesuffix('_bf16')}_kernel", reps=20),
+                    **extra)
 
     tri = bs * (bs + 1) // 2
+    ha, hb, hc = (x.to(torch.bfloat16) for x in (a, b, c))
     rows = {
         "panel_update": row(
             "panel_update", "panel_update.cu", "src/repro/kernels/panel_update.py:61",
@@ -695,13 +805,21 @@ def phase_tile_kernels(dev, bs=BS_TILE):
             lambda: torch.addmm(c, a, b, alpha=-1), 4 * 4 * bs * bs, 2 * bs ** 3 + bs * bs,
             ops.panel_update(c, a, b), ref.panel_update_ref(c, a, b),
             library="torch.addmm(c, a, b, alpha=-1), TF32 off"),
+        "panel_update_bf16": row(
+            "panel_update_bf16", "panel_update.cu", "src/repro/kernels/panel_update.py:61",
+            lambda: ops.panel_update(hc, ha, hb), lambda: ref.panel_update_ref(hc, ha, hb),
+            lambda: torch.addmm(hc, ha, hb, alpha=-1), 4 * 2 * bs * bs, 2 * bs ** 3 + bs * bs,
+            ops.panel_update(hc, ha, hb), ref.panel_update_ref(hc, ha, hb),
+            flop_per_s=BF16_FLOP_PER_S, library="torch.addmm(c, a, b, alpha=-1) in bf16",
+            note="the bf16 form (bf16 inputs and output, float32 sums); no path runs it"),
         "trsm_right_upper": row(
             "trsm_right_upper", "trsm.cu", "src/repro/kernels/tri_solve.py:59",
             lambda: ops.trsm_right_upper(a, packed), lambda: ref.trsm_right_upper_ref(a, packed),
             lambda: torch.linalg.solve_triangular(packed, a, upper=True, left=False),
             4 * (2 * bs * bs + tri), bs * (bs * bs + bs),
             ops.trsm_right_upper(a, packed), ref.trsm_right_upper_ref(a, packed),
-            library="torch.linalg.solve_triangular(u, a, upper=True, left=False)"),
+            library="torch.linalg.solve_triangular(u, a, upper=True, left=False)",
+            **batched["trsm_right_upper"]),
         "trsm_left_unit_lower": row(
             "trsm_left_unit_lower", "trsm.cu", "src/repro/kernels/tri_solve.py:79",
             lambda: ops.trsm_left_unit_lower(packed, a),
@@ -709,7 +827,8 @@ def phase_tile_kernels(dev, bs=BS_TILE):
             lambda: torch.linalg.solve_triangular(packed, a, upper=False, unitriangular=True),
             4 * (2 * bs * bs + tri - bs), bs * bs * bs,
             ops.trsm_left_unit_lower(packed, a), ref.trsm_left_unit_lower_ref(packed, a),
-            library="torch.linalg.solve_triangular(l, a, upper=False, unitriangular=True)"),
+            library="torch.linalg.solve_triangular(l, a, upper=False, unitriangular=True)",
+            **batched["trsm_left_unit_lower"]),
         "tile_lu": row(
             "tile_lu", "tile_lu.cu", "src/repro/core/bilu.py:83", lambda: ops.tile_lu(t),
             lambda: ref.tile_lu_nopiv_ref(t), lambda: torch.linalg.lu_factor(t, pivot=False),
@@ -721,31 +840,50 @@ def phase_tile_kernels(dev, bs=BS_TILE):
     for r in rows.values():
         dms = "not measured" if r["device_ms"] is None else f"{r['device_ms']:.4f} ms"
         say(f"[tiles] {r['name']} ({bs}, {bs}): "
-            + ("within 2K*2^-24*(|C|+|A||B|) of float64, max |diff| to plain "
-               f"{r['max_abs_err']:.3e}" if r["name"] == "panel_update"
+            + (f"within the tolerance above of float64, max |diff| to plain "
+               f"{r['max_abs_err']:.3e}" if r["name"].startswith("panel_update")
                else "bitwise equal to plain")
             + f"; {r['ms']:.4f} ms per call (device {dms}; plain {r['plain_ms']:.3f} ms, "
             f"bound {r['bound_ms']:.5f} ms by {r['bound_by']}, library {r['library_ms']:.4f} ms"
             f" = {r['library']})")
+    for name, was in PREVIOUS_TRSM_MS.items():
+        r = rows[name]
+        if r["device_ms"] is not None:
+            r.update(chain_steps=bs, us_per_step=r["device_ms"] * 1e3 / bs)
+        bdms = ("not measured" if r["batched_device_ms"] is None
+                else f"{r['batched_device_ms']:.4f} ms")
+        say(f"[tiles] {name}: chain of {bs} dependent steps, "
+            + ("device time not measured" if r["device_ms"] is None
+               else f"{r['us_per_step']:.4f} us per step")
+            + f"; the left-looking design took {was[0]:.4f} ms per call, device {was[1]:.4f} ms"
+            f"; batched, pivot {r['batched_pivot']}'s {r['batched_tiles']} tiles in one launch "
+            f"(bitwise equal to plain, in place): {r['batched_ms']:.4f} ms per call (device "
+            f"{bdms}), library {r['batched_library_ms']:.4f} ms ({r['batched_library']})")
     return rows
 
 
 def bilu_schedule(fact):
     """What the factorization must have done, reckoned from its tile
-    pattern alone: the launches of each tile kernel, and every product
-    L_IK U_KJ (K <= min(I, J)) that adds up to a kept tile (I, J), as slot
-    triples (slot of L_IK, slot of U_KJ, slot of (I, J))."""
+    pattern alone: the launches of each tile kernel (a tile LU per pivot;
+    one left and one right solve per pivot that has U or L tiles, each
+    solving all of them; a panel update per product), the tiles each kind
+    of solve handles, and every product L_IK U_KJ (K <= min(I, J)) that
+    adds up to a kept tile (I, J), as slot triples (slot of L_IK, slot of
+    U_KJ, slot of (I, J))."""
     import numpy as np
 
     tpat, index = fact.tile_pattern, fact.tile_index
     nt = tpat.n
     rows = np.repeat(np.arange(nt), np.diff(tpat.indptr))
-    lower = tpat.indices < rows
+    upper, lower = tpat.indices > rows, tpat.indices < rows
     below = [[] for _ in range(nt)]
     for i, k in zip(rows[lower].tolist(), tpat.indices[lower].tolist()):
         below[k].append(i)
-    counts = {"tile_lu": nt, "trsm_left_unit_lower": int((tpat.indices > rows).sum()),
-              "trsm_right_upper": int(lower.sum()), "panel_update": 0}
+    counts = {"tile_lu": nt,
+              "trsm_left_unit_lower": int(np.unique(rows[upper]).size),
+              "trsm_right_upper": int(np.unique(tpat.indices[lower]).size),
+              "panel_update": 0}
+    solved = {"trsm_left_unit_lower": int(upper.sum()), "trsm_right_upper": int(lower.sum())}
     triples = []
     for k in range(nt):
         cols = [int(j) for j in tpat.indices[tpat.indptr[k]:tpat.indptr[k + 1]] if j >= k]
@@ -755,7 +893,42 @@ def bilu_schedule(fact):
                 if dst is not None:
                     triples.append((index[(i, k)], index[(k, j)], dst))
                     counts["panel_update"] += i > k and j > k
-    return counts, np.array(triples, np.int64)
+    return counts, solved, np.array(triples, np.int64)
+
+
+def per_tile_pool(a, fact, dev):
+    """The numeric phase once more in the per-tile order of the JAX loop,
+    through the single-tile kernels: per pivot the tile LU, each left
+    solve, then for each tile row J below, ascending, its right solve and
+    that row's panel updates in ascending column. Returns the pool."""
+    import torch
+
+    from repro_torch.core.bilu import _scatter_a
+    from repro_torch.kernels import ops
+
+    tpat, index = fact.tile_pattern, fact.tile_index
+    pool = _scatter_a(a, tpat, fact.bs, dev)
+    below = [[] for _ in range(tpat.n)]
+    for r, c in sorted(index):
+        if r > c:
+            below[c].append(r)
+    for i in range(tpat.n):
+        d = pool[index[(i, i)]]
+        ops.tile_lu(d, out=d)
+        urow = [int(c) for c in tpat.row(i)[0] if c > i]
+        for t in urow:
+            u = pool[index[(i, t)]]
+            ops.trsm_left_unit_lower(d, u, out=u)
+        for j in below[i]:
+            lj = pool[index[(j, i)]]
+            ops.trsm_right_upper(lj, d, out=lj)
+            for t in urow:
+                slot = index.get((j, t))
+                if slot is not None:
+                    c = pool[slot]
+                    ops.panel_update(c, lj, pool[index[(i, t)]], out=c)
+    torch.cuda.synchronize()
+    return pool
 
 
 def tile_lu_residual(fact, a, triples, dev):
@@ -811,7 +984,7 @@ def phase_bilu(dev, bs, nx=400):
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     t0 = time.perf_counter()
-    want, triples = bilu_schedule(fact)
+    want, solved, triples = bilu_schedule(fact)
     reckon_s = time.perf_counter() - t0
     tag = f"bilu bs={bs}"
     say(f"[{tag}] poisson_2d({nx}) n={a.n} BILU(1): {fact.n_tiles} tile rows, "
@@ -819,7 +992,8 @@ def phase_bilu(dev, bs, nx=400):
         f"{wall:.3f} s = host plan {fact.plan_seconds:.3f} s + numeric "
         f"{fact.numeric_seconds:.3f} s ({sum(counts[k] for k in TILE_KERNELS)} tile launches,"
         f" {fact.numeric_seconds * 1e6 / max(1, sum(counts[k] for k in TILE_KERNELS)):.1f} us"
-        f" each); reckoned from the pattern in {reckon_s:.3f} s: {json.dumps(want)}")
+        f" each); reckoned from the pattern in {reckon_s:.3f} s: launches {json.dumps(want)}, "
+        f"tiles solved {json.dumps(solved)}")
     check_launches(tag, counts, TILE_KERNELS,
                    idle=("spmv_ell", "factor_wavefront", "tri_solve_wavefront", "inverse_chain"))
     for name in TILE_KERNELS:
@@ -841,6 +1015,15 @@ def phase_bilu(dev, bs, nx=400):
     require(tiles_hit <= keys, f"{tag}: a scalar ILU(1) position lies outside the kept tiles")
     say(f"[{tag}] all {pat.nnz} scalar ILU(1) positions lie in kept tiles "
         f"({len(tiles_hit)} of the {len(keys)})")
+    t0 = time.perf_counter()
+    per_tile = per_tile_pool(a, fact, dev)
+    per_tile_s = time.perf_counter() - t0
+    require(torch.equal(fact.tiles.view(torch.int32), per_tile.view(torch.int32)),
+            f"{tag}: the pool differs from the per-tile order's")
+    say(f"[{tag}] pool bitwise equal to the per-tile order through the single-tile kernels "
+        f"({solved['trsm_left_unit_lower'] + solved['trsm_right_upper']} single solves, "
+        f"{per_tile_s:.3f} s with its scatter)")
+    del per_tile
     profile_bilu(tag, a, bs, dev)
     return counts
 
@@ -1373,10 +1556,10 @@ def run(oracles):
 
     for name, r in rows.items():
         path = ("main-inverse" if name == "inverse_chain"
-                else f"bilu-bs{BS_TILE}" if name in TILE_KERNELS
+                else f"bilu-bs{BS_TILE}" if name.removesuffix("_bf16") in TILE_KERNELS
                 else "distributed" if name in DISTRIBUTED_KERNELS else "main")
-        r["launches"] = by_path[path][name]
         r["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
+        r["launches"] = r["launches_by_path"][path]
     say(json.dumps({"kernels": list(rows.values())}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

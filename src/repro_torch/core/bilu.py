@@ -3,23 +3,30 @@
 The port's counterpart of ``repro/core/bilu.py``. The symbolic phase is
 the paper's Algorithm 1 (:func:`~repro_torch.core.symbolic.symbolic_ilu_k`)
 on the tile adjacency matrix, so a tile is an "entry". The numeric phase is
-a block right-looking LU restricted to that tile pattern, one kernel per
-tile operation:
+a block right-looking LU restricted to that tile pattern:
 
     pivot I:  A_II = L_II U_II        (in-tile LU without pivoting, tile_lu)
-              U_IT = L_II^{-1} A_IT   (trsm_left_unit_lower)
-              L_JI = A_JI U_II^{-1}   (trsm_right_upper)
+              U_IT = L_II^{-1} A_IT   (trsm_left_unit_lower, every T > I)
+              L_JI = A_JI U_II^{-1}   (trsm_right_upper, every J > I)
               A_JT -= L_JI U_IT       (panel_update)
 
 On a GPU each runs as its CUDA kernel, on the CPU as its plain PyTorch
 version (:mod:`repro_torch.kernels.ops`). The tiles live in one
 ``(T, bs, bs)`` float32 pool on the device, and every kernel reads and
-writes slots of it in place. The updates run in the JAX loop's order
-(pivots ascending; within a pivot every left solve first, then for each
-tile row below it, ascending, its right solve and that row's panel updates
-in ascending column), so every tile sees the same sequence of updates as
-in the reference; the panel products sum in another order than XLA's, so
-the tiles agree with the JAX package's to a tolerance, not bitwise.
+writes slots of it in place. Per pivot there are four kinds of launch: the
+tile LU, one left solve of all the pivot's U tiles, one right solve of all
+its L tiles (the batched ``*_slots`` forms, over slot lists built on the
+host once and copied to the device once), then the panel updates, J
+ascending and within J the column T ascending.
+
+The JAX loop runs each right solve just before that tile row's panel
+updates; here every right solve of pivot I runs before pivot I's updates.
+Every tile still sees the same sequence of operations, so the bits are
+those of the per-tile order: a right solve reads only the diagonal tile
+and its own tile (J, I), and pivot I's updates write only tiles (J, T)
+with T > I, never column I. The panel products sum in another order than
+XLA's, so the tiles agree with the JAX package's to a tolerance, not
+bitwise.
 
 BILU(k) is a different (denser) preconditioner than scalar ILU(k): it
 keeps every scalar ILU(k) position plus the rest of each kept tile.
@@ -124,39 +131,56 @@ def _scatter_a(a: CSRMatrix, tpat: ILUPattern, bs: int, device) -> torch.Tensor:
     return pool
 
 
-def _below_lists(tpat: ILUPattern):
-    """For each tile column I, the tile rows J > I with (J, I) in the
-    pattern, ascending: the pattern's strict lower part in column order."""
+def _pivot_lists(tpat: ILUPattern):
+    """The slot lists of every pivot I, CSR-style: ``u_ptr``/``u_slots``
+    the U tiles (I, T), T > I, ascending T; ``l_ptr``/``l_slots`` the L
+    tiles (J, I), J > I, ascending J; and ``diag`` the slot of (I, I).
+    Pivot I's lists are ``u_slots[u_ptr[I]:u_ptr[I + 1]]`` and likewise.
+    Checked here, once: no list holds its pivot's diagonal slot, which the
+    batched solves read while they write the listed tiles."""
+    nt = tpat.n
     rows = _tile_rows(tpat)
-    lower = tpat.indices < rows
-    cols, rws = tpat.indices[lower], rows[lower]
-    order = np.lexsort((rws, cols))
-    cols, rws = cols[order], rws[order]
-    ptr = np.searchsorted(cols, np.arange(tpat.n + 1))
-    return [rws[ptr[i]:ptr[i + 1]].tolist() for i in range(tpat.n)]
+    cols = tpat.indices.astype(np.int64)
+    slot = np.arange(tpat.nnz, dtype=np.int64)
+    diag = tpat.indptr[:-1] + tpat.diag_ptr
+    upper, lower = cols > rows, cols < rows
+    u_slots = slot[upper]  # CSR order: by row I, then ascending T
+    u_ptr = np.concatenate([[0], np.cumsum(np.bincount(rows[upper], minlength=nt))])
+    order = np.lexsort((rows[lower], cols[lower]))  # by column I, then ascending J
+    l_slots = slot[lower][order]
+    l_ptr = np.concatenate([[0], np.cumsum(np.bincount(cols[lower], minlength=nt))])
+    for ptr, slots in ((u_ptr, u_slots), (l_ptr, l_slots)):
+        if np.any(slots == np.repeat(diag, np.diff(ptr))):
+            raise ValueError("a pivot's slot list holds its diagonal slot")
+    return u_ptr, u_slots, l_ptr, l_slots, diag
 
 
 def _factor_pool(pool: torch.Tensor, tpat: ILUPattern, index) -> None:
-    """The numeric phase, in place on the pool, in the JAX loop's order."""
-    below = _below_lists(tpat)
+    """The numeric phase, in place on the pool (see the module docstring
+    for the order and why the bits are those of the per-tile order)."""
+    u_ptr, u_slots, l_ptr, l_slots, diag = _pivot_lists(tpat)
+    u_ptr, l_ptr, diag = u_ptr.tolist(), l_ptr.tolist(), diag.tolist()
+    rows, cols = _tile_rows(tpat), tpat.indices
+    dev_u = torch.as_tensor(u_slots.astype(np.int32), device=pool.device)
+    dev_l = torch.as_tensor(l_slots.astype(np.int32), device=pool.device)
+    tiles = pool.unbind(0)  # one view per slot, made once: the loop indexes a tuple
     for i in range(tpat.n):  # pivot tile row, ascending (right-looking)
-        d = pool[index[(i, i)]]
-        ops.tile_lu(d, out=d)
+        d = diag[i]
+        ops.tile_lu(tiles[d], out=tiles[d])
         # the packed tile serves as both triangles: the solves read only
         # the strict lower (L, unit diagonal implicit) or the upper part (U)
-        cols, _ = tpat.row(i)
-        urow = [int(c) for c in cols if c > i]
-        for t in urow:
-            u = pool[index[(i, t)]]
-            ops.trsm_left_unit_lower(d, u, out=u)
-        for jrow in below[i]:
-            lj = pool[index[(jrow, i)]]
-            ops.trsm_right_upper(lj, d, out=lj)
-            for t in urow:
-                slot = index.get((jrow, t))
-                if slot is not None:  # fill outside the level-k tile pattern is dropped
-                    c = pool[slot]
-                    ops.panel_update(c, lj, pool[index[(i, t)]], out=c)
+        us, ue, ls, le = u_ptr[i], u_ptr[i + 1], l_ptr[i], l_ptr[i + 1]
+        if ue > us:
+            ops.trsm_left_unit_lower_slots(pool, d, dev_u[us:ue])
+        if le > ls:
+            ops.trsm_right_upper_slots(pool, d, dev_l[ls:le])
+        urow = [(int(cols[s]), int(s)) for s in u_slots[us:ue]]
+        for lj in l_slots[ls:le].tolist():
+            jrow = int(rows[lj])
+            for t, ut in urow:
+                dst = index.get((jrow, t))
+                if dst is not None:  # fill outside the level-k tile pattern is dropped
+                    ops.panel_update(tiles[dst], tiles[lj], tiles[ut], out=tiles[dst])
 
 
 def bilu(a: CSRMatrix, k: int, bs: int = 32, rule: str = "sum",

@@ -44,9 +44,10 @@ _SIGNATURES = {
     "factor_wavefront_launch": [_P] * 7 + [_I] * 4 + [_P],
     "tri_solve_wavefront_launch": [_P] * 12 + [_I] * 8 + [_P],
     "inverse_chain_launch": [_P] * 7 + [_I] * 4 + [_P],
-    "panel_update_launch": [_P] * 4 + [_I] * 3 + [_P],
-    "trsm_right_upper_launch": [_P] * 3 + [_I] * 2 + [_P],
-    "trsm_left_unit_lower_launch": [_P] * 3 + [_I] * 2 + [_P],
+    "panel_update_launch": [_P] * 4 + [_I] * 4 + [_P],
+    "trsm_right_upper_launch": [_P] * 4 + [_I] * 5 + [_P],
+    "trsm_left_unit_lower_launch": [_P] * 4 + [_I] * 5 + [_P],
+    "trsm_max_bs": [_I],
     "tile_lu_launch": [_P] * 2 + [_I] + [_P],
     "epoch_sweep_launch": [_P] * 5 + [_I] * 9 + [_P],
     "superstep_factor_launch": [_P] * 6 + [_I] * 9 + [_P],

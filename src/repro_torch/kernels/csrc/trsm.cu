@@ -4,109 +4,278 @@
 // in src/repro/kernels/tri_solve.py:
 //
 // * trsm_right_upper:  X U = A for A (M, bs), U (bs, bs) upper: the L-panel
-//   step L_JI = A_JI U_II^{-1}. Rows of X are independent; each is a
-//   column substitution
+//   step L_JI = A_JI U_II^{-1}. Rows of X are independent; each is
 //       x[r, c] = (a[r, c] - sum_{j<c} x[r, j] u[j, c]) / u[c, c].
 // * trsm_left_unit_lower:  L X = A for L (bs, bs) unit-lower, A (bs, N): the
-//   U-panel step U_IJ = L_II^{-1} A_IJ. Columns are independent; each is a
-//   row substitution
+//   U-panel step U_IJ = L_II^{-1} A_IJ. Columns are independent; each is
 //       x[r, c] = a[r, c] - sum_{j<r} l[r, j] x[j, c].
 //
-// Arithmetic: the sums run in ascending j from +0.0, one __fmul_rn product
+// Arithmetic: every sum runs in ascending j from +0.0, one __fmul_rn product
 // rounded before each __fadd_rn add, then __fsub_rn and (right solve)
 // __fdiv_rn: the order of the plain versions in kernels/ref.py, which these
-// kernels equal bitwise. Only the triangle a solve needs is read: entries of
-// U below its diagonal, and of L on and above it, never are, so the packed
-// LU tile of the pivot can be passed as it is (the Pallas kernel masks them
-// the same way, tri_solve.py:33,48).
+// kernels equal bitwise. The substitution is right-looking: once x[j] is
+// final it is broadcast and every later accumulator adds its product, so
+// each accumulator still receives its terms for j = 0, 1, ... in ascending
+// order, as the left-looking dot product of the plain version adds them.
+// Only the triangle a solve needs is read: entries of U below its diagonal,
+// and of L on and above it, never are, so the packed LU tile of the pivot
+// is passed as it is (the Pallas kernel masks them the same way,
+// tri_solve.py:33,48).
 //
 // Bound: one (128, 128) solve moves 192 KB (a, the triangle, x), about
-// 0.06 us at 3.35 TB/s, and does ~2 MFLOP; so a call is launch-bound, and
-// the substitution itself is a chain of bs dependent steps per row or
-// column. Design: one warp per block, one thread per panel row (right) or
-// column (left), so a (128, 128) panel is four blocks on four SMs. A
-// block's 32 rows or columns sit in shared memory (33 * bs or 32 * bs
-// floats, padded so that the warp's accesses hit 32 different banks),
-// loaded coalesced, overwritten in place as the substitution goes, and
-// stored coalesced; the triangle's entries are the same address for the
-// whole warp (a broadcast) and are read through the read-only cache. The
-// output may be the input panel itself (each block loads its part before
-// it writes it); it must not overlap the triangle (the wrapper checks).
+// 0.06 us at 3.35 TB/s, and does ~2 MFLOP, so neither bytes nor operations
+// bound it: the chain of bs dependent steps of one row (right) or column
+// (left) does. Step j of the right solve is a subtract, a divide, a warp
+// broadcast, then a product and an add into the next accumulator; the left
+// solve has no divide. Design: one warp per row (right) or column (left)
+// of X, lane l holding the accumulators and x of the columns (rows)
+// congruent to l mod 32 in registers, so the up-to-bs-1 updates of a step
+// run side by side on 32 lanes and the chain is bs steps long. At step j
+// the owner's subtract is broadcast and every lane computes x[j] from it
+// (right: the same divide on every lane), so no branch on the chain
+// diverges. The
+// triangle of one block sits in shared memory, copied once with cp.async
+// (only its own entries): U row-major, read along a row (32 lanes, 32
+// banks); L with an odd row stride (bs | 1) because the lanes read a
+// column. Rows of the right solve's A are contiguous and read coalesced
+// straight into registers; the left solve's columns are strided, so the
+// block's 8 columns are staged through shared memory, row by row.
+//
+// One kernel body serves one panel and a batch of tiles: blockIdx.y picks
+// the panel, at `slots[blockIdx.y]` tiles of the pool (the batched form:
+// all of one pivot's tiles in one launch, in place) or at the panel itself
+// when `slots` is null. The output may be the input panel (each warp reads
+// its row or its block's columns before it writes them); it must not
+// overlap the triangle (the wrapper checks the single form). A batched
+// launch checks its slot list on the device, in O(1) per block and off the
+// chain: every slot must lie in [0, n_tiles), differ from the diagonal slot
+// and exceed the slot listed before it (so the list is distinct). A block
+// whose slot breaks that traps before it reads or writes a tile, so a bad
+// list ends in a launch error (reported at the next synchronization), never
+// in a write past the pool or a race with the triangle.
 #include <cuda_runtime.h>
 
 #define LANES 32
-#define RSTRIDE 33  // right solve: x[r, c] at c * RSTRIDE + r
+#define FULL_MASK 0xffffffffu
+#define MAX_NC 8      // accumulators per lane: bs <= 256 (shared memory bounds bs lower)
+#define ROW_WARPS 8   // right solve: rows of X per block
+#define COL_WARPS 8   // left solve: columns of X per block
+#define XSTRIDE (COL_WARPS + 1)  // left solve: staged x[r, w] at r * XSTRIDE + w
 
-__global__ void __launch_bounds__(LANES)
-trsm_right_upper_kernel(const float* a, const float* __restrict__ u, float* out, int m,
+__device__ __forceinline__ void copy_async(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void wait_async() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The panel of block row blockIdx.y: the single form's own panel (slots
+// null), else the listed tile, checked as the note above says.
+__device__ __forceinline__ size_t panel_of(const int* __restrict__ slots, int n_tiles,
+                                           int diag_slot) {
+  if (!slots) return blockIdx.y;
+  const int s = slots[blockIdx.y];
+  if (s < 0 || s >= n_tiles || s == diag_slot || (blockIdx.y > 0 && slots[blockIdx.y - 1] >= s))
+    __trap();
+  return (size_t)s;
+}
+
+// num / u, rounded to nearest. A zero numerator, common in the sparse
+// L tiles of Block-ILU, gives the signed zero itself when u is finite and
+// nonzero: __fdiv_rn takes a slow path for it. The warp passes the same
+// num and u to every lane, so the branch never diverges.
+__device__ __forceinline__ float divide(float num, float u) {
+  if (num == 0.0f && u != 0.0f && isfinite(u))
+    return __int_as_float((__float_as_int(num) ^ __float_as_int(u)) & 0x80000000);
+  return __fdiv_rn(num, u);
+}
+
+// NC = ceil(bs / 32): lane `lane` owns columns (right) or rows (left)
+// q * 32 + lane, q < NC. The q loops unroll, so x[] and acc[] stay in
+// registers.
+template <int NC>
+__global__ void __launch_bounds__(ROW_WARPS * LANES)
+trsm_right_upper_kernel(const float* a, const float* __restrict__ u, float* out,
+                        const int* __restrict__ slots, int n_tiles, int diag_slot, int m,
                         int bs) {
-  extern __shared__ float sx[];
-  const int r0 = blockIdx.x * LANES, tid = threadIdx.x;
-  for (int e = tid; e < LANES * bs; e += LANES) {
-    const int r = e / bs, c = e % bs;
-    sx[c * RSTRIDE + r] = (r0 + r < m) ? a[(size_t)(r0 + r) * bs + c] : 0.0f;
+  extern __shared__ float su[];  // u[j, c] at j * bs + c, c >= j
+  const int lane = threadIdx.x % LANES, warp = threadIdx.x / LANES;
+  const int r = blockIdx.x * ROW_WARPS + warp;
+  const size_t row = (panel_of(slots, n_tiles, diag_slot) * m + r) * bs;
+  for (int j = warp; j < bs; j += ROW_WARPS)
+    for (int c = j + lane; c < bs; c += LANES) copy_async(su + j * bs + c, u + (size_t)j * bs + c);
+  float x[NC], acc[NC];
+#pragma unroll
+  for (int q = 0; q < NC; ++q) {
+    const int c = q * LANES + lane;
+    x[q] = (r < m && c < bs) ? a[row + c] : 0.0f;
+    acc[q] = 0.0f;
   }
+  wait_async();
   __syncthreads();
-  if (r0 + tid < m) {
-    for (int c = 0; c < bs; ++c) {
-      float acc = 0.0f;
-      for (int j = 0; j < c; ++j)
-        acc = __fadd_rn(acc, __fmul_rn(sx[j * RSTRIDE + tid], __ldg(u + (size_t)j * bs + c)));
-      sx[c * RSTRIDE + tid] =
-          __fdiv_rn(__fsub_rn(sx[c * RSTRIDE + tid], acc), __ldg(u + (size_t)c * bs + c));
+  if (r >= m) return;
+#pragma unroll
+  for (int q0 = 0; q0 < NC; ++q0) {
+    const int steps = min(LANES, bs - q0 * LANES);
+#pragma unroll 4
+    for (int jj = 0; jj < steps; ++jj) {
+      const int j = q0 * LANES + jj;
+      const float num = __shfl_sync(FULL_MASK, __fsub_rn(x[q0], acc[q0]), jj);
+      const float xj = divide(num, su[j * bs + j]);
+      x[q0] = lane == jj ? xj : x[q0];
+#pragma unroll
+      for (int q = q0; q < NC; ++q) {
+        const int c = q * LANES + lane;
+        if (c > j && c < bs) acc[q] = __fadd_rn(acc[q], __fmul_rn(xj, su[j * bs + c]));
+      }
     }
   }
-  __syncthreads();
-  for (int e = tid; e < LANES * bs; e += LANES) {
-    const int r = e / bs, c = e % bs;
-    if (r0 + r < m) out[(size_t)(r0 + r) * bs + c] = sx[c * RSTRIDE + r];
+#pragma unroll
+  for (int q = 0; q < NC; ++q) {
+    const int c = q * LANES + lane;
+    if (c < bs) out[row + c] = x[q];
   }
 }
 
-__global__ void __launch_bounds__(LANES)
-trsm_left_unit_lower_kernel(const float* __restrict__ l, const float* a, float* out, int bs,
-                            int n) {
-  extern __shared__ float sx[];  // x[r, c0 + tid] at r * LANES + tid
-  const int c0 = blockIdx.x * LANES, tid = threadIdx.x;
-  const bool live = c0 + tid < n;
-  for (int r = 0; r < bs; ++r) sx[r * LANES + tid] = live ? a[(size_t)r * n + c0 + tid] : 0.0f;
+template <int NC>
+__global__ void __launch_bounds__(COL_WARPS * LANES)
+trsm_left_unit_lower_kernel(const float* __restrict__ l, const float* a, float* out,
+                            const int* __restrict__ slots, int n_tiles, int diag_slot,
+                            int bs, int n) {
+  extern __shared__ float smem[];
+  const int ld = bs | 1;  // odd: the 32 rows of a column fall in 32 banks
+  float* sl = smem;                 // l[r, j] at r * ld + j, j < r
+  float* sx = smem + bs * ld;       // x[r, c0 + w] at r * XSTRIDE + w
+  const int lane = threadIdx.x % LANES, warp = threadIdx.x / LANES;
+  const int c0 = blockIdx.x * COL_WARPS, live = min(COL_WARPS, n - c0);
+  const size_t panel = panel_of(slots, n_tiles, diag_slot) * bs * n;
+  for (int r = warp + 1; r < bs; r += COL_WARPS)
+    for (int j = lane; j < r; j += LANES) copy_async(sl + r * ld + j, l + (size_t)r * bs + j);
+  for (int e = threadIdx.x; e < bs * COL_WARPS; e += COL_WARPS * LANES) {
+    const int r = e / COL_WARPS, w = e % COL_WARPS;  // consecutive threads, consecutive columns
+    if (w < live) sx[r * XSTRIDE + w] = a[panel + (size_t)r * n + c0 + w];
+  }
+  wait_async();
   __syncthreads();
-  if (live) {
-    for (int r = 0; r < bs; ++r) {
-      float acc = 0.0f;
-      for (int j = 0; j < r; ++j)
-        acc = __fadd_rn(acc, __fmul_rn(__ldg(l + (size_t)r * bs + j), sx[j * LANES + tid]));
-      sx[r * LANES + tid] = __fsub_rn(sx[r * LANES + tid], acc);
+  if (warp < live) {
+    float x[NC], acc[NC];
+#pragma unroll
+    for (int q = 0; q < NC; ++q) {
+      const int r = q * LANES + lane;
+      x[q] = r < bs ? sx[r * XSTRIDE + warp] : 0.0f;
+      acc[q] = 0.0f;
+    }
+#pragma unroll
+    for (int q0 = 0; q0 < NC; ++q0) {
+      const int steps = min(LANES, bs - q0 * LANES);
+#pragma unroll 4
+      for (int jj = 0; jj < steps; ++jj) {
+        const int j = q0 * LANES + jj;
+        const float v = __fsub_rn(x[q0], acc[q0]);
+        const float xj = __shfl_sync(FULL_MASK, v, jj);
+        x[q0] = lane == jj ? v : x[q0];
+#pragma unroll
+        for (int q = q0; q < NC; ++q) {
+          const int r = q * LANES + lane;
+          if (r > j && r < bs) acc[q] = __fadd_rn(acc[q], __fmul_rn(sl[r * ld + j], xj));
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < NC; ++q) {
+      const int r = q * LANES + lane;
+      if (r < bs) sx[r * XSTRIDE + warp] = x[q];
     }
   }
   __syncthreads();
-  if (live)
-    for (int r = 0; r < bs; ++r) out[(size_t)r * n + c0 + tid] = sx[r * LANES + tid];
+  for (int e = threadIdx.x; e < bs * COL_WARPS; e += COL_WARPS * LANES) {
+    const int r = e / COL_WARPS, w = e % COL_WARPS;
+    if (w < live) out[panel + (size_t)r * n + c0 + w] = sx[r * XSTRIDE + w];
+  }
 }
 
-// Shared memory above 48 KB must be asked for per kernel (bs > 372 here).
+// Shared memory above 48 KB must be asked for per kernel (bs >= 106 here).
 template <typename K>
 static cudaError_t allow_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-extern "C" int trsm_right_upper_launch(const void* a, const void* u, void* out, int m, int bs,
-                                       void* stream) {
-  const size_t smem = (size_t)RSTRIDE * bs * sizeof(float);
-  cudaError_t err = allow_smem(trsm_right_upper_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  trsm_right_upper_kernel<<<(m + LANES - 1) / LANES, LANES, smem, (cudaStream_t)stream>>>(
-      (const float*)a, (const float*)u, (float*)out, m, bs);
-  return (int)cudaGetLastError();
+// Dynamic shared memory of one block: U (right), L at the odd stride and
+// the staged columns (left).
+static size_t right_smem(int bs) { return (size_t)bs * bs * sizeof(float); }
+static size_t left_smem(int bs) {
+  return ((size_t)bs * (bs | 1) + (size_t)bs * XSTRIDE) * sizeof(float);
 }
 
-extern "C" int trsm_left_unit_lower_launch(const void* l, const void* a, void* out, int bs,
-                                           int n, void* stream) {
-  const size_t smem = (size_t)LANES * bs * sizeof(float);
-  cudaError_t err = allow_smem(trsm_left_unit_lower_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  trsm_left_unit_lower_kernel<<<(n + LANES - 1) / LANES, LANES, smem, (cudaStream_t)stream>>>(
-      (const float*)l, (const float*)a, (float*)out, bs, n);
-  return (int)cudaGetLastError();
+// The smallest NC with NC * 32 >= bs.
+template <int NC>
+static cudaError_t right_launch(const float* a, const float* u, float* out, const int* slots,
+                                int n_tiles, int diag_slot, int n_panels, int m, int bs,
+                                cudaStream_t stream) {
+  if constexpr (NC < MAX_NC) {
+    if (NC * LANES < bs)
+      return right_launch<NC + 1>(a, u, out, slots, n_tiles, diag_slot, n_panels, m, bs, stream);
+  }
+  const size_t smem = right_smem(bs);
+  const cudaError_t err = allow_smem(trsm_right_upper_kernel<NC>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((m + ROW_WARPS - 1) / ROW_WARPS, n_panels);
+  trsm_right_upper_kernel<NC><<<grid, ROW_WARPS * LANES, smem, stream>>>(
+      a, u, out, slots, n_tiles, diag_slot, m, bs);
+  return cudaGetLastError();
+}
+
+template <int NC>
+static cudaError_t left_launch(const float* l, const float* a, float* out, const int* slots,
+                               int n_tiles, int diag_slot, int n_panels, int bs, int n,
+                               cudaStream_t stream) {
+  if constexpr (NC < MAX_NC) {
+    if (NC * LANES < bs)
+      return left_launch<NC + 1>(l, a, out, slots, n_tiles, diag_slot, n_panels, bs, n, stream);
+  }
+  const size_t smem = left_smem(bs);
+  const cudaError_t err = allow_smem(trsm_left_unit_lower_kernel<NC>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + COL_WARPS - 1) / COL_WARPS, n_panels);
+  trsm_left_unit_lower_kernel<NC><<<grid, COL_WARPS * LANES, smem, stream>>>(
+      l, a, out, slots, n_tiles, diag_slot, bs, n);
+  return cudaGetLastError();
+}
+
+// The largest bs whose block fits in the shared memory one block of the
+// current device may ask for (side 0: the right solve, 1: the left), or -1
+// if the device cannot be read. The wrappers refuse a larger bs with it.
+extern "C" int trsm_max_bs(int side) {
+  int dev, optin;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
+    return -1;
+  int bs = MAX_NC * LANES;
+  while (bs > 0 && (side ? left_smem(bs) : right_smem(bs)) > (size_t)optin) --bs;
+  return bs;
+}
+
+// `slots` null: one panel (A at `a`, X at `out`). Otherwise `n_panels`
+// tiles of the pool of `n_tiles` at `a` == `out`, tile s at s * m * bs
+// floats, none of them `diag_slot` (whose upper triangle `u` is).
+extern "C" int trsm_right_upper_launch(const void* a, const void* u, void* out, const void* slots,
+                                       int n_tiles, int diag_slot, int n_panels, int m, int bs,
+                                       void* stream) {
+  if (bs < 1 || bs > MAX_NC * LANES) return (int)cudaErrorInvalidValue;
+  return (int)right_launch<1>((const float*)a, (const float*)u, (float*)out, (const int*)slots,
+                              n_tiles, diag_slot, n_panels, m, bs, (cudaStream_t)stream);
+}
+
+// `slots` null: one panel (A at `a`, X at `out`). Otherwise `n_panels`
+// tiles of the pool of `n_tiles` at `a` == `out`, tile s at s * bs * n
+// floats, none of them `diag_slot` (whose strict lower triangle `l` is).
+extern "C" int trsm_left_unit_lower_launch(const void* l, const void* a, void* out,
+                                           const void* slots, int n_tiles, int diag_slot,
+                                           int n_panels, int bs, int n, void* stream) {
+  if (bs < 1 || bs > MAX_NC * LANES) return (int)cudaErrorInvalidValue;
+  return (int)left_launch<1>((const float*)l, (const float*)a, (float*)out, (const int*)slots,
+                             n_tiles, diag_slot, n_panels, bs, n, (cudaStream_t)stream);
 }

@@ -10,10 +10,13 @@ Each wrapper checks device, dtype, shape and contiguity, then
 
 Each wrapper carries a plain integer ``launches``, raised by one where it
 launches its kernel and nowhere else, so that a run can show which kernels
-its path went through (:func:`reset_launch_counts`, :func:`launch_counts`).
+its path went through (:func:`reset_launch_counts`, :func:`launch_counts`);
+``panel_update`` counts its bf16 form apart, in ``bf16_launches``.
 Outputs and scratch are allocated here; the kernels allocate nothing.
 The dense tile kernels of Block-ILU(k) also take an ``out=`` tensor, so
-that the factorization updates the slots of its tile pool in place; the
+that the factorization updates the slots of its tile pool in place, and
+the two tile solves have a batched form (``*_slots``) that solves a list
+of the pool's tiles in place in one launch of the same kernel; the
 two kernels of the distributed path (``epoch_sweep``, ``superstep_factor``)
 update their state in place, as the one launch per epoch or superstep
 needs no copy.
@@ -24,7 +27,7 @@ import torch
 
 from . import ref
 
-_F32, _I32 = torch.float32, torch.int32
+_F32, _I32, _BF16 = torch.float32, torch.int32, torch.bfloat16
 _MAX_GRID_Y = 65535  # CUDA's limit on gridDim.y, the lane axis of the launches
 _MAX_SMEM = 232448  # bytes of shared memory one block may ask for on Hopper
 
@@ -268,28 +271,28 @@ def superstep_factor(state: torch.Tensor, sched: torch.Tensor, s: int, piv_addr:
     return state
 
 
-def _matrix(name: str, t: torch.Tensor, device) -> tuple:
-    """Check a float32 matrix on ``device``; returns its shape."""
+def _matrix(name: str, t: torch.Tensor, device, dtype=_F32) -> tuple:
+    """Check a matrix of ``dtype`` on ``device``; returns its shape."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a torch.Tensor, got {type(t).__name__}")
     if t.ndim != 2:
         raise ValueError(f"{name}: expected a 2-D tensor, got shape {tuple(t.shape)}")
-    _check(name, t, _F32, t.shape, device)
+    _check(name, t, dtype, t.shape, device)
     return tuple(t.shape)
 
 
 def _overlaps(x: torch.Tensor, y: torch.Tensor) -> bool:
     xs, ys = x.data_ptr(), y.data_ptr()
-    return xs < ys + y.numel() * 4 and ys < xs + x.numel() * 4
+    return xs < ys + y.numel() * y.element_size() and ys < xs + x.numel() * x.element_size()
 
 
-def _output(name: str, out, shape, device, must_not_overlap=()) -> torch.Tensor:
+def _output(name: str, out, shape, device, must_not_overlap=(), dtype=_F32) -> torch.Tensor:
     """``out`` checked (or a new tensor): the kernels write their result
     there. ``out`` may be the input the result replaces, never one of
     ``must_not_overlap``, which the kernel reads while it writes."""
     if out is None:
-        return torch.empty(shape, dtype=_F32, device=device)
-    _check(f"{name} out", out, _F32, shape, device)
+        return torch.empty(shape, dtype=dtype, device=device)
+    _check(f"{name} out", out, dtype, shape, device)
     for t in must_not_overlap:
         if _overlaps(out, t):
             raise ValueError(f"{name}: out overlaps an input that the kernel reads as it writes")
@@ -304,24 +307,82 @@ def _plain(result: torch.Tensor, out) -> torch.Tensor:
 
 def panel_update(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                  out: torch.Tensor = None) -> torch.Tensor:
-    """C - A B for A (M, K), B (K, N), C (M, N), float32, any sizes: the
-    trailing-tile update of Block-ILU(k). ``out`` may be ``c`` (an update in
-    place) but must not overlap ``a`` or ``b``. Sums in float32 (FMA) in
-    another order than the plain version: held to it with a tolerance."""
-    dev = c.device
-    m, k = _matrix("panel_update a", a, dev)
-    k2, n = _matrix("panel_update b", b, dev)
+    """C - A B for A (M, K), B (K, N), C (M, N), any sizes: the
+    trailing-tile update of Block-ILU(k). All four float32, or all four
+    bfloat16 (the bf16 form: float32 accumulation, the result rounded to
+    bfloat16). ``out`` may be ``c`` (an update in place) but must not
+    overlap ``a`` or ``b``. Sums in float32 (FMA) in another order than the
+    plain version: held to it with a tolerance."""
+    dev, dtype = c.device, c.dtype
+    if dtype not in (_F32, _BF16):
+        raise TypeError(f"panel_update c: expected {_F32} or {_BF16}, got {dtype}")
+    m, k = _matrix("panel_update a", a, dev, dtype)
+    k2, n = _matrix("panel_update b", b, dev, dtype)
     if k2 != k:
         raise ValueError(f"panel_update: a is ({m}, {k}) but b is ({k2}, {n})")
-    _check("panel_update c", c, _F32, (m, n), dev)
-    o = _output("panel_update", out, (m, n), dev, (a, b))
+    _check("panel_update c", c, dtype, (m, n), dev)
+    o = _output("panel_update", out, (m, n), dev, (a, b), dtype)
     if not _route(dev):
         return _plain(ref.panel_update_ref(c, a, b), out)
     if m and n:
         _launch("panel_update_launch", dev, c.data_ptr(), a.data_ptr(), b.data_ptr(),
-                o.data_ptr(), m, n, k)
-        panel_update.launches += 1
+                o.data_ptr(), m, n, k, int(dtype == _BF16))
+        if dtype == _BF16:
+            panel_update.bf16_launches += 1
+        else:
+            panel_update.launches += 1
     return o
+
+
+_trsm_max_bs = {}  # (kernel name, device index) -> the largest bs its block fits
+
+
+def _trsm_fits(name: str, bs: int, device: torch.device) -> None:
+    """Refuse a bs whose block does not fit in shared memory, with the
+    limit that ``trsm.cu`` reckons from its own layout and the device."""
+    key = (name, device.index)
+    if key not in _trsm_max_bs:
+        from .build import load
+
+        with torch.cuda.device(device):
+            limit = load().trsm_max_bs(int(name == "trsm_left_unit_lower"))
+        if limit < 0:
+            raise RuntimeError(f"{name}: cannot read the shared memory of {device}")
+        _trsm_max_bs[key] = limit
+    if bs > _trsm_max_bs[key]:
+        raise ValueError(f"{name}: bs={bs} does not fit: the kernel holds the triangle in "
+                         f"shared memory, which takes bs <= {_trsm_max_bs[key]}")
+
+
+def _slot_list(name: str, pool: torch.Tensor, diag_slot: int, slots: torch.Tensor) -> int:
+    """Check the batched form's arguments: a (T, bs, bs) float32 pool, the
+    diagonal slot, and a 1-D int32 slot list on the pool's device; returns
+    bs. The slots must ascend strictly (so they are distinct), lie inside
+    the pool and never be the diagonal slot, which the kernel reads while
+    it writes the listed tiles. A list on the CPU is checked here; a list
+    on the card is checked by the kernel, which traps on a bad slot before
+    it touches a tile (the error shows at the next synchronization), since
+    reading the list here would wait for the device."""
+    dev = pool.device
+    if not isinstance(pool, torch.Tensor) or pool.ndim != 3 or pool.shape[1] != pool.shape[2]:
+        raise ValueError(f"{name}: expected a (T, bs, bs) tile pool")
+    _check(f"{name} pool", pool, _F32, pool.shape, dev)
+    n_tiles = pool.shape[0]
+    if not 0 <= diag_slot < n_tiles:
+        raise ValueError(f"{name}: diagonal slot {diag_slot} outside the pool's {n_tiles}")
+    if not isinstance(slots, torch.Tensor) or slots.ndim != 1:
+        raise ValueError(f"{name}: expected a 1-D slot list")
+    _check(f"{name} slots", slots, _I32, slots.shape, dev)
+    if slots.shape[0] > _MAX_GRID_Y:
+        raise ValueError(f"{name}: at most {_MAX_GRID_Y} tiles per launch, got {slots.shape[0]}")
+    if dev.type == "cpu":
+        vals = slots.tolist()
+        if diag_slot in vals:
+            raise ValueError(f"{name}: the slot list holds the diagonal slot {diag_slot}")
+        if any(v >= w for v, w in zip(vals, vals[1:])) or not all(0 <= v < n_tiles
+                                                                 for v in vals):
+            raise ValueError(f"{name}: slots must be distinct, ascending and inside the pool")
+    return int(pool.shape[1])
 
 
 def trsm_right_upper(a: torch.Tensor, u: torch.Tensor, out: torch.Tensor = None) -> torch.Tensor:
@@ -334,12 +395,31 @@ def trsm_right_upper(a: torch.Tensor, u: torch.Tensor, out: torch.Tensor = None)
     o = _output("trsm_right_upper", out, (m, bs), dev, (u,))
     if not _route(dev):
         return _plain(ref.trsm_right_upper_ref(a, u), out)
-    if 33 * bs * 4 > _MAX_SMEM:  # the kernel keeps 32 padded rows in shared memory
-        raise ValueError(f"trsm_right_upper: bs={bs} does not fit in shared memory")
+    _trsm_fits("trsm_right_upper", bs, dev)
     if m and bs:
-        _launch("trsm_right_upper_launch", dev, a.data_ptr(), u.data_ptr(), o.data_ptr(), m, bs)
+        _launch("trsm_right_upper_launch", dev, a.data_ptr(), u.data_ptr(), o.data_ptr(), None,
+                0, 0, 1, m, bs)
         trsm_right_upper.launches += 1
     return o
+
+
+def trsm_right_upper_slots(pool: torch.Tensor, diag_slot: int,
+                           slots: torch.Tensor) -> torch.Tensor:
+    """The batched right solve, in place, in one launch of
+    ``trsm_right_upper``'s kernel: every tile ``pool[s]``, s in ``slots``,
+    becomes X with X U = pool[s], U the upper triangle of
+    ``pool[diag_slot]`` (the L tiles (J, I) of one pivot I). See
+    :func:`_slot_list` for the slot list. Returns the pool."""
+    bs = _slot_list("trsm_right_upper_slots", pool, diag_slot, slots)
+    if not _route(pool.device):
+        return ref.trsm_right_upper_slots_ref(pool, diag_slot, slots)
+    _trsm_fits("trsm_right_upper", bs, pool.device)
+    if slots.shape[0] and bs:
+        base = pool.data_ptr()
+        _launch("trsm_right_upper_launch", pool.device, base, base + diag_slot * bs * bs * 4,
+                base, slots.data_ptr(), pool.shape[0], diag_slot, slots.shape[0], bs, bs)
+        trsm_right_upper.launches += 1
+    return pool
 
 
 def trsm_left_unit_lower(l: torch.Tensor, a: torch.Tensor,
@@ -353,13 +433,31 @@ def trsm_left_unit_lower(l: torch.Tensor, a: torch.Tensor,
     o = _output("trsm_left_unit_lower", out, (bs, n), dev, (l,))
     if not _route(dev):
         return _plain(ref.trsm_left_unit_lower_ref(l, a), out)
-    if 32 * bs * 4 > _MAX_SMEM:  # the kernel keeps 32 columns in shared memory
-        raise ValueError(f"trsm_left_unit_lower: bs={bs} does not fit in shared memory")
+    _trsm_fits("trsm_left_unit_lower", bs, dev)
     if n and bs:
         _launch("trsm_left_unit_lower_launch", dev, l.data_ptr(), a.data_ptr(), o.data_ptr(),
-                bs, n)
+                None, 0, 0, 1, bs, n)
         trsm_left_unit_lower.launches += 1
     return o
+
+
+def trsm_left_unit_lower_slots(pool: torch.Tensor, diag_slot: int,
+                               slots: torch.Tensor) -> torch.Tensor:
+    """The batched left solve, in place, in one launch of
+    ``trsm_left_unit_lower``'s kernel: every tile ``pool[s]``, s in
+    ``slots``, becomes X with L X = pool[s], L the strict lower triangle of
+    ``pool[diag_slot]`` with a unit diagonal (the U tiles (I, T) of one
+    pivot I). See :func:`_slot_list` for the slot list. Returns the pool."""
+    bs = _slot_list("trsm_left_unit_lower_slots", pool, diag_slot, slots)
+    if not _route(pool.device):
+        return ref.trsm_left_unit_lower_slots_ref(pool, diag_slot, slots)
+    _trsm_fits("trsm_left_unit_lower", bs, pool.device)
+    if slots.shape[0] and bs:
+        base = pool.data_ptr()
+        _launch("trsm_left_unit_lower_launch", pool.device, base + diag_slot * bs * bs * 4,
+                base, base, slots.data_ptr(), pool.shape[0], diag_slot, slots.shape[0], bs, bs)
+        trsm_left_unit_lower.launches += 1
+    return pool
 
 
 def tile_lu(t: torch.Tensor, out: torch.Tensor = None) -> torch.Tensor:
@@ -383,14 +481,19 @@ def tile_lu(t: torch.Tensor, out: torch.Tensor = None) -> torch.Tensor:
 
 KERNELS = (spmv_ell, factor_wavefront, tri_solve_wavefront, inverse_chain, panel_update,
            trsm_right_upper, trsm_left_unit_lower, tile_lu, epoch_sweep, superstep_factor)
-for _fn in KERNELS:
-    _fn.launches = 0
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+    panel_update.bf16_launches = 0
 
 
 def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in KERNELS}
+    """Launches per kernel since the last reset; ``panel_update_bf16`` is
+    the bf16 form of ``panel_update``, which ``panel_update`` leaves out."""
+    return {**{fn.__name__: fn.launches for fn in KERNELS},
+            "panel_update_bf16": panel_update.bf16_launches}
+
+
+reset_launch_counts()

@@ -200,10 +200,11 @@ def inverse_chain_ref(w_cols: torch.Tensor, w_vals: torch.Tensor, z_cols: torch.
 # dense tile kernels of Block-ILU(k)
 # --------------------------------------------------------------------------
 def panel_update_ref(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """C - A @ B in float32 (``repro.kernels.ref.panel_update_ref``). The
-    product's order of adds is the matrix product's own, so the kernel is
-    held to this version with a tolerance, not bitwise."""
-    return c - a @ b
+    """C - A @ B with float32 accumulation, in C's type: float32, or the
+    bf16 form (``repro.kernels.ref.panel_update_ref``). The product's order
+    of adds is the matrix product's own, so the kernel is held to this
+    version with a tolerance, not bitwise."""
+    return (c.float() - a.float() @ b.float()).to(c.dtype)
 
 
 def trsm_right_upper_ref(a: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -216,13 +217,15 @@ def trsm_right_upper_ref(a: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     The sum runs in ascending ``j`` from +0.0, each product rounded before
     it is added (one eager operation each, never a matrix product), and the
     divisor is a tensor. Entries of ``u`` below its diagonal are never read,
-    so the packed LU tile can be passed as it is."""
+    so the packed LU tile can be passed as it is. ``a`` may carry leading
+    batch dimensions (a stack of panels against one ``u``): each element's
+    arithmetic is the same."""
     x = torch.zeros_like(a)
     for c in range(u.shape[0]):
-        acc = torch.zeros_like(a[:, 0])
+        acc = torch.zeros_like(a[..., 0])
         for j in range(c):
-            acc = acc + x[:, j] * u[j, c]
-        x[:, c] = (a[:, c] - acc) / u[c, c]
+            acc = acc + x[..., j] * u[j, c]
+        x[..., c] = (a[..., c] - acc) / u[c, c]
     return x
 
 
@@ -234,14 +237,34 @@ def trsm_left_unit_lower_ref(l: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
         x[r, :] = a[r, :] - sum_{j<r} l[r, j] * x[j, :]
 
     Ascending ``j`` from +0.0, rounded products. The unit diagonal is
-    implicit: entries of ``l`` on and above its diagonal are never read."""
+    implicit: entries of ``l`` on and above its diagonal are never read.
+    ``a`` may carry leading batch dimensions, as in the right solve."""
     x = torch.zeros_like(a)
     for r in range(l.shape[0]):
-        acc = torch.zeros_like(a[0])
+        acc = torch.zeros_like(a[..., 0, :])
         for j in range(r):
-            acc = acc + l[r, j] * x[j]
-        x[r] = a[r] - acc
+            acc = acc + l[r, j] * x[..., j, :]
+        x[..., r, :] = a[..., r, :] - acc
     return x
+
+
+def trsm_right_upper_slots_ref(pool: torch.Tensor, diag_slot: int,
+                               slots: torch.Tensor) -> torch.Tensor:
+    """The batched right solve, in place on the tile pool (T, bs, bs): each
+    listed tile s becomes ``trsm_right_upper_ref(pool[s], pool[diag_slot])``,
+    all listed tiles at once."""
+    idx = slots.long()
+    pool[idx] = trsm_right_upper_ref(pool[idx], pool[diag_slot])
+    return pool
+
+
+def trsm_left_unit_lower_slots_ref(pool: torch.Tensor, diag_slot: int,
+                                   slots: torch.Tensor) -> torch.Tensor:
+    """The batched left solve, in place on the tile pool: each listed tile s
+    becomes ``trsm_left_unit_lower_ref(pool[diag_slot], pool[s])``."""
+    idx = slots.long()
+    pool[idx] = trsm_left_unit_lower_ref(pool[diag_slot], pool[idx])
+    return pool
 
 
 def tile_lu_nopiv_ref(t: torch.Tensor) -> torch.Tensor:

@@ -138,7 +138,8 @@ def test_wrappers_route_cpu_tensors_to_plain_versions():
                                    "tri_solve_wavefront": 0, "inverse_chain": 0,
                                    "panel_update": 0, "trsm_right_upper": 0,
                                    "trsm_left_unit_lower": 0, "tile_lu": 0,
-                                   "epoch_sweep": 0, "superstep_factor": 0}
+                                   "epoch_sweep": 0, "superstep_factor": 0,
+                                   "panel_update_bf16": 0}
 
 
 def test_wrappers_reject_bad_inputs():

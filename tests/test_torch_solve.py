@@ -109,7 +109,8 @@ def test_solve_with_ilu_matches_jax(name):
                                    "tri_solve_wavefront": 0, "inverse_chain": 0,
                                    "panel_update": 0, "trsm_right_upper": 0,
                                    "trsm_left_unit_lower": 0, "tile_lu": 0,
-                                   "epoch_sweep": 0, "superstep_factor": 0}
+                                   "epoch_sweep": 0, "superstep_factor": 0,
+                                   "panel_update_bf16": 0}
 
 
 @pytest.mark.reference_fault
