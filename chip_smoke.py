@@ -14,8 +14,16 @@ with a non-zero exit; nothing is caught):
    n = 160,000) each CUDA kernel against its plain PyTorch version on the
    card, bitwise; the median time of CUDA-event runs of each, its bound,
    and a PyTorch sparse CSR yardstick for the SpMV and (two products) for
-   the inverse chain. The (nb=4, n) forms of the three batched kernels
-   likewise, with every row equal to the single form's output for it.
+   the inverse chain. The sweep and the SpMV are timed in the forms the
+   solvers hold (bound once: ``PrecondApply``'s sweep, ``EllOperator``)
+   beside their checked entry points and their times before this design;
+   the sweep's line also gives its windows R, its layout per sweep (ring,
+   staging, shared memory) and its chain floor (the same level loop with
+   only a shared-memory exchange and the barrier). The (nb=4, n) forms of
+   the three batched kernels likewise, with every row equal to the single
+   form's output for it, and the SpMV at nb = 9. [sweep-window]: the sweep
+   bitwise where its shared-memory ring does not cover every gathered
+   level (poisson_2d(400) capped, matgen(800, 0.01) ILU(2)).
    [inverse] lines: the inverse plan and value times at full size, and
    W/Z on the card bitwise equal to the CPU's. [tiles] lines: the four
    Block-ILU tile kernels at (128, 128) and at ragged shapes against their
@@ -25,6 +33,9 @@ with a non-zero exit; nothing is caught):
    a stated bound; times beside the bound (bytes, and the solves' chain of
    bs steps), the left-looking solves' earlier times, and cuBLAS/cuSOLVER
    calls on one tile and on the pivot's 4 tiles as one panel.
+   [large-tiles]: the tile kernels at bs = 241 and 256, whose triangle or
+   tile does not fit in shared memory, bitwise against their plain
+   versions.
 3. factors — the factor values equal the sequential oracle
    ``numeric_ilu_ref``, bitwise, on ``convection_diffusion_2d(32)`` and
    ``poisson_2d(64)`` at k = 0, 1, 2. 3b: the inverse values W/Z computed
@@ -46,7 +57,7 @@ with a non-zero exit; nothing is caught):
    versions) give the same ``x`` bitwise and the same iteration counts, on
    ``poisson_2d(64)`` and ``convection_diffusion_2d(32)``: the sweep, the
    inverse chain, and a batch of three with per-lane tolerances.
-8. bilu — Block-ILU(1) of ``poisson_2d(400)`` at bs = 128 and at bs = 32
+8. bilu — Block-ILU(1) of ``poisson_2d(400)`` at bs = 128, 32 and 256
    (``repro_torch.core.bilu.bilu``): the host plan and numeric walls, and
    the numeric phase once more under torch.profiler (device busy share);
    the launches of the four tile kernels equal the counts reckoned here from
@@ -70,6 +81,9 @@ with a non-zero exit; nothing is caught):
 12. distributed — ``solve_sharded`` at D = 4 (sweep and inverse): ``x``
     bitwise equal to phases 4 and 5, and a D = 2 solve on the card equal
     to the CPU's.
+13. wide band — a TOP-ILU factorization whose 32-row band (n = 2100, one
+    dense row) is wider than shared memory, on the card, bitwise equal to
+    ``numeric_ilu_ref``.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a GPU, or without
@@ -94,6 +108,17 @@ NB = 4  # right-hand sides of the batched kernel checks and the multi-RHS solve
 BS_TILE = 128  # the Block-ILU tile of the module's docstring; also bs = 32, bilu's default
 CG_TOL = 1e-4  # float32 CG's recursive residual drifts from the true one at 1e-5 here
 TILE_KERNELS = ("panel_update", "trsm_right_upper", "trsm_left_unit_lower", "tile_lu")
+# the kernels of one sweep apply: the L and U sweeps and 3 permutations
+SWEEP_KERNELS = {"tri_sweep_kernel": 2, "permute_kernel": 3}
+# the two redesigned kernels' times before this design, on poisson_2d(400)
+# at the main path's shapes on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md):
+# per call, device, and the same for nb = 4; printed in the [kernels] text
+# lines only, never in the kernels JSON line (whose numbers are this run's)
+PREVIOUS_MS = {
+    "tri_solve_wavefront": dict(ms=2.778, device_ms=2.507, batched_ms=3.215,
+                                batched_device_ms=3.237),
+    "spmv_ell": dict(ms=0.0714, device_ms=0.0028, batched_ms=0.0567, batched_device_ms=0.0066),
+}
 # the left-looking tile solves' (ms per call, device ms) at (128, 128) on an
 # NVIDIA H100 80GB HBM3 at 700 W (PERF.md), printed beside the new ones
 PREVIOUS_TRSM_MS = {"trsm_right_upper": (0.1950, 0.1441), "trsm_left_unit_lower": (0.2249, 0.1513)}
@@ -145,6 +170,27 @@ def time_ms(fn, reps, warmup=1):
     return statistics.median(times)
 
 
+def time_pair_ms(fa, fb, reps):
+    """Median milliseconds of ``fa`` and of ``fb``, timed as :func:`time_ms`
+    but in turns (a, b, a, b, ...), so that both see the same spells of a
+    shared host's load: for calls whose time is mostly the host's."""
+    import torch
+
+    fa(), fb()
+    torch.cuda.synchronize()
+    times = ([], [])
+    for _ in range(reps):
+        for fn, out in zip((fa, fb), times):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            out.append(start.elapsed_time(end))
+    return tuple(statistics.median(t) for t in times)
+
+
 def kernel_events(prof):
     """(name, microseconds) of each device-side event of a torch.profiler
     run, read from the Kineto results directly: the event tree that
@@ -178,6 +224,34 @@ def device_ms(fn, kernel, reps=5, attempts=3, per_call=1):
     return None
 
 
+def device_ms_per_call(fn, launches, reps=10, attempts=3):
+    """Device time (ms) per call of ``fn``, which launches ``launches[k]``
+    kernels whose names start with k, for each k: the sum over k of the
+    mean duration of k's launches in a torch.profiler trace of ``reps``
+    calls, times ``launches[k]``; None unless a trace of ``attempts`` holds
+    launches of every k (each attempt traces four times as many calls as
+    the one before; see device_ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps * 4 ** attempt):
+                fn()
+            torch.cuda.synchronize()
+        events = kernel_events(prof)
+        means = {}
+        for k in launches:
+            us = [t for name, t in events if name.startswith(k)]
+            if us:
+                means[k] = sum(us) / len(us)
+        if len(means) == len(launches):
+            return sum(means[k] * launches[k] for k in launches) / 1e3
+    return None
+
+
 def bound(nbytes, nops, flop_per_s=F32_FLOP_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / flop_per_s * 1e3
@@ -205,8 +279,8 @@ def phase_kernels(dev):
     from repro_torch.core.matgen import poisson_2d
     from repro_torch.core.solvers import csr_to_ell_arrays
     from repro_torch.core.symbolic import pilu1_symbolic
-    from repro_torch.core.triangular import SWEEP_FIELDS, build_triangular_plan
-    from repro_torch.kernels import ops, ref
+    from repro_torch.core.triangular import SWEEP_FIELDS, PrecondApply, build_triangular_plan
+    from repro_torch.kernels import build, ops, ref
 
     rng = np.random.default_rng(SEED)
     t0 = time.perf_counter()
@@ -244,20 +318,35 @@ def phase_kernels(dev):
                             "factor_wavefront_kernel"))
     vals = fplan.values_to_csr(got.cpu().numpy())
 
-    # tri_solve_wavefront
+    # tri_solve_wavefront: the apply the main path makes (PrecondApply's
+    # sweep, bound once), and the checked entry point
     tplan = build_triangular_plan(pattern, vals)
     targs = [torch.as_tensor(getattr(tplan, f), device=dev) for f in SWEEP_FIELDS]
     b = torch.as_tensor(rng.standard_normal(a.n).astype(np.float32), device=dev)
-    got = ops.tri_solve_wavefront(*targs, b)
+    sweep = PrecondApply(pattern, vals, dev, plan=tplan).sweep
+    got = sweep(b)
     want = ref.tri_solve_wavefront_ref(*targs, b)
     require(bits_equal(got, want), "tri_solve_wavefront kernel != plain version on the card")
+    require(bits_equal(ops.tri_solve_wavefront(*targs, b), want),
+            "tri_solve_wavefront (checked entry point) != plain version on the card")
     require(bool(torch.isfinite(got).all()), "tri_solve_wavefront produced non-finite values")
     levels = tplan.l_cols_lm.shape[0] + tplan.u_cols_lm.shape[0]
     lanes = int((tplan.l_cols_lm < tplan.nl_slots).sum()
                 + (tplan.u_cols_lm < tplan.nu_slots).sum())
     nbytes = sum(t.numel() * 4 for t in targs) + 2 * a.n * 4
     b_ms, b_by = bound(nbytes, 2 * lanes + 3 * a.n)
-    ms = time_ms(lambda: ops.tri_solve_wavefront(*targs, b), reps=20)
+    ms = time_ms(lambda: sweep(b), reps=20)
+    dms = device_ms_per_call(lambda: sweep(b), SWEEP_KERNELS)
+    maxr = max(tplan.l_cols_lm.shape[1], tplan.u_cols_lm.shape[1])
+    floor_out = torch.zeros(1, dtype=torch.float32, device=dev)
+    lib = build.load()
+
+    def chain_floor():
+        err = lib.tri_solve_chain_floor_launch(levels, maxr, sweep.layout["threads"][0],
+                                               floor_out.data_ptr(),
+                                               torch.cuda.current_stream().cuda_stream)
+        require(err == 0, f"the chain floor kernel did not launch (CUDA error {err})")
+
     rows["tri_solve_wavefront"] = dict(
         name="tri_solve_wavefront", route="cuda",
         source="src/repro_torch/kernels/csrc/tri_solve_wavefront.cu",
@@ -265,35 +354,52 @@ def phase_kernels(dev):
         max_abs_err=max_abs_err(got, want), ms=ms,
         plain_ms=time_ms(lambda: ref.tri_solve_wavefront_ref(*targs, b), reps=3),
         bound_ms=b_ms, bound_by=b_by, library_ms=None, chain_steps=levels,
-        us_per_step=ms * 1e3 / levels,
-        device_ms=device_ms(lambda: ops.tri_solve_wavefront(*targs, b),
-                            "tri_solve_wavefront_kernel"))
+        us_per_step=ms * 1e3 / levels, device_ms=dms,
+        checked_ms=time_ms(lambda: ops.tri_solve_wavefront(*targs, b), reps=5),
+        chain_floor_ms=device_ms(chain_floor, "chain_floor_kernel", reps=10),
+        window_levels=list(sweep.windows), layout=sweep.layout,
+        kernels_per_launch=sum(SWEEP_KERNELS.values()))
+    r = rows["tri_solve_wavefront"]
     say(f"[kernels] sweep: {tplan.l_cols_lm.shape} L levels x rows x lanes, "
-        f"{tplan.u_cols_lm.shape} U")
+        f"{tplan.u_cols_lm.shape} U; windows R = {sweep.windows} levels; per sweep (L, U): "
+        f"{json.dumps(sweep.layout)}; chain floor (the level loop with only a shared-memory "
+        f"exchange and the barrier, {levels} levels of {maxr} rows) "
+        + ("not measured" if r["chain_floor_ms"] is None
+           else f"{r['chain_floor_ms']:.4f} ms = {r['chain_floor_ms'] * 1e3 / levels:.4f} us "
+           "per level"))
 
-    # spmv_ell
+    # spmv_ell: the operator the solvers hold (checked once), and the
+    # checked entry point (which makes one per call)
     cols, evals = csr_to_ell_arrays(a, dev)
+    op = ops.EllOperator(cols, evals)
     x = torch.as_tensor(rng.standard_normal(a.n).astype(np.float32), device=dev)
-    got = ops.spmv_ell(cols, evals, x)
+    got = op(x)
     want = ref.spmv_ell_ref(cols, evals, x)
     require(bits_equal(got, want), "spmv_ell kernel != plain version on the card")
+    require(bits_equal(ops.spmv_ell(cols, evals, x), want),
+            "spmv_ell (checked entry point) != plain version on the card")
     csr = torch.sparse_csr_tensor(torch.as_tensor(a.indptr, device=dev),
                                   torch.as_tensor(a.indices.astype(np.int64), device=dev),
                                   torch.as_tensor(a.data, device=dev), size=(a.n, a.n),
                                   check_invariants=False)
-    lib = csr @ x
+    lib_y = csr @ x
     say(f"[kernels] spmv_ell vs torch sparse CSR product: max |diff| "
-        f"{float((lib - got).abs().max()):.3e} (a yardstick; its order of adds differs)")
+        f"{float((lib_y - got).abs().max()):.3e} (a yardstick; its order of adds differs)")
     nbytes = cols.numel() * 4 + evals.numel() * 4 + 2 * a.n * 4
     b_ms, b_by = bound(nbytes, 2 * a.nnz)
     rows["spmv_ell"] = dict(
         name="spmv_ell", route="cuda", source="src/repro_torch/kernels/csrc/spmv_ell.cu",
         replaces="src/repro/kernels/spmv_ell.py:34", launches=0,
         max_abs_err=max_abs_err(got, want),
-        ms=time_ms(lambda: ops.spmv_ell(cols, evals, x), reps=50),
+        ms=time_ms(lambda: op(x), reps=50),
         plain_ms=time_ms(lambda: ref.spmv_ell_ref(cols, evals, x), reps=10),
         bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lambda: csr @ x, reps=50),
-        device_ms=device_ms(lambda: ops.spmv_ell(cols, evals, x), "spmv_ell_kernel", reps=20))
+        device_ms=device_ms(lambda: op(x), "spmv_ell_kernel", reps=20),
+        checked_ms=time_ms(lambda: ops.spmv_ell(cols, evals, x), reps=50))
+    r = rows["spmv_ell"]
+    r["paired_ms"], r["paired_library_ms"] = time_pair_ms(lambda: op(x), lambda: csr @ x, 200)
+    say(f"[kernels] spmv_ell and the CSR call timed in turns (200 each): {r['paired_ms']:.4f} "
+        f"ms against {r['paired_library_ms']:.4f} ms per call")
 
     # inverse_chain, over W/Z computed on the card from this factor
     plan, wz = inverse_full_size(dev, pattern, vals)
@@ -323,6 +429,12 @@ def phase_kernels(dev):
                             reps=20, per_call=2))
     for r in rows.values():
         dms = "not measured" if r["device_ms"] is None else f"{r['device_ms']:.4f} ms"
+        if r["name"] in PREVIOUS_MS:
+            was = PREVIOUS_MS[r["name"]]
+            say(f"[kernels] {r['name']}: per call {r['ms']:.4f} ms through the form checked "
+                f"once, {r['checked_ms']:.4f} ms through the checked entry point; the design "
+                f"before took {was['ms']:.4f} ms per call and {was['device_ms']:.4f} ms of "
+                f"device time (an NVIDIA H100 80GB HBM3 at 700 W)")
         say(f"[kernels] {r['name']}: bitwise equal to plain; {r['ms']:.4f} ms per call "
             f"(device time in the profiler trace {dms}; "
             f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']}"
@@ -336,11 +448,9 @@ def phase_kernels(dev):
     bs = torch.as_tensor(rng.standard_normal((NB, a.n)).astype(np.float32), device=dev)
     nbytes_vec = 2 * NB * a.n * 4
     forms = {
-        "spmv_ell": (lambda B: ops.spmv_ell(cols, evals, B),
-                     lambda B: ref.spmv_ell_ref(cols, evals, B),
+        "spmv_ell": (op, lambda B: ref.spmv_ell_ref(cols, evals, B),
                      bound(cols.numel() * 8 + nbytes_vec, 2 * NB * a.nnz)[0]),
-        "tri_solve_wavefront": (lambda B: ops.tri_solve_wavefront(*targs, B),
-                                lambda B: ref.tri_solve_wavefront_ref(*targs, B),
+        "tri_solve_wavefront": (sweep, lambda B: ref.tri_solve_wavefront_ref(*targs, B),
                                 bound(sum(t.numel() * 4 for t in targs) + nbytes_vec,
                                       NB * (2 * lanes + 3 * a.n))[0]),
         "inverse_chain": (lambda B: ops.inverse_chain(*iargs, B),
@@ -358,15 +468,162 @@ def phase_kernels(dev):
         r = rows[name]
         r.update(batched_nb=NB, batched_max_abs_err=max_abs_err(got, want),
                  batched_ms=time_ms(lambda: kern(bs), reps=10 if "tri" in name else 50),
-                 batched_device_ms=device_ms(lambda: kern(bs), f"{name}_kernel", reps=10,
-                                             per_call=2 if name == "inverse_chain" else 1),
+                 batched_device_ms=(
+                     device_ms_per_call(lambda: kern(bs), SWEEP_KERNELS)
+                     if name == "tri_solve_wavefront" else
+                     device_ms(lambda: kern(bs), f"{name}_kernel", reps=10,
+                               per_call=2 if name == "inverse_chain" else 1)),
                  batched_bound_ms=b_ms)
         dms = ("not measured" if r["batched_device_ms"] is None
                else f"{r['batched_device_ms']:.4f} ms")
         say(f"[kernels] {name} nb={NB}: bitwise equal to plain, each row equal to the single "
             f"form; {r['batched_ms']:.4f} ms per call (device {dms}; single form "
-            f"{r['ms']:.4f} ms; bound {b_ms:.4f} ms)")
+            f"{r['ms']:.4f} ms; bound {b_ms:.4f} ms)"
+            + (f"; the design before: {PREVIOUS_MS[name]['batched_ms']:.4f} ms per call, device "
+               f"{PREVIOUS_MS[name]['batched_device_ms']:.4f} ms (an NVIDIA H100 80GB HBM3 at "
+               "700 W)" if name in PREVIOUS_MS else ""))
+    # the batched SpMV reads A once per chunk of 8 right-hand sides: nb = 9
+    # is two chunks, each row still equal to the single form
+    b9 = torch.as_tensor(rng.standard_normal((9, a.n)).astype(np.float32), device=dev)
+    got = op(b9)
+    require(bits_equal(got, ref.spmv_ell_ref(cols, evals, b9))
+            and all(bits_equal(got[i], op(b9[i].contiguous())) for i in range(9)),
+            "spmv_ell nb=9 != plain version or != the single form")
+    say("[kernels] spmv_ell nb=9 (two chunks of right-hand sides): bitwise equal to plain, "
+        "each row equal to the single form")
     return rows
+
+
+def phase_sweep_window(dev, nx=400):
+    """[sweep-window]: the sweep bitwise against its plain version where the
+    shared-memory ring does not cover every gathered level, so far gathers
+    read the device copy: poisson_2d(nx) ILU(1) with the ring capped to one
+    level, and matgen(800, 0.01) ILU(2) (gathers up to 179 levels back)
+    with the ring covering its window and capped to two levels; single and
+    nb = 3."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.matgen import matgen, poisson_2d
+    from repro_torch.core.numeric_ref import numeric_ilu_ref
+    from repro_torch.core.symbolic import pilu1_symbolic, symbolic_ilu_k
+    from repro_torch.core.triangular import SWEEP_FIELDS, build_triangular_plan
+    from repro_torch.kernels import ops, ref
+
+    rng = np.random.default_rng(SEED + 8)
+    for name, a, k, caps in ((f"poisson_2d({nx})", poisson_2d(nx), 1, (1,)),
+                             ("matgen(800, 0.01)", matgen(800, 0.01), 2, (None, 2))):
+        pattern = pilu1_symbolic(a) if k == 1 else symbolic_ilu_k(a, k)
+        plan = build_triangular_plan(pattern, numeric_ilu_ref(a, pattern))
+        args = [torch.as_tensor(getattr(plan, f), device=dev) for f in SWEEP_FIELDS]
+        bs = torch.as_tensor(rng.standard_normal((3, a.n)).astype(np.float32), device=dev)
+        want = ref.tri_solve_wavefront_ref(*args, bs)
+        for cap in caps:
+            sweep = ops.TriSolveWavefront(*args, max_window=cap)
+            rings = sweep.layout["ring_levels"]
+            far = any(ring < r for ring, r in zip(rings, sweep.windows))
+            require(far == (cap is not None), f"{name} cap {cap}: ring levels {rings} against "
+                    f"windows {sweep.windows}")
+            got = sweep(bs)
+            require(bits_equal(got, want), f"the sweep on {name} ILU({k}) with the ring capped "
+                    f"at {cap} != plain version")
+            for i in range(3):
+                require(bits_equal(got[i], sweep(bs[i].contiguous())),
+                        f"the sweep on {name} cap {cap}: row {i} != the single form")
+            say(f"[sweep-window] {name} ILU({k}): windows R = {sweep.windows} levels, ring "
+                f"{'capped at ' + str(cap) if cap else 'uncapped'}: {json.dumps(sweep.layout)}; "
+                + ("gathers past the ring read the device copy; " if far else "")
+                + "nb=3 and single bitwise equal to plain")
+
+
+def phase_large_tiles(dev, sizes=(241, 256)):
+    """[large-tiles]: the tile kernels at sizes whose triangle or tile does
+    not fit in the shared memory of one block (the variants that read it in
+    place), bitwise against their plain versions: tile_lu (out of place and
+    in place), both solves, and both batched solves on 3 tiles."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    rng = np.random.default_rng(SEED + 9)
+    on = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    for bs in sizes:
+        t = on(dominant_tile(rng, bs))
+        packed = ops.tile_lu(t)
+        want = ref.tile_lu_nopiv_ref(t)
+        inplace = t.clone()
+        ops.tile_lu(inplace, out=inplace)
+        require(bits_equal(packed, want) and bits_equal(inplace, want),
+                f"tile_lu at bs={bs} != plain version")
+        a = on(rng.standard_normal((37, bs)).astype(np.float32))
+        require(bits_equal(ops.trsm_right_upper(a, packed), ref.trsm_right_upper_ref(a, packed)),
+                f"trsm_right_upper at bs={bs} != plain version")
+        at = a.t().contiguous()
+        require(bits_equal(ops.trsm_left_unit_lower(packed, at),
+                           ref.trsm_left_unit_lower_ref(packed, at)),
+                f"trsm_left_unit_lower at bs={bs} != plain version")
+        pool = on(rng.standard_normal((4, bs, bs)).astype(np.float32))
+        pool[1] = packed
+        slots = torch.tensor([0, 2, 3], dtype=torch.int32, device=dev)
+        for name in ("trsm_right_upper", "trsm_left_unit_lower"):
+            got = getattr(ops, f"{name}_slots")(pool.clone(), 1, slots)
+            require(bits_equal(got, getattr(ref, f"{name}_slots_ref")(pool.clone(), 1, slots)),
+                    f"{name}_slots at bs={bs} != plain version")
+        say(f"[large-tiles] bs={bs}: tile_lu ({bs * (bs + 1) * 4} B padded tile), the two "
+            f"solves ({bs * bs * 4} B triangle) and their batched forms bitwise equal to plain")
+
+
+def wide_band_matrix(n=2100, seed=0):
+    """A matrix whose TOP-ILU band does not fit in shared memory: row 0
+    dense, every other row i holding (i, i-1) and (i, i); the diagonal 4n,
+    the rest uniform in [-1, 1). ILU(0) at 32-row bands is 32 x n floats a
+    band (268,800 B at n = 2100)."""
+    import numpy as np
+
+    from repro_torch.core.sparse import CSRMatrix
+
+    rng = np.random.default_rng(seed)
+    indptr = np.concatenate([[0, n], n + 2 * np.arange(1, n)]).astype(np.int64)
+    rest = np.stack([np.arange(n - 1), np.arange(1, n)], axis=1).reshape(-1)
+    indices = np.concatenate([np.arange(n), rest]).astype(np.int32)
+    data = rng.uniform(-1, 1, indices.size).astype(np.float32)
+    data[0] = 4 * n
+    data[n + 1::2] = 4 * n
+    return CSRMatrix.from_arrays(n, indptr, indices, data)
+
+
+def phase_wide_band(dev):
+    """[wide-band]: a TOP-ILU band wider than shared memory factored on the
+    card (superstep_factor in place in the value state), bitwise equal to
+    the sequential oracle numeric_ilu_ref."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.api import ilu_sharded
+    from repro_torch.core.numeric_ref import numeric_ilu_ref
+    from repro_torch.kernels import ops
+
+    a = wide_band_matrix()
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    f = ilu_sharded(a, 0, band_rows=BAND_ROWS, n_devices=1, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    band_bytes = BAND_ROWS * f.plan.width * 4
+    require(band_bytes > 232448, f"the wide band is {band_bytes} B: it fits in shared memory")
+    require(counts["superstep_factor"] == f.plan.n_supersteps,
+            f"wide band: {counts['superstep_factor']} superstep_factor launches for "
+            f"{f.plan.n_supersteps} supersteps")
+    require(np.array_equal(f.values_csr().view(np.int32),
+                           numeric_ilu_ref(a, f.pattern).view(np.int32)),
+            "wide band: the TOP-ILU factor on the card != numeric_ilu_ref")
+    say(f"[wide-band] n={a.n} row 0 dense, ILU(0), {BAND_ROWS}-row bands of W={f.plan.width} "
+        f"({band_bytes} B a band, above the 232,448 B of shared memory): "
+        f"{counts['superstep_factor']} superstep_factor launches, factor bitwise equal to "
+        f"numeric_ilu_ref ({wall:.3f} s)")
 
 
 def ell_to_csr(cols, vals, n):
@@ -1534,7 +1791,9 @@ def run(oracles):
     dev = torch.device("cuda")
 
     rows = phase_kernels(dev)
+    phase_sweep_window(dev)
     rows.update(phase_tile_kernels(dev))
+    phase_large_tiles(dev)
     phase_factors(dev)
     phase_inverse_oracles(dev, oracles)
     by_path = {}
@@ -1543,7 +1802,7 @@ def run(oracles):
     by_path["main-inverse"], inv_single = phase_main_inverse(dev, b)
     by_path["multi-rhs"] = phase_multi_rhs(dev, b, single, single_wall)
     phase_card_vs_cpu(dev)
-    for bs in (BS_TILE, 32):
+    for bs in (BS_TILE, 32, 256):
         by_path[f"bilu-bs{bs}"] = phase_bilu(dev, bs)
     phase_bilu_card_vs_cpu(dev)
     by_path["cg"] = phase_cg(dev, b)
@@ -1553,6 +1812,7 @@ def run(oracles):
     by_path["distributed"] = phase_distributed(dev, b, single)
     by_path["distributed-inverse"] = phase_distributed_inverse(dev, b, inv_single)
     phase_sharded_card_vs_cpu(dev)
+    phase_wide_band(dev)
 
     for name, r in rows.items():
         path = ("main-inverse" if name == "inverse_chain"

@@ -114,14 +114,12 @@ def csr_to_ell_arrays(a, device):
 
 
 def make_ell_matvec(cols: torch.Tensor, vals: torch.Tensor, n: int) -> Callable:
-    """A·x through the ``spmv_ell`` kernel (its plain version on the CPU)."""
+    """A·x through the ``spmv_ell`` kernel (its plain version on the CPU),
+    as an :class:`~repro_torch.kernels.ops.EllOperator`: the matrix is
+    checked once, a call checks only x."""
     if cols.shape[0] != n:
         raise ValueError(f"ELL arrays have {cols.shape[0]} rows, expected {n}")
-
-    def matvec(x):
-        return ops.spmv_ell(cols, vals, x)
-
-    return matvec
+    return ops.EllOperator(cols, vals)
 
 
 class RowBlockELL:
@@ -133,7 +131,9 @@ class RowBlockELL:
     its own rows through ``spmv_ell`` (the same lanes in the same order as
     the whole matrix's SpMV, so every output entry is bitwise identical to
     it), then one exchange of the row-block results — a copy — assembles
-    the replicated output; the exchange carries the whole batch.
+    the replicated output; the exchange carries the whole batch. Each row
+    block is an :class:`~repro_torch.kernels.ops.EllOperator`, checked
+    once.
     """
 
     def __init__(self, cols: torch.Tensor, vals: torch.Tensor, group):
@@ -144,13 +144,12 @@ class RowBlockELL:
         cols = torch.cat([cols, cols.new_full((pad, cols.shape[1]), int(COL_SENTINEL))])
         vals = torch.cat([vals, vals.new_zeros((pad, vals.shape[1]))])
         self.n, self.group = n, group
-        self._blocks = [(c.contiguous(), v.contiguous()) for c, v in
+        self._blocks = [ops.EllOperator(c.contiguous(), v.contiguous(), n=n) for c, v in
                         zip(cols.view(D, rows_loc, -1), vals.view(D, rows_loc, -1))]
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         xb = x if x.ndim == 2 else x[None]
-        y = torch.stack([ops.spmv_ell(c, v, xb, row_block=True)
-                         for c, v in self._blocks])  # (D, nb, rows_loc)
+        y = torch.stack([block(xb) for block in self._blocks])  # (D, nb, rows_loc)
         if self.group.n_devices > 1:
             y = self.group.exchange(y)[0]
         y = y.transpose(0, 1).reshape(xb.shape[0], -1)[:, :self.n]

@@ -13,9 +13,9 @@ side is fetched through one precomputed gather. Per level the sweep is one
 gather, one masked lane-ordered sum and one contiguous write.
 
 :class:`PrecondApply` keeps the level-major arrays on a device and applies
-the fused L-then-U sweep through
-:func:`repro_torch.kernels.ops.tri_solve_wavefront`: the CUDA kernel on a
-GPU, its plain PyTorch version on the CPU.
+the fused L-then-U sweep through a
+:class:`repro_torch.kernels.ops.TriSolveWavefront` bound once per plan:
+the CUDA kernel on a GPU, its plain PyTorch version on the CPU.
 """
 from __future__ import annotations
 
@@ -169,10 +169,12 @@ class PrecondApply:
     """Device-resident application of M^{-1} = (LU)^{-1}.
 
     Builds the triangular plan once (vectorized host planning), keeps the
-    level-major arrays on ``device``, and applies the fused L-then-U sweep.
-    ``__call__`` takes an (n,) or (nb, n) float32 tensor on that device;
-    ``batched`` requires (nb, n). Row i of a batch equals the single apply
-    of row i bitwise.
+    level-major arrays on ``device`` and binds the fused L-then-U sweep to
+    them once (:class:`~repro_torch.kernels.ops.TriSolveWavefront`: the
+    plan is checked and the sweeps' windows are reckoned here, a call
+    checks only b). ``__call__`` takes an (n,) or
+    (nb, n) float32 tensor on that device; ``batched`` requires (nb, n).
+    Row i of a batch equals the single apply of row i bitwise.
     """
 
     def __init__(self, pattern: ILUPattern, vals: np.ndarray, device,
@@ -180,11 +182,12 @@ class PrecondApply:
         self.plan = plan if plan is not None else build_triangular_plan(pattern, vals)
         self.n = self.plan.n
         self.device = torch.device(device)
-        self._dev = [torch.as_tensor(getattr(self.plan, f), device=self.device)
-                     for f in SWEEP_FIELDS]
+        self.sweep = ops.TriSolveWavefront(
+            *[torch.as_tensor(getattr(self.plan, f), device=self.device) for f in SWEEP_FIELDS])
+        self.windows = self.sweep.windows
 
     def __call__(self, b: torch.Tensor) -> torch.Tensor:
-        return ops.tri_solve_wavefront(*self._dev, b)
+        return self.sweep(b)
 
     apply = __call__
 

@@ -39,18 +39,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LIB_NAME = "librepro_torch_kernels.so"
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_IP, _PP = ctypes.POINTER(_I), ctypes.POINTER(_P)
 _SIGNATURES = {
     "spmv_ell_launch": [_P] * 4 + [_I] * 4 + [_P],
     "factor_wavefront_launch": [_P] * 7 + [_I] * 4 + [_P],
-    "tri_solve_wavefront_launch": [_P] * 12 + [_I] * 8 + [_P],
+    "tri_solve_sweep_config": [_I] * 7 + [_IP],
+    "tri_solve_wavefront_launch": [_PP, _IP] + [_P] * 4 + [_I, _P],
+    "tri_solve_chain_floor_launch": [_I] * 3 + [_P] + [_P],
     "inverse_chain_launch": [_P] * 7 + [_I] * 4 + [_P],
     "panel_update_launch": [_P] * 4 + [_I] * 4 + [_P],
     "trsm_right_upper_launch": [_P] * 4 + [_I] * 5 + [_P],
     "trsm_left_unit_lower_launch": [_P] * 4 + [_I] * 5 + [_P],
-    "trsm_max_bs": [_I],
     "tile_lu_launch": [_P] * 2 + [_I] + [_P],
     "epoch_sweep_launch": [_P] * 5 + [_I] * 9 + [_P],
-    "superstep_factor_launch": [_P] * 6 + [_I] * 9 + [_P],
+    "superstep_factor_launch": [_P] * 6 + [_I] * 10 + [_P],
 }
 
 _lock = threading.Lock()

@@ -17,8 +17,8 @@
 //     y = rhs - acc            (L)
 //     y = (rhs - acc) / diag   (U, __fdiv_rn)
 // with acc the level body shared with tri_solve_wavefront.cu
-// (level_row_sum, level_row.cuh): lanes at or past `limit` are skipped,
-// never gathered. Every slot of every level is written, pad rows included,
+// (level_row_sum, level_row.cuh): lanes at or past `limit` are skipped
+// (such a lane reads the scratch slot `limit` and drops it). Every slot of every level is written, pad rows included,
 // as the reference's dynamic_update_slice does (a pad row has all lanes
 // masked, so it writes its rhs, divided by the ones-lane 1.0 for U).
 //
@@ -53,7 +53,7 @@ __global__ void epoch_sweep_kernel(float* x, const int* cols, const float* vals,
   for (int lev = lo; lev < hi; ++lev) {
     for (int i = threadIdx.x; i < maxr; i += blockDim.x) {
       size_t s = (size_t)lev * maxr + i;
-      float acc = level_row_sum(c + s * w, v + s * w, xv, w, limit);
+      float acc = level_row_sum(c + s * w, v + s * w, xv, w, limit, limit);
       float y = __fsub_rn(r[s], acc);
       if (g != nullptr) y = __fdiv_rn(y, g[s]);
       xv[s] = y;

@@ -38,13 +38,23 @@
 // chain plus the launch. Bands of one superstep run as separate blocks.
 // Only rows finished in earlier supersteps are read from state (a band
 // waits on every band it pulls from), so the blocks never race.
+//
+// Wide bands: a band of R x W floats above the shared memory a block may
+// take (W is the widest factor row, which one dense row makes n) is
+// factored in place in `state` by the IN_SMEM = false variant of the same
+// body: the band's rows are read and written where they lie, so an
+// in-band pivot row is read from the same address either way. The pivot
+// order and every rounded operation are unchanged, so the bits are too;
+// the block's barriers also order its global reads and writes. The
+// wrapper picks the variant by size.
 #include <cuda_runtime.h>
 
+template <bool IN_SMEM>
 __global__ void superstep_factor_kernel(float* state, const int* sched, const int* piv_addr,
                                         const int* piv_dlane, const int* piv_dst,
                                         const int* n_piv, int s, int mpd, int srows, int s_loc,
                                         int R, int W, int MP, int n_bands) {
-  extern __shared__ float buf[];  // R x W
+  extern __shared__ float buf[];  // R x W (IN_SMEM only)
   const int n_owners = gridDim.x;
   const int d = blockIdx.x;
   const int b = sched[((size_t)s * n_owners + d) * mpd + blockIdx.y];
@@ -52,16 +62,19 @@ __global__ void superstep_factor_kernel(float* state, const int* sched, const in
   const int base = (b / n_owners) * R;
   float* st = state + (size_t)d * srows * W;
   const size_t row0 = (size_t)d * s_loc;  // owner d's first row in the per-row tables
-  for (int i = threadIdx.x; i < R * W; i += blockDim.x) buf[i] = st[(size_t)base * W + i];
-  __syncthreads();
+  float* band = IN_SMEM ? buf : st + (size_t)base * W;
+  if (IN_SMEM) {
+    for (int i = threadIdx.x; i < R * W; i += blockDim.x) buf[i] = st[(size_t)base * W + i];
+    __syncthreads();
+  }
   for (int r = 0; r < R; ++r) {
     const size_t jl = row0 + base + r;
-    float* x = buf + r * W;
+    float* x = band + (size_t)r * W;
     const int np = n_piv[jl];
     for (int p = 0; p < np; ++p) {
       const int addr = piv_addr[jl * MP + p];
       const int li = addr - base;
-      const float* pv = (li >= 0 && li < R) ? buf + li * W : st + (size_t)addr * W;
+      const float* pv = (li >= 0 && li < R) ? band + (size_t)li * W : st + (size_t)addr * W;
       const float l = __fdiv_rn(x[p], pv[piv_dlane[jl * MP + p]]);
       __syncthreads();  // every thread has read x[p]
       const int* dst = piv_dst + (jl * MP + p) * W;
@@ -73,22 +86,33 @@ __global__ void superstep_factor_kernel(float* state, const int* sched, const in
       __syncthreads();  // the row is complete for the next pivot
     }
   }
-  for (int i = threadIdx.x; i < R * W; i += blockDim.x) st[(size_t)base * W + i] = buf[i];
+  if (IN_SMEM) {
+    for (int i = threadIdx.x; i < R * W; i += blockDim.x) st[(size_t)base * W + i] = buf[i];
+  }
 }
 
+// in_smem: 1 when the R x W band fits in the shared memory of one block
+// (the wrapper decides), else 0 and the band is factored in place.
 extern "C" int superstep_factor_launch(void* state, const void* sched, const void* piv_addr,
                                        const void* piv_dlane, const void* piv_dst,
                                        const void* n_piv, int s, int n_owners, int mpd,
                                        int srows, int s_loc, int R, int W, int MP, int n_bands,
-                                       void* stream) {
+                                       int in_smem, void* stream) {
+  const dim3 grid(n_owners, mpd);
+  if (!in_smem) {
+    superstep_factor_kernel<false><<<grid, 32, 0, (cudaStream_t)stream>>>(
+        (float*)state, (const int*)sched, (const int*)piv_addr, (const int*)piv_dlane,
+        (const int*)piv_dst, (const int*)n_piv, s, mpd, srows, s_loc, R, W, MP, n_bands);
+    return (int)cudaGetLastError();
+  }
   size_t smem = (size_t)R * W * sizeof(float);
   if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        superstep_factor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaError_t err = cudaFuncSetAttribute(superstep_factor_kernel<true>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  dim3 grid(n_owners, mpd);
-  superstep_factor_kernel<<<grid, 32, smem, (cudaStream_t)stream>>>(
+  superstep_factor_kernel<true><<<grid, 32, smem, (cudaStream_t)stream>>>(
       (float*)state, (const int*)sched, (const int*)piv_addr, (const int*)piv_dlane,
       (const int*)piv_dst, (const int*)n_piv, s, mpd, srows, s_loc, R, W, MP, n_bands);
   return (int)cudaGetLastError();

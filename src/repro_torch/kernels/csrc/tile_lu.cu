@@ -22,17 +22,28 @@
 // so asked for). 512 threads share each step: all of them the division of
 // the column, then 16 rows of the trailing block at a time, a warp along
 // each row. The output may be the input tile itself.
+//
+// Large tiles: a padded tile above the shared memory of one block (bs
+// above 240 on the H100) is factored in place in the output by the
+// IN_SMEM = false variant of the same body (the input copied there first,
+// unless it is the output): the same column steps, barriers and rounded
+// operations, on device memory (a 256 x 256 tile, 256 KB, stays in L2).
+// The launch picks the variant from the device's limit.
 #include <cuda_runtime.h>
 
 #define TX 32  // threads along a row of the trailing block
 #define TY 16  // rows of the trailing block handled side by side
 
+template <bool IN_SMEM>
 __global__ void __launch_bounds__(TX * TY)
 tile_lu_kernel(const float* t, float* out, int bs) {
-  extern __shared__ float st[];  // t[r, c] at r * ld + c
-  const int ld = bs + 1, tx = threadIdx.x, ty = threadIdx.y, tid = ty * TX + tx;
-  for (int r = ty; r < bs; r += TY)
-    for (int c = tx; c < bs; c += TX) st[r * ld + c] = t[(size_t)r * bs + c];
+  extern __shared__ float smem[];
+  float* st = IN_SMEM ? smem : out;  // t[r, c] at r * ld + c
+  const int ld = IN_SMEM ? bs + 1 : bs, tx = threadIdx.x, ty = threadIdx.y, tid = ty * TX + tx;
+  if (IN_SMEM || t != out) {
+    for (int r = ty; r < bs; r += TY)
+      for (int c = tx; c < bs; c += TX) st[r * ld + c] = t[(size_t)r * bs + c];
+  }
   __syncthreads();
   for (int c = 0; c < bs; ++c) {
     const float piv = st[c * ld + c];
@@ -46,18 +57,31 @@ tile_lu_kernel(const float* t, float* out, int bs) {
     }
     __syncthreads();
   }
-  for (int r = ty; r < bs; r += TY)
-    for (int c = tx; c < bs; c += TX) out[(size_t)r * bs + c] = st[r * ld + c];
+  if (IN_SMEM) {
+    for (int r = ty; r < bs; r += TY)
+      for (int c = tx; c < bs; c += TX) out[(size_t)r * bs + c] = st[r * ld + c];
+  }
 }
 
 extern "C" int tile_lu_launch(const void* t, void* out, int bs, void* stream) {
   const size_t smem = (size_t)bs * (bs + 1) * sizeof(float);
+  int dev, optin;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 block(TX, TY);
+  if (smem > (size_t)optin) {
+    tile_lu_kernel<false><<<1, block, 0, (cudaStream_t)stream>>>((const float*)t, (float*)out,
+                                                                 bs);
+    return (int)cudaGetLastError();
+  }
   if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        tile_lu_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    err = cudaFuncSetAttribute(tile_lu_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  tile_lu_kernel<<<1, dim3(TX, TY), smem, (cudaStream_t)stream>>>((const float*)t, (float*)out,
-                                                                  bs);
+  tile_lu_kernel<true><<<1, block, smem, (cudaStream_t)stream>>>((const float*)t, (float*)out,
+                                                                 bs);
   return (int)cudaGetLastError();
 }

@@ -41,6 +41,15 @@
 // straight into registers; the left solve's columns are strided, so the
 // block's 8 columns are staged through shared memory, row by row.
 //
+// Large tiles: a triangle too large for the shared memory of one block
+// (bs above 241 right, 236 left on the H100) is read in place from device
+// memory by the TRI_IN_SMEM = false variant of the same body (a 256 x 256
+// tile is 256 KB, which stays in L2). Only where the triangle is read
+// from changes: the chain, its order of rounded operations and so the
+// bits are the same. The left solve still stages its columns in shared
+// memory. The launch picks the variant from the device's limit; only
+// NC = MAX_NC (bs > 224) can need it, so only it is instantiated.
+//
 // One kernel body serves one panel and a batch of tiles: blockIdx.y picks
 // the panel, at `slots[blockIdx.y]` tiles of the pool (the batched form:
 // all of one pivot's tiles in one launch, in place) or at the panel itself
@@ -57,7 +66,7 @@
 
 #define LANES 32
 #define FULL_MASK 0xffffffffu
-#define MAX_NC 8      // accumulators per lane: bs <= 256 (shared memory bounds bs lower)
+#define MAX_NC 8      // accumulators per lane: bs <= 256
 #define ROW_WARPS 8   // right solve: rows of X per block
 #define COL_WARPS 8   // left solve: columns of X per block
 #define XSTRIDE (COL_WARPS + 1)  // left solve: staged x[r, w] at r * XSTRIDE + w
@@ -95,17 +104,21 @@ __device__ __forceinline__ float divide(float num, float u) {
 // NC = ceil(bs / 32): lane `lane` owns columns (right) or rows (left)
 // q * 32 + lane, q < NC. The q loops unroll, so x[] and acc[] stay in
 // registers.
-template <int NC>
+template <int NC, bool TRI_IN_SMEM>
 __global__ void __launch_bounds__(ROW_WARPS * LANES)
 trsm_right_upper_kernel(const float* a, const float* __restrict__ u, float* out,
                         const int* __restrict__ slots, int n_tiles, int diag_slot, int m,
                         int bs) {
-  extern __shared__ float su[];  // u[j, c] at j * bs + c, c >= j
+  extern __shared__ float smem[];
+  const float* su = TRI_IN_SMEM ? smem : u;  // u[j, c] at j * bs + c, c >= j
   const int lane = threadIdx.x % LANES, warp = threadIdx.x / LANES;
   const int r = blockIdx.x * ROW_WARPS + warp;
   const size_t row = (panel_of(slots, n_tiles, diag_slot) * m + r) * bs;
-  for (int j = warp; j < bs; j += ROW_WARPS)
-    for (int c = j + lane; c < bs; c += LANES) copy_async(su + j * bs + c, u + (size_t)j * bs + c);
+  if (TRI_IN_SMEM) {
+    for (int j = warp; j < bs; j += ROW_WARPS)
+      for (int c = j + lane; c < bs; c += LANES)
+        copy_async(smem + j * bs + c, u + (size_t)j * bs + c);
+  }
   float x[NC], acc[NC];
 #pragma unroll
   for (int q = 0; q < NC; ++q) {
@@ -139,20 +152,24 @@ trsm_right_upper_kernel(const float* a, const float* __restrict__ u, float* out,
   }
 }
 
-template <int NC>
+template <int NC, bool TRI_IN_SMEM>
 __global__ void __launch_bounds__(COL_WARPS * LANES)
 trsm_left_unit_lower_kernel(const float* __restrict__ l, const float* a, float* out,
                             const int* __restrict__ slots, int n_tiles, int diag_slot,
                             int bs, int n) {
   extern __shared__ float smem[];
-  const int ld = bs | 1;  // odd: the 32 rows of a column fall in 32 banks
-  float* sl = smem;                 // l[r, j] at r * ld + j, j < r
-  float* sx = smem + bs * ld;       // x[r, c0 + w] at r * XSTRIDE + w
+  // odd in shared memory: the 32 rows of a column fall in 32 banks
+  const int ld = TRI_IN_SMEM ? (bs | 1) : bs;
+  const float* sl = TRI_IN_SMEM ? smem : l;            // l[r, j] at r * ld + j, j < r
+  float* sx = smem + (TRI_IN_SMEM ? bs * ld : 0);     // x[r, c0 + w] at r * XSTRIDE + w
   const int lane = threadIdx.x % LANES, warp = threadIdx.x / LANES;
   const int c0 = blockIdx.x * COL_WARPS, live = min(COL_WARPS, n - c0);
   const size_t panel = panel_of(slots, n_tiles, diag_slot) * bs * n;
-  for (int r = warp + 1; r < bs; r += COL_WARPS)
-    for (int j = lane; j < r; j += LANES) copy_async(sl + r * ld + j, l + (size_t)r * bs + j);
+  if (TRI_IN_SMEM) {
+    for (int r = warp + 1; r < bs; r += COL_WARPS)
+      for (int j = lane; j < r; j += LANES)
+        copy_async(smem + r * ld + j, l + (size_t)r * bs + j);
+  }
   for (int e = threadIdx.x; e < bs * COL_WARPS; e += COL_WARPS * LANES) {
     const int r = e / COL_WARPS, w = e % COL_WARPS;  // consecutive threads, consecutive columns
     if (w < live) sx[r * XSTRIDE + w] = a[panel + (size_t)r * n + c0 + w];
@@ -203,14 +220,27 @@ static cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-// Dynamic shared memory of one block: U (right), L at the odd stride and
-// the staged columns (left).
+// Dynamic shared memory of one block with the triangle in it: U (right),
+// L at the odd stride and the staged columns (left). Without it the left
+// solve keeps only the staged columns.
 static size_t right_smem(int bs) { return (size_t)bs * bs * sizeof(float); }
 static size_t left_smem(int bs) {
   return ((size_t)bs * (bs | 1) + (size_t)bs * XSTRIDE) * sizeof(float);
 }
+static size_t left_cols_smem(int bs) { return (size_t)bs * XSTRIDE * sizeof(float); }
 
-// The smallest NC with NC * 32 >= bs.
+// Whether `bytes` of shared memory fit one block of the current device.
+static cudaError_t fits_block(size_t bytes, bool* fits) {
+  int dev, optin;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  *fits = err == cudaSuccess && bytes <= (size_t)optin;
+  return err;
+}
+
+// The smallest NC with NC * 32 >= bs; the triangle in shared memory when
+// it fits, else (NC = MAX_NC only) read in place.
 template <int NC>
 static cudaError_t right_launch(const float* a, const float* u, float* out, const int* slots,
                                 int n_tiles, int diag_slot, int n_panels, int m, int bs,
@@ -219,11 +249,21 @@ static cudaError_t right_launch(const float* a, const float* u, float* out, cons
     if (NC * LANES < bs)
       return right_launch<NC + 1>(a, u, out, slots, n_tiles, diag_slot, n_panels, m, bs, stream);
   }
-  const size_t smem = right_smem(bs);
-  const cudaError_t err = allow_smem(trsm_right_upper_kernel<NC>, smem);
-  if (err != cudaSuccess) return err;
   const dim3 grid((m + ROW_WARPS - 1) / ROW_WARPS, n_panels);
-  trsm_right_upper_kernel<NC><<<grid, ROW_WARPS * LANES, smem, stream>>>(
+  if constexpr (NC == MAX_NC) {
+    bool fits;
+    const cudaError_t err = fits_block(right_smem(bs), &fits);
+    if (err != cudaSuccess) return err;
+    if (!fits) {
+      trsm_right_upper_kernel<NC, false><<<grid, ROW_WARPS * LANES, 0, stream>>>(
+          a, u, out, slots, n_tiles, diag_slot, m, bs);
+      return cudaGetLastError();
+    }
+  }
+  const size_t smem = right_smem(bs);
+  const cudaError_t err = allow_smem(trsm_right_upper_kernel<NC, true>, smem);
+  if (err != cudaSuccess) return err;
+  trsm_right_upper_kernel<NC, true><<<grid, ROW_WARPS * LANES, smem, stream>>>(
       a, u, out, slots, n_tiles, diag_slot, m, bs);
   return cudaGetLastError();
 }
@@ -236,26 +276,24 @@ static cudaError_t left_launch(const float* l, const float* a, float* out, const
     if (NC * LANES < bs)
       return left_launch<NC + 1>(l, a, out, slots, n_tiles, diag_slot, n_panels, bs, n, stream);
   }
-  const size_t smem = left_smem(bs);
-  const cudaError_t err = allow_smem(trsm_left_unit_lower_kernel<NC>, smem);
-  if (err != cudaSuccess) return err;
   const dim3 grid((n + COL_WARPS - 1) / COL_WARPS, n_panels);
-  trsm_left_unit_lower_kernel<NC><<<grid, COL_WARPS * LANES, smem, stream>>>(
+  if constexpr (NC == MAX_NC) {
+    bool fits;
+    const cudaError_t err = fits_block(left_smem(bs), &fits);
+    if (err != cudaSuccess) return err;
+    if (!fits) {
+      const size_t smem = left_cols_smem(bs);
+      trsm_left_unit_lower_kernel<NC, false><<<grid, COL_WARPS * LANES, smem, stream>>>(
+          l, a, out, slots, n_tiles, diag_slot, bs, n);
+      return cudaGetLastError();
+    }
+  }
+  const size_t smem = left_smem(bs);
+  const cudaError_t err = allow_smem(trsm_left_unit_lower_kernel<NC, true>, smem);
+  if (err != cudaSuccess) return err;
+  trsm_left_unit_lower_kernel<NC, true><<<grid, COL_WARPS * LANES, smem, stream>>>(
       l, a, out, slots, n_tiles, diag_slot, bs, n);
   return cudaGetLastError();
-}
-
-// The largest bs whose block fits in the shared memory one block of the
-// current device may ask for (side 0: the right solve, 1: the left), or -1
-// if the device cannot be read. The wrappers refuse a larger bs with it.
-extern "C" int trsm_max_bs(int side) {
-  int dev, optin;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
-    return -1;
-  int bs = MAX_NC * LANES;
-  while (bs > 0 && (side ? left_smem(bs) : right_smem(bs)) > (size_t)optin) --bs;
-  return bs;
 }
 
 // `slots` null: one panel (A at `a`, X at `out`). Otherwise `n_panels`

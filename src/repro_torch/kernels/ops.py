@@ -20,6 +20,16 @@ of the pool's tiles in place in one launch of the same kernel; the
 two kernels of the distributed path (``epoch_sweep``, ``superstep_factor``)
 update their state in place, as the one launch per epoch or superstep
 needs no copy.
+
+Two kernels of the main path also have a form that is checked once and
+launched many times: :class:`EllOperator` (``spmv_ell`` over one matrix)
+and :class:`TriSolveWavefront` (``tri_solve_wavefront`` over one plan).
+They check their matrix or plan when they are made, keep the kernel's
+entry point bound through :class:`_Bound`, and check only the right-hand
+side on a call. The checked functions ``spmv_ell`` and
+``tri_solve_wavefront`` make one of these per call and call it once; they
+stay the entry points of the tests and of the comparisons with the plain
+versions.
 """
 from __future__ import annotations
 
@@ -66,6 +76,40 @@ def _launch(fn_name: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{fn_name}: CUDA error {err}: {msg}")
 
 
+class _Bound:
+    """A kernel's C entry point, bound once to one CUDA device. A call
+    passes the device's current stream and raises on a launch error. It
+    enters the device's context only when another device is current, and
+    takes no lock (the library is loaded when the binding is made). The
+    current device and stream are read through PyTorch's raw getters where
+    the build has them (what ``torch.cuda.current_device()`` and
+    ``torch.cuda.current_stream().cuda_stream`` read, without making a
+    ``Stream`` object per call)."""
+
+    __slots__ = ("_fn", "_index", "_lib", "_name", "_device", "_stream")
+
+    def __init__(self, fn_name: str, device: torch.device):
+        from .build import load
+
+        self._lib = load()
+        self._fn = getattr(self._lib, fn_name)
+        self._name = fn_name
+        self._index = device.index if device.index is not None else torch.cuda.current_device()
+        self._device = getattr(torch._C, "_cuda_getDevice", torch.cuda.current_device)
+        raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+        self._stream = raw if raw is not None else (
+            lambda index: torch.cuda.current_stream(index).cuda_stream)
+
+    def __call__(self, *args) -> None:
+        if self._device() != self._index:
+            with torch.cuda.device(self._index):
+                return self(*args)
+        err = self._fn(*args, self._stream(self._index))
+        if err != 0:
+            msg = self._lib.repro_cuda_error_string(err).decode()
+            raise RuntimeError(f"{self._name}: CUDA error {err}: {msg}")
+
+
 def _rhs(name: str, t: torch.Tensor, n: int, device) -> int:
     """Check a right-hand side of shape (n,) or (nb, n); returns nb (1 for
     the single form)."""
@@ -85,26 +129,59 @@ def spmv_ell(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
     shape (n,) or (nb, n); y has shape (m,) or (nb, m), and row i of a batch
     equals the single form's output for ``x[i]`` bitwise. A whole matrix
     has m == n; with ``row_block=True`` the rows are one owner's row block
-    of a larger matrix, and m may differ from n."""
-    dev = x.device
-    m, w = cols.shape
-    _check("spmv_ell cols", cols, _I32, (m, w), dev)
-    _check("spmv_ell vals", vals, _F32, (m, w), dev)
+    of a larger matrix, and m may differ from n. Checks the matrix on every
+    call, through a fresh :class:`EllOperator` (the form checked once)."""
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"spmv_ell x: expected a torch.Tensor, got {type(x).__name__}")
     if x.ndim not in (1, 2):
         raise ValueError(f"spmv_ell x: expected shape (n,) or (nb, n), got {tuple(x.shape)}")
-    n = int(x.shape[-1]) if row_block else m
-    nb = _rhs("spmv_ell x", x, n, dev)
-    if not _route(dev):
-        return ref.spmv_ell_ref(cols, vals, x)
-    y = x.new_empty(tuple(x.shape[:-1]) + (m,))
-    if m == 0 or nb == 0:
+    n = int(x.shape[-1]) if row_block else None
+    return EllOperator(cols, vals, n=n)(x)
+
+
+class EllOperator:
+    """y = A x through ``spmv_ell`` for one sentinel-padded ELL matrix
+    ``cols``/``vals`` (m, W), checked once. ``n`` is the length of x: m for
+    a whole matrix (the default), the whole matrix's order for a row block.
+
+    The kernel reads the row-major arrays as they are, with no copy. A call
+    checks only x (float32, (n,) or (nb, n), on the matrix's device,
+    contiguous), launches the kernel on the current stream and counts the
+    launch in ``spmv_ell.launches``; on the CPU it runs the plain version."""
+
+    def __init__(self, cols: torch.Tensor, vals: torch.Tensor, n: int = None):
+        dev = cols.device
+        if cols.ndim != 2:
+            raise ValueError(f"spmv_ell cols: expected (m, W), got {tuple(cols.shape)}")
+        m, w = cols.shape
+        _check("spmv_ell cols", cols, _I32, (m, w), dev)
+        _check("spmv_ell vals", vals, _F32, (m, w), dev)
+        self.m, self.w, self.n = int(m), int(w), int(m if n is None else n)
+        if self.n == 0 and self.m:
+            raise ValueError("spmv_ell: x is empty but A has rows")
+        self.device, self.cols, self.vals = dev, cols, vals
+        self._cuda = _route(dev)
+        if self._cuda:
+            self._launch = _Bound("spmv_ell_launch", dev)
+            self._args = (cols.data_ptr(), vals.data_ptr())
+            self._dims = (self.m, self.n, self.w)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        shape = x.shape if isinstance(x, torch.Tensor) else None
+        if not (shape is not None and x.dtype == _F32 and x.device == self.device
+                and len(shape) in (1, 2) and shape[-1] == self.n and x.is_contiguous()
+                and (len(shape) == 1 or shape[0] <= _MAX_GRID_Y)):
+            _rhs("spmv_ell x", x, self.n, self.device)  # raises, naming what is wrong
+        if not self._cuda:
+            return ref.spmv_ell_ref(self.cols, self.vals, x)
+        if len(shape) == 1:
+            y, nb = torch.empty(self.m, dtype=_F32, device=self.device), 1
+        else:
+            y, nb = torch.empty((shape[0], self.m), dtype=_F32, device=self.device), shape[0]
+        if self.m and nb:
+            self._launch(*self._args, x.data_ptr(), y.data_ptr(), *self._dims, nb)
+            spmv_ell.launches += 1
         return y
-    if n == 0:
-        raise ValueError("spmv_ell: x is empty but A has rows")
-    _launch("spmv_ell_launch", dev, cols.data_ptr(), vals.data_ptr(), x.data_ptr(),
-            y.data_ptr(), m, n, w, nb)
-    spmv_ell.launches += 1
-    return y
 
 
 def factor_wavefront(op_row, op_lane, op_piv, op_dlane, op_dst, dst_flat,
@@ -131,38 +208,141 @@ def factor_wavefront(op_row, op_lane, op_piv, op_dlane, op_dst, dst_flat,
     return x[: n1 - 1]
 
 
-def tri_solve_wavefront(l_cols, l_vals, l_rhs_idx, u_cols, u_vals, u_diag, u_rhs_idx,
-                        out_perm, b: torch.Tensor) -> torch.Tensor:
-    """x = (LU)^{-1} b over the level-major arrays of a TriangularPlan, for
-    b of shape (n,) or (nb, n); one block per right-hand side."""
-    dev = b.device
-    n = out_perm.shape[0]
-    nl, ml, wl = l_cols.shape
-    nu, mu, wu = u_cols.shape
-    _check("tri_solve_wavefront l_cols", l_cols, _I32, (nl, ml, wl), dev)
-    _check("tri_solve_wavefront l_vals", l_vals, _F32, (nl, ml, wl), dev)
-    _check("tri_solve_wavefront l_rhs_idx", l_rhs_idx, _I32, (nl, ml), dev)
-    _check("tri_solve_wavefront u_cols", u_cols, _I32, (nu, mu, wu), dev)
-    _check("tri_solve_wavefront u_vals", u_vals, _F32, (nu, mu, wu), dev)
-    _check("tri_solve_wavefront u_diag", u_diag, _F32, (nu, mu), dev)
-    _check("tri_solve_wavefront u_rhs_idx", u_rhs_idx, _I32, (nu, mu), dev)
-    _check("tri_solve_wavefront out_perm", out_perm, _I32, (n,), dev)
-    nb = _rhs("tri_solve_wavefront b", b, n, dev)
-    if not _route(dev):
-        return ref.tri_solve_wavefront_ref(l_cols, l_vals, l_rhs_idx, u_cols, u_vals,
-                                           u_diag, u_rhs_idx, out_perm, b)
-    # per right-hand side sweep vectors; the trailing scratch slot reads 0
-    x_l = torch.zeros((nb, nl * ml + 1), dtype=_F32, device=dev)
-    x_u = torch.zeros((nb, nu * mu + 1), dtype=_F32, device=dev)
-    out = torch.empty_like(b)
-    if n == 0 or nb == 0:
+def sweep_window(cols: torch.Tensor, n_slots: int) -> int:
+    """R of one sweep: the largest distance, in levels, from a level back
+    to a level whose slot one of its rows gathers, plus one (1 when no row
+    gathers). ``cols`` is the sweep's (nlev, maxr, W) slot-space column
+    array; lanes at or past ``n_slots`` (the scratch slot) gather nothing."""
+    nlev, maxr = int(cols.shape[0]), int(cols.shape[1])
+    if nlev == 0 or maxr == 0:
+        return 1
+    c = cols.reshape(nlev, -1).long()
+    lev = torch.arange(nlev, device=cols.device)[:, None]
+    dist = torch.where(c < n_slots, lev - torch.div(c, maxr, rounding_mode="floor"), 0)
+    return int(dist.max()) + 1
+
+
+class TriSolveWavefront:
+    """x = (LU)^{-1} b over the level-major arrays of one TriangularPlan,
+    checked once: the plan's tensors when it is made, only b on a call.
+
+    ``windows`` is (R_l, R_u), each sweep's :func:`sweep_window`, reckoned
+    here once from the checked plan; ``max_window`` caps the rings below
+    them (a test's way of making the kernel read far gathers from device
+    memory). On a CUDA device each
+    sweep's layout is fixed here as well, by ``tri_solve_wavefront.cu``:
+    its shared-memory ring (a power of two of slots covering R levels,
+    capped by the shared memory a block may take), how its static per-level
+    data is staged and in chunks of how many levels, its shared memory per
+    block and threads; ``layout`` holds them per sweep (L, U). A call
+    allocates the output and the two sweep vectors (never zeroed: the
+    first kernel of the apply fills x_l) and launches the apply: three
+    permutations over all SMs around the two sweeps, one block per
+    right-hand side in each sweep; counted as one launch. Bitwise equal to
+    the plain version, for (n,) or (nb, n) b."""
+
+    _MODES = ("unstaged", "cp.async", "cp.async.bulk")
+
+    def __init__(self, l_cols, l_vals, l_rhs_idx, u_cols, u_vals, u_diag, u_rhs_idx,
+                 out_perm, max_window=None):
+        dev = out_perm.device
+        self.n = n = out_perm.shape[0]
+        nl, ml, wl = l_cols.shape
+        nu, mu, wu = u_cols.shape
+        _check("tri_solve_wavefront l_cols", l_cols, _I32, (nl, ml, wl), dev)
+        _check("tri_solve_wavefront l_vals", l_vals, _F32, (nl, ml, wl), dev)
+        _check("tri_solve_wavefront l_rhs_idx", l_rhs_idx, _I32, (nl, ml), dev)
+        _check("tri_solve_wavefront u_cols", u_cols, _I32, (nu, mu, wu), dev)
+        _check("tri_solve_wavefront u_vals", u_vals, _F32, (nu, mu, wu), dev)
+        _check("tri_solve_wavefront u_diag", u_diag, _F32, (nu, mu), dev)
+        _check("tri_solve_wavefront u_rhs_idx", u_rhs_idx, _I32, (nu, mu), dev)
+        _check("tri_solve_wavefront out_perm", out_perm, _I32, (n,), dev)
+        self.device = dev
+        self.args = (l_cols, l_vals, l_rhs_idx, u_cols, u_vals, u_diag, u_rhs_idx, out_perm)
+        self.shape = (nl, ml, wl, nu, mu, wu)
+        self.windows = (sweep_window(l_cols, nl * ml), sweep_window(u_cols, nu * mu))
+        self._cuda = _route(dev)
+        self.layout = None
+        if self._cuda and n:
+            self._bind(max_window)
+
+    def _bind(self, max_window) -> None:
+        """Fix each sweep's layout on the card and bind the launch: a
+        covered sweep stages a copy of its cols/vals made here, W padded to
+        a multiple of 4, each column its ring offset and each masked lane
+        the ring's zero slot with value 0 (``tri_solve_wavefront.cu``)."""
+        import ctypes
+
+        from .build import load
+
+        lib, dev = load(), self.device
+        nl, ml, wl, nu, mu, wu = self.shape
+        l_cols, l_vals, _, u_cols, u_vals, u_diag, _, _ = self.args
+        cfg, layout, staged = [self.n, nl, ml, nu, mu], [], []
+        sweeps = ((nl, ml, wl, l_cols, l_vals, None), (nu, mu, wu, u_cols, u_vals, u_diag))
+        for (nlev, maxr, w, cols, vals, diag), win in zip(sweeps, self.windows):
+            cap = win if max_window is None else min(win, int(max_window))
+            arrays = (cols, vals) if diag is None else (cols, vals, diag)
+            aligned = int(maxr % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in arrays))
+            out = (ctypes.c_int * 7)()
+            with torch.cuda.device(dev):
+                err = lib.tri_solve_sweep_config(nlev, maxr, w, int(diag is not None), cap,
+                                                 int(max_window is not None), aligned, out)
+            if err != 0:
+                raise RuntimeError(f"tri_solve_wavefront: cannot lay out the kernel on {dev}: "
+                                   f"CUDA error {err}")
+            mode, ring, smem, threads, chunk, covered, width = list(out)
+            if covered:  # the ring-offset copy: masked and padded lanes -> zero slot, value 0
+                live = cols < nlev * maxr
+                pad = (0, width - w)
+                cols = torch.nn.functional.pad(torch.where(live, cols & (ring - 1), ring), pad,
+                                               value=ring).contiguous()
+                vals = torch.nn.functional.pad(torch.where(live, vals, 0.0), pad).contiguous()
+            staged.append((cols, vals))
+            cfg += list(out)
+            layout.append(dict(staging=self._MODES[mode], ring_slots=ring,
+                               ring_levels=ring // maxr, covered=bool(covered),
+                               chunk_levels=chunk, width=width, smem_bytes=smem,
+                               threads=threads))
+        self.layout = {key: tuple(sw[key] for sw in layout) for key in layout[0]}
+        (lc, lv), (uc, uv) = staged
+        self._staged = (lc, lv, uc, uv)  # keeps the copies alive
+        ptrs = (lc, lv, self.args[2], uc, uv, u_diag, self.args[6], self.args[7])
+        self._launch = _Bound("tri_solve_wavefront_launch", dev)
+        self._plan = (ctypes.c_void_p * 8)(*(t.data_ptr() for t in ptrs))
+        self._cfg = (ctypes.c_int * len(cfg))(*cfg)
+
+    def __call__(self, b: torch.Tensor) -> torch.Tensor:
+        if not (isinstance(b, torch.Tensor) and b.dtype == _F32 and b.device == self.device
+                and b.ndim in (1, 2) and b.shape[-1] == self.n and b.is_contiguous()
+                and (b.ndim == 1 or b.shape[0] <= _MAX_GRID_Y)):
+            _rhs("tri_solve_wavefront b", b, self.n, self.device)  # raises
+        if not self._cuda:
+            return ref.tri_solve_wavefront_ref(*self.args, b)
+        nb = 1 if b.ndim == 1 else b.shape[0]
+        out = torch.empty_like(b)
+        if self.n == 0 or nb == 0:
+            return out
+        nl, ml, _, nu, mu, _ = self.shape
+        x_l = torch.empty((nb, nl * ml), dtype=_F32, device=self.device)
+        x_u = torch.empty((nb, nu * mu), dtype=_F32, device=self.device)
+        self._launch(self._plan, self._cfg, b.data_ptr(), x_l.data_ptr(), x_u.data_ptr(),
+                     out.data_ptr(), nb)
+        tri_solve_wavefront.launches += 1
         return out
-    _launch("tri_solve_wavefront_launch", dev, l_cols.data_ptr(), l_vals.data_ptr(),
-            l_rhs_idx.data_ptr(), u_cols.data_ptr(), u_vals.data_ptr(), u_diag.data_ptr(),
-            u_rhs_idx.data_ptr(), out_perm.data_ptr(), b.data_ptr(), x_l.data_ptr(),
-            x_u.data_ptr(), out.data_ptr(), n, nl, ml, wl, nu, mu, wu, nb)
-    tri_solve_wavefront.launches += 1
-    return out
+
+
+def tri_solve_wavefront(l_cols, l_vals, l_rhs_idx, u_cols, u_vals, u_diag, u_rhs_idx,
+                        out_perm, b: torch.Tensor, max_window=None) -> torch.Tensor:
+    """x = (LU)^{-1} b over the level-major arrays of a TriangularPlan, for
+    b of shape (n,) or (nb, n); one block per right-hand side. Checks the
+    plan and reckons its windows on every call (:class:`TriSolveWavefront`
+    does so once)."""
+    if not isinstance(out_perm, torch.Tensor):
+        raise TypeError("tri_solve_wavefront out_perm: expected a torch.Tensor")
+    _rhs("tri_solve_wavefront b", b, out_perm.shape[0], out_perm.device)
+    return TriSolveWavefront(l_cols, l_vals, l_rhs_idx, u_cols, u_vals, u_diag, u_rhs_idx,
+                             out_perm, max_window=max_window)(b)
 
 
 def inverse_chain(w_cols: torch.Tensor, w_vals: torch.Tensor, z_cols: torch.Tensor,
@@ -254,19 +434,20 @@ def superstep_factor(state: torch.Tensor, sched: torch.Tensor, s: int, piv_addr:
     if s_loc % band_rows or s_loc >= srows or n_bands != (s_loc // band_rows) * n_own:
         raise ValueError(f"superstep_factor: {n_bands} bands of {band_rows} rows do not fill "
                          f"{n_own} owners of {s_loc} local rows")
-    if band_rows * w * 4 > _MAX_SMEM:  # the band's values live in shared memory
-        raise ValueError(f"superstep_factor: a {band_rows} x {w} band does not fit in shared "
-                         "memory")
-    if mpd > _MAX_GRID_Y:
-        raise ValueError(f"superstep_factor: at most {_MAX_GRID_Y} bands per owner and "
-                         f"superstep, got {mpd}")
     if not _route(dev):
         return state.copy_(ref.superstep_factor_ref(state, sched, s, piv_addr, piv_dlane,
                                                     piv_dst, n_piv, n_bands, band_rows))
+    if mpd > _MAX_GRID_Y:
+        raise ValueError(f"superstep_factor: at most {_MAX_GRID_Y} bands per owner and "
+                         f"superstep, got {mpd}")
     if n_own and mpd:
+        # a band that fits is factored in shared memory, a wider one in
+        # place in ``state``: the same kernel body, the same bits
+        in_smem = int(band_rows * w * 4 <= _MAX_SMEM)
         _launch("superstep_factor_launch", dev, state.data_ptr(), sched.data_ptr(),
                 piv_addr.data_ptr(), piv_dlane.data_ptr(), piv_dst.data_ptr(),
-                n_piv.data_ptr(), s, n_own, mpd, srows, s_loc, band_rows, w, mp, n_bands)
+                n_piv.data_ptr(), s, n_own, mpd, srows, s_loc, band_rows, w, mp, n_bands,
+                in_smem)
         superstep_factor.launches += 1
     return state
 
@@ -334,24 +515,15 @@ def panel_update(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     return o
 
 
-_trsm_max_bs = {}  # (kernel name, device index) -> the largest bs its block fits
+_MAX_TILE_BS = 256  # the tile kernels' limit: 8 accumulators of 32 lanes in the solves
 
 
-def _trsm_fits(name: str, bs: int, device: torch.device) -> None:
-    """Refuse a bs whose block does not fit in shared memory, with the
-    limit that ``trsm.cu`` reckons from its own layout and the device."""
-    key = (name, device.index)
-    if key not in _trsm_max_bs:
-        from .build import load
-
-        with torch.cuda.device(device):
-            limit = load().trsm_max_bs(int(name == "trsm_left_unit_lower"))
-        if limit < 0:
-            raise RuntimeError(f"{name}: cannot read the shared memory of {device}")
-        _trsm_max_bs[key] = limit
-    if bs > _trsm_max_bs[key]:
-        raise ValueError(f"{name}: bs={bs} does not fit: the kernel holds the triangle in "
-                         f"shared memory, which takes bs <= {_trsm_max_bs[key]}")
+def _tile_fits(name: str, bs: int) -> None:
+    """Refuse a tile larger than the tile kernels take. Below the limit a
+    triangle or tile too large for shared memory is read in place from
+    device memory, by a variant of the same kernel."""
+    if bs > _MAX_TILE_BS:
+        raise ValueError(f"{name}: bs={bs} is too large: the kernels take bs <= {_MAX_TILE_BS}")
 
 
 def _slot_list(name: str, pool: torch.Tensor, diag_slot: int, slots: torch.Tensor) -> int:
@@ -395,7 +567,7 @@ def trsm_right_upper(a: torch.Tensor, u: torch.Tensor, out: torch.Tensor = None)
     o = _output("trsm_right_upper", out, (m, bs), dev, (u,))
     if not _route(dev):
         return _plain(ref.trsm_right_upper_ref(a, u), out)
-    _trsm_fits("trsm_right_upper", bs, dev)
+    _tile_fits("trsm_right_upper", bs)
     if m and bs:
         _launch("trsm_right_upper_launch", dev, a.data_ptr(), u.data_ptr(), o.data_ptr(), None,
                 0, 0, 1, m, bs)
@@ -413,7 +585,7 @@ def trsm_right_upper_slots(pool: torch.Tensor, diag_slot: int,
     bs = _slot_list("trsm_right_upper_slots", pool, diag_slot, slots)
     if not _route(pool.device):
         return ref.trsm_right_upper_slots_ref(pool, diag_slot, slots)
-    _trsm_fits("trsm_right_upper", bs, pool.device)
+    _tile_fits("trsm_right_upper", bs)
     if slots.shape[0] and bs:
         base = pool.data_ptr()
         _launch("trsm_right_upper_launch", pool.device, base, base + diag_slot * bs * bs * 4,
@@ -433,7 +605,7 @@ def trsm_left_unit_lower(l: torch.Tensor, a: torch.Tensor,
     o = _output("trsm_left_unit_lower", out, (bs, n), dev, (l,))
     if not _route(dev):
         return _plain(ref.trsm_left_unit_lower_ref(l, a), out)
-    _trsm_fits("trsm_left_unit_lower", bs, dev)
+    _tile_fits("trsm_left_unit_lower", bs)
     if n and bs:
         _launch("trsm_left_unit_lower_launch", dev, l.data_ptr(), a.data_ptr(), o.data_ptr(),
                 None, 0, 0, 1, bs, n)
@@ -451,7 +623,7 @@ def trsm_left_unit_lower_slots(pool: torch.Tensor, diag_slot: int,
     bs = _slot_list("trsm_left_unit_lower_slots", pool, diag_slot, slots)
     if not _route(pool.device):
         return ref.trsm_left_unit_lower_slots_ref(pool, diag_slot, slots)
-    _trsm_fits("trsm_left_unit_lower", bs, pool.device)
+    _tile_fits("trsm_left_unit_lower", bs)
     if slots.shape[0] and bs:
         base = pool.data_ptr()
         _launch("trsm_left_unit_lower_launch", pool.device, base + diag_slot * bs * bs * 4,
@@ -471,8 +643,7 @@ def tile_lu(t: torch.Tensor, out: torch.Tensor = None) -> torch.Tensor:
     o = _output("tile_lu", out, (bs, bs), dev)
     if not _route(dev):
         return _plain(ref.tile_lu_nopiv_ref(t), out)
-    if bs * (bs + 1) * 4 > _MAX_SMEM:  # the kernel keeps the padded tile in shared memory
-        raise ValueError(f"tile_lu: a {bs} x {bs} tile does not fit in shared memory")
+    _tile_fits("tile_lu", bs)
     if bs:
         _launch("tile_lu_launch", dev, t.data_ptr(), o.data_ptr(), bs)
         tile_lu.launches += 1
