@@ -32,10 +32,14 @@ with a non-zero exit; nothing is caught):
    list, in place on a pool of the path's size; the bf16 panel update to
    a stated bound; times beside the bound (bytes, and the solves' chain of
    bs steps), the left-looking solves' earlier times, and cuBLAS/cuSOLVER
-   calls on one tile and on the pivot's 4 tiles as one panel.
-   [large-tiles]: the tile kernels at bs = 241 and 256, whose triangle or
-   tile does not fit in shared memory, bitwise against their plain
-   versions.
+   calls on one tile and on the pivot's 4 tiles as one panel. The grouped
+   panel update (one launch for a pivot's 16 products) bitwise equal to
+   one single call per product; each library call's device time from the
+   trace, and kernel and library call timed in turns; tile_lu's chain
+   floor (its count exchanges alone).
+   [large-tiles]: the tile kernels at bs = 241, 256, 300 and 512, whose
+   triangle or tile does not fit in shared memory, bitwise against their
+   plain versions; tile_lu's device time and chain floor at each.
 3. factors — the factor values equal the sequential oracle
    ``numeric_ilu_ref``, bitwise, on ``convection_diffusion_2d(32)`` and
    ``poisson_2d(64)`` at k = 0, 1, 2. 3b: the inverse values W/Z computed
@@ -57,12 +61,13 @@ with a non-zero exit; nothing is caught):
    versions) give the same ``x`` bitwise and the same iteration counts, on
    ``poisson_2d(64)`` and ``convection_diffusion_2d(32)``: the sweep, the
    inverse chain, and a batch of three with per-lane tolerances.
-8. bilu — Block-ILU(1) of ``poisson_2d(400)`` at bs = 128, 32 and 256
-   (``repro_torch.core.bilu.bilu``): the host plan and numeric walls, and
-   the numeric phase once more under torch.profiler (device busy share);
-   the launches of the four tile kernels equal the counts reckoned here from
-   the tile pattern (one left and one right solve per pivot, beside the
-   tiles they solve); the pool is bitwise equal to the per-tile order run
+8. bilu — Block-ILU(1) of ``poisson_2d(400)`` at bs = 128, 32, 256 and
+   512 (``repro_torch.core.bilu.bilu``): the host plan and numeric walls,
+   and the numeric phase once more under torch.profiler (device busy
+   share); the launches of the four tile kernels equal the counts reckoned
+   here from the tile pattern (one left and one right solve and one
+   grouped panel update per pivot, beside the tiles and products they
+   handle); the pool is bitwise equal to the per-tile order run
    through the single-tile kernels on the card; the tile-wise LU residual,
    in float64 on the card over every kept tile, is <= 1e-4·max|A|; every
    scalar ILU(1) position lies in a kept tile. On ``poisson_2d(64)`` the
@@ -122,6 +127,12 @@ PREVIOUS_MS = {
 # the left-looking tile solves' (ms per call, device ms) at (128, 128) on an
 # NVIDIA H100 80GB HBM3 at 700 W (PERF.md), printed beside the new ones
 PREVIOUS_TRSM_MS = {"trsm_right_upper": (0.1950, 0.1441), "trsm_left_unit_lower": (0.2249, 0.1513)}
+# the tile kernels this design replaced: device ms per call at (128, 128) on
+# an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, r2 of PR 16), and tile_lu's
+# device ms per launch on path C at bs = 256 (r1 of PR 16); printed in the
+# [tiles] and [large-tiles] text lines only
+PREVIOUS_TILE_MS = {"panel_update": 0.0112, "panel_update_bf16": 0.0116, "tile_lu": 0.1330,
+                    "tile_lu_bs256": 0.979}
 DISTRIBUTED_KERNELS = ("epoch_sweep", "superstep_factor")
 SHARDED_D = 4  # band owners of the distributed path, on one card
 BAND_ROWS = 32  # rows per band (the JAX package's default)
@@ -249,6 +260,29 @@ def device_ms_per_call(fn, launches, reps=10, attempts=3):
                 means[k] = sum(us) / len(us)
         if len(means) == len(launches):
             return sum(means[k] * launches[k] for k in launches) / 1e3
+    return None
+
+
+def device_ms_all(fn, reps=20, attempts=3):
+    """Device time (ms) per call of ``fn``, summed over every device event
+    of its calls (kernels, copies, fills) in a torch.profiler trace of
+    ``reps`` calls: for a library call, whose kernels' names are not known
+    here. None if no trace of ``attempts`` holds an event (each attempt
+    traces four times as many calls as the one before; see device_ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(attempts):
+        calls = reps * 4 ** attempt
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = [t for _, t in kernel_events(prof)]
+        if us:
+            return sum(us) / calls / 1e3
     return None
 
 
@@ -536,18 +570,21 @@ def phase_sweep_window(dev, nx=400):
                 + "nb=3 and single bitwise equal to plain")
 
 
-def phase_large_tiles(dev, sizes=(241, 256)):
+def phase_large_tiles(dev, sizes=(241, 256, 300, 512)):
     """[large-tiles]: the tile kernels at sizes whose triangle or tile does
     not fit in the shared memory of one block (the variants that read it in
     place), bitwise against their plain versions: tile_lu (out of place and
-    in place), both solves, and both batched solves on 3 tiles."""
+    in place), both solves, and both batched solves on 3 tiles; tile_lu's
+    device time and chain floor at each size."""
     import numpy as np
     import torch
 
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import build, ops, ref
 
     rng = np.random.default_rng(SEED + 9)
     on = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    lib = build.load()
+    sink = torch.zeros(1, dtype=torch.int32, device=dev)
     for bs in sizes:
         t = on(dominant_tile(rng, bs))
         packed = ops.tile_lu(t)
@@ -570,8 +607,21 @@ def phase_large_tiles(dev, sizes=(241, 256)):
             got = getattr(ops, f"{name}_slots")(pool.clone(), 1, slots)
             require(bits_equal(got, getattr(ref, f"{name}_slots_ref")(pool.clone(), 1, slots)),
                     f"{name}_slots at bs={bs} != plain version")
-        say(f"[large-tiles] bs={bs}: tile_lu ({bs * (bs + 1) * 4} B padded tile), the two "
-            f"solves ({bs * bs * 4} B triangle) and their batched forms bitwise equal to plain")
+        lu_ms = device_ms(lambda: ops.tile_lu(t), "tile_lu_kernel", reps=5)
+
+        def lu_floor():
+            err = lib.tile_lu_chain_floor_launch(bs, sink.data_ptr(),
+                                                 torch.cuda.current_stream().cuda_stream)
+            require(err == 0, f"the tile_lu chain floor kernel did not launch (CUDA error {err})")
+
+        floor_ms = device_ms(lu_floor, "tile_lu_chain_floor_kernel", reps=5)
+        was = PREVIOUS_TILE_MS.get(f"tile_lu_bs{bs}")
+        say(f"[large-tiles] bs={bs}: tile_lu ({bs * bs * 4} B tile), the two solves "
+            f"({bs * bs * 4} B triangle) and their batched forms bitwise equal to plain; "
+            "tile_lu device "
+            + ("not measured" if lu_ms is None else f"{lu_ms:.4f} ms")
+            + (f" (the earlier design's {was:.3f} ms on path C)" if was else "")
+            + ", chain floor " + ("not measured" if floor_ms is None else f"{floor_ms:.4f} ms"))
 
 
 def wide_band_matrix(n=2100, seed=0):
@@ -937,13 +987,17 @@ def phase_tile_kernels(dev, bs=BS_TILE, nx=400):
     (bs, bs) shapes against their plain versions on the card (bitwise, but
     the panel product, which is held to 2·K·2^-24·(|C| + |A||B|) of a float64
     product), each at ragged shapes too; the batched tile solves on a real
-    pivot's slot list of path C, in place on a pool; the bf16 panel update;
-    then their times beside the bound and a PyTorch yardstick (cuBLAS,
-    cuSOLVER), timed and never used."""
+    pivot's slot list of path C, in place on a pool; the grouped panel
+    update on path C's pivot with the most products (16) against one single
+    call per product, bitwise; the bf16 panel update; then their times
+    beside the bound and a PyTorch yardstick (cuBLAS, cuSOLVER), timed and
+    never used: per call, device time from the trace, and the two in turns
+    (200 each); tile_lu's chain floor."""
     import numpy as np
     import torch
 
-    from repro_torch.kernels import ops, ref
+    from repro_torch.core import bilu as bilu_mod
+    from repro_torch.kernels import build, ops, ref
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain product and addmm in float32
     rng = np.random.default_rng(SEED + 5)
@@ -1043,15 +1097,62 @@ def phase_tile_kernels(dev, bs=BS_TILE, nx=400):
                              batched_library_ms=time_ms(lib, reps=50),
                              batched_library="one solve_triangular on the 4 tiles as one panel")
 
-    def row(name, source, replaces, fn, plain, lib, nbytes, nops, got, want,
+    # the grouped panel update on the pivot of path C with the most products
+    # (16 at bs = 128), in place on a pool of the path's size, against one
+    # single call per product on the same tiles (bitwise); its yardstick is
+    # one torch.baddbmm over the pivot's tiles gathered beforehand
+    p_ptr, p_l, p_u, p_dst = bilu_mod._pivot_products(tpat, (u_ptr, u_slots, l_ptr, l_slots,
+                                                             diag))
+    gpiv = int(np.argmax(np.diff(p_ptr)))
+    gs, ge = int(p_ptr[gpiv]), int(p_ptr[gpiv + 1])
+    glists = (p_l[gs:ge], p_u[gs:ge], p_dst[gs:ge])
+    gpool = torch.zeros((tpat.nnz, bs, bs), dtype=torch.float32, device=dev)
+    touched = np.unique(np.concatenate(glists))
+    gpool[on(touched)] = on(rng.standard_normal((touched.size, bs, bs)).astype(np.float32))
+    gl, gu, gd = (on(x.astype(np.int32)) for x in glists)
+    single = gpool.clone()
+    for l, u, d in zip(*(x.tolist() for x in glists)):
+        ops.panel_update(single[d], single[l], single[u], out=single[d])
+    got = ops.panel_update_slots(gpool.clone(), gl, gu, gd)
+    require(bits_equal(got, single), f"panel_update_slots on pivot {gpiv}'s {ge - gs} products "
+            "!= one single call per product (or a tile it does not list changed)")
+    del got, single
+    gathered = [gpool[x.long()] for x in (gd, gl, gu)]
+    grun = lambda: ops.panel_update_slots(gpool, gl, gu, gd)  # noqa: E731
+    glib = lambda: torch.baddbmm(*gathered, alpha=-1)  # noqa: E731
+    g_bytes = (np.unique(glists[0]).size + np.unique(glists[1]).size + 2 * (ge - gs)) * bs * bs * 4
+    g_bound, g_by = bound(g_bytes, (ge - gs) * (2 * bs ** 3 + bs * bs))
+    g_turns = time_pair_ms(grun, glib, reps=200)
+    grouped = dict(grouped_pivot=gpiv, grouped_products=ge - gs, grouped_ms=time_ms(grun, 50),
+                   grouped_device_ms=device_ms(grun, "panel_update_kernel", reps=20),
+                   grouped_bound_ms=g_bound, grouped_bound_by=g_by,
+                   grouped_library="torch.baddbmm(c, l, u, alpha=-1) over the gathered tiles",
+                   grouped_library_ms=time_ms(glib, 50),
+                   grouped_library_device_ms=device_ms_all(glib),
+                   grouped_turns_ms=g_turns[0], grouped_turns_library_ms=g_turns[1])
+    del gpool, gathered
+
+    # tile_lu's chain floor: the same rows, warps and count exchanges with
+    # no arithmetic
+    lib = build.load()
+    sink = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def lu_floor():
+        err = lib.tile_lu_chain_floor_launch(bs, sink.data_ptr(),
+                                             torch.cuda.current_stream().cuda_stream)
+        require(err == 0, f"the tile_lu chain floor kernel did not launch (CUDA error {err})")
+
+    def row(name, source, replaces, fn, plain, lib, nbytes, nops, got, want, kernel,
             flop_per_s=F32_FLOP_PER_S, **extra):
         b_ms, b_by = bound(nbytes, nops, flop_per_s)
+        turns = time_pair_ms(fn, lib, reps=200)
         return dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{source}",
                     replaces=replaces, launches=0, max_abs_err=max_abs_err(got, want),
                     ms=time_ms(fn, reps=50), plain_ms=time_ms(plain, reps=3), bound_ms=b_ms,
                     bound_by=b_by, library_ms=time_ms(lib, reps=50),
-                    device_ms=device_ms(fn, f"{name.removesuffix('_bf16')}_kernel", reps=20),
-                    **extra)
+                    device_ms=device_ms(fn, kernel, reps=20),
+                    library_device_ms=device_ms_all(lib), turns_ms=turns[0],
+                    turns_library_ms=turns[1], **extra)
 
     tri = bs * (bs + 1) // 2
     ha, hb, hc = (x.to(torch.bfloat16) for x in (a, b, c))
@@ -1060,21 +1161,24 @@ def phase_tile_kernels(dev, bs=BS_TILE, nx=400):
             "panel_update", "panel_update.cu", "src/repro/kernels/panel_update.py:61",
             lambda: ops.panel_update(c, a, b), lambda: ref.panel_update_ref(c, a, b),
             lambda: torch.addmm(c, a, b, alpha=-1), 4 * 4 * bs * bs, 2 * bs ** 3 + bs * bs,
-            ops.panel_update(c, a, b), ref.panel_update_ref(c, a, b),
-            library="torch.addmm(c, a, b, alpha=-1), TF32 off"),
+            ops.panel_update(c, a, b), ref.panel_update_ref(c, a, b), "panel_update_kernel",
+            library="torch.addmm(c, a, b, alpha=-1), TF32 off", **grouped),
         "panel_update_bf16": row(
             "panel_update_bf16", "panel_update.cu", "src/repro/kernels/panel_update.py:61",
             lambda: ops.panel_update(hc, ha, hb), lambda: ref.panel_update_ref(hc, ha, hb),
             lambda: torch.addmm(hc, ha, hb, alpha=-1), 4 * 2 * bs * bs, 2 * bs ** 3 + bs * bs,
             ops.panel_update(hc, ha, hb), ref.panel_update_ref(hc, ha, hb),
-            flop_per_s=BF16_FLOP_PER_S, library="torch.addmm(c, a, b, alpha=-1) in bf16",
-            note="the bf16 form (bf16 inputs and output, float32 sums); no path runs it"),
+            "panel_update_mma_kernel", flop_per_s=BF16_FLOP_PER_S,
+            library="torch.addmm(c, a, b, alpha=-1) in bf16",
+            note="the bf16 form (bf16 inputs and output, float32 sums on the tensor cores); "
+                 "no path runs it"),
         "trsm_right_upper": row(
             "trsm_right_upper", "trsm.cu", "src/repro/kernels/tri_solve.py:59",
             lambda: ops.trsm_right_upper(a, packed), lambda: ref.trsm_right_upper_ref(a, packed),
             lambda: torch.linalg.solve_triangular(packed, a, upper=True, left=False),
             4 * (2 * bs * bs + tri), bs * (bs * bs + bs),
             ops.trsm_right_upper(a, packed), ref.trsm_right_upper_ref(a, packed),
+            "trsm_right_upper_kernel",
             library="torch.linalg.solve_triangular(u, a, upper=True, left=False)",
             **batched["trsm_right_upper"]),
         "trsm_left_unit_lower": row(
@@ -1084,25 +1188,51 @@ def phase_tile_kernels(dev, bs=BS_TILE, nx=400):
             lambda: torch.linalg.solve_triangular(packed, a, upper=False, unitriangular=True),
             4 * (2 * bs * bs + tri - bs), bs * bs * bs,
             ops.trsm_left_unit_lower(packed, a), ref.trsm_left_unit_lower_ref(packed, a),
+            "trsm_left_unit_lower_kernel",
             library="torch.linalg.solve_triangular(l, a, upper=False, unitriangular=True)",
             **batched["trsm_left_unit_lower"]),
         "tile_lu": row(
             "tile_lu", "tile_lu.cu", "src/repro/core/bilu.py:83", lambda: ops.tile_lu(t),
             lambda: ref.tile_lu_nopiv_ref(t), lambda: torch.linalg.lu_factor(t, pivot=False),
             4 * 2 * bs * bs, sum(w + 2 * w * w for w in range(bs)), packed,
-            ref.tile_lu_nopiv_ref(t), port_only=True,
+            ref.tile_lu_nopiv_ref(t), "tile_lu_kernel", port_only=True,
             note="no TPU kernel: the JAX package runs _lu_nopiv as plain JAX",
-            library="torch.linalg.lu_factor(t, pivot=False)"),
+            library="torch.linalg.lu_factor(t, pivot=False)", chain_steps=bs,
+            chain_floor_device_ms=device_ms(lu_floor, "tile_lu_chain_floor_kernel", reps=20)),
     }
     for r in rows.values():
-        dms = "not measured" if r["device_ms"] is None else f"{r['device_ms']:.4f} ms"
+        dms, ldms = ("not measured" if v is None else f"{v:.4f} ms"
+                     for v in (r["device_ms"], r["library_device_ms"]))
+        was = PREVIOUS_TILE_MS.get(r["name"])
         say(f"[tiles] {r['name']} ({bs}, {bs}): "
             + (f"within the tolerance above of float64, max |diff| to plain "
                f"{r['max_abs_err']:.3e}" if r["name"].startswith("panel_update")
                else "bitwise equal to plain")
-            + f"; {r['ms']:.4f} ms per call (device {dms}; plain {r['plain_ms']:.3f} ms, "
-            f"bound {r['bound_ms']:.5f} ms by {r['bound_by']}, library {r['library_ms']:.4f} ms"
-            f" = {r['library']})")
+            + f"; {r['ms']:.4f} ms per call (device {dms}"
+            + (f", the earlier design's {was:.4f} ms" if was else "")
+            + f"; plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.5f} ms by "
+            f"{r['bound_by']}); library {r['library_ms']:.4f} ms per call, device {ldms} "
+            f"({r['library']}); in turns, 200 each: {r['turns_ms']:.4f} ms against "
+            f"{r['turns_library_ms']:.4f} ms")
+    r = rows["panel_update"]
+    gdms, gldms = ("not measured" if v is None else f"{v:.4f} ms"
+                   for v in (r["grouped_device_ms"], r["grouped_library_device_ms"]))
+    say(f"[tiles] panel_update_slots: pivot {r['grouped_pivot']}'s {r['grouped_products']} "
+        f"({bs}, {bs})^2 products in one launch, bitwise equal to one single call each, in "
+        f"place; {r['grouped_ms']:.4f} ms per call (device {gdms}; bound "
+        f"{r['grouped_bound_ms']:.5f} ms by {r['grouped_bound_by']}); library "
+        f"{r['grouped_library_ms']:.4f} ms per call, device {gldms} ({r['grouped_library']}); "
+        f"in turns, 200 each: {r['grouped_turns_ms']:.4f} ms against "
+        f"{r['grouped_turns_library_ms']:.4f} ms")
+    r = rows["tile_lu"]
+    if r["device_ms"] is not None:
+        r["us_per_row_step"] = r["device_ms"] * 1e3 / bs
+    fl = r["chain_floor_device_ms"]
+    say(f"[tiles] tile_lu: a chain of {bs} rows, "
+        + ("device time not measured" if r["device_ms"] is None
+           else f"{r['us_per_row_step']:.4f} us per row")
+        + "; chain floor (the count exchanges alone) "
+        + ("not measured" if fl is None else f"{fl:.4f} ms"))
     for name, was in PREVIOUS_TRSM_MS.items():
         r = rows[name]
         if r["device_ms"] is not None:
@@ -1123,10 +1253,11 @@ def bilu_schedule(fact):
     """What the factorization must have done, reckoned from its tile
     pattern alone: the launches of each tile kernel (a tile LU per pivot;
     one left and one right solve per pivot that has U or L tiles, each
-    solving all of them; a panel update per product), the tiles each kind
-    of solve handles, and every product L_IK U_KJ (K <= min(I, J)) that
-    adds up to a kept tile (I, J), as slot triples (slot of L_IK, slot of
-    U_KJ, slot of (I, J))."""
+    solving all of them; one panel update per pivot that has products, each
+    running all of them), the tiles each kind of solve handles and the
+    products (``panel_update``), and every product L_IK U_KJ
+    (K <= min(I, J)) that adds up to a kept tile (I, J), as slot triples
+    (slot of L_IK, slot of U_KJ, slot of (I, J))."""
     import numpy as np
 
     tpat, index = fact.tile_pattern, fact.tile_index
@@ -1140,16 +1271,20 @@ def bilu_schedule(fact):
               "trsm_left_unit_lower": int(np.unique(rows[upper]).size),
               "trsm_right_upper": int(np.unique(tpat.indices[lower]).size),
               "panel_update": 0}
-    solved = {"trsm_left_unit_lower": int(upper.sum()), "trsm_right_upper": int(lower.sum())}
+    solved = {"trsm_left_unit_lower": int(upper.sum()), "trsm_right_upper": int(lower.sum()),
+              "panel_update": 0}
     triples = []
     for k in range(nt):
         cols = [int(j) for j in tpat.indices[tpat.indptr[k]:tpat.indptr[k + 1]] if j >= k]
+        products = 0
         for i in [k] + below[k]:
             for j in cols:
                 dst = index.get((i, j))
                 if dst is not None:
                     triples.append((index[(i, k)], index[(k, j)], dst))
-                    counts["panel_update"] += i > k and j > k
+                    products += i > k and j > k
+        counts["panel_update"] += products > 0
+        solved["panel_update"] += products
     return counts, solved, np.array(triples, np.int64)
 
 
@@ -1250,7 +1385,7 @@ def phase_bilu(dev, bs, nx=400):
         f"{fact.numeric_seconds:.3f} s ({sum(counts[k] for k in TILE_KERNELS)} tile launches,"
         f" {fact.numeric_seconds * 1e6 / max(1, sum(counts[k] for k in TILE_KERNELS)):.1f} us"
         f" each); reckoned from the pattern in {reckon_s:.3f} s: launches {json.dumps(want)}, "
-        f"tiles solved {json.dumps(solved)}")
+        f"tiles solved and products {json.dumps(solved)}")
     check_launches(tag, counts, TILE_KERNELS,
                    idle=("spmv_ell", "factor_wavefront", "tri_solve_wavefront", "inverse_chain"))
     for name in TILE_KERNELS:
@@ -1281,13 +1416,18 @@ def phase_bilu(dev, bs, nx=400):
         f"({solved['trsm_left_unit_lower'] + solved['trsm_right_upper']} single solves, "
         f"{per_tile_s:.3f} s with its scatter)")
     del per_tile
-    profile_bilu(tag, a, bs, dev)
+    busy = profile_bilu(tag, a, bs, dev)
+    say(f"[{tag}] panel_update: {counts['panel_update']} grouped launches for "
+        f"{solved['panel_update']} tile products ({fact.numeric_seconds:.3f} s numeric, "
+        f"{sum(counts[k] for k in TILE_KERNELS)} tile launches, device busy {busy:.1f}% in "
+        "the profiled run)")
     return counts
 
 
 def profile_bilu(tag, a, bs, dev):
     """Where the numeric phase's time goes: the same factorization again
-    under torch.profiler; device busy = the sum of kernel durations."""
+    under torch.profiler; device busy = the sum of kernel durations.
+    Returns the busy share of the numeric wall, in percent."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1308,6 +1448,7 @@ def profile_bilu(tag, a, bs, dev):
         f"({100 * busy / fact.numeric_seconds:.1f}% of the numeric wall)")
     for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]:
         say(f"[profile {tag}]   {t:.4f} s in {n} launches of {name}")
+    return 100 * busy / fact.numeric_seconds
 
 
 def phase_bilu_card_vs_cpu(dev, nx=64, bs=32):
@@ -1802,7 +1943,7 @@ def run(oracles):
     by_path["main-inverse"], inv_single = phase_main_inverse(dev, b)
     by_path["multi-rhs"] = phase_multi_rhs(dev, b, single, single_wall)
     phase_card_vs_cpu(dev)
-    for bs in (BS_TILE, 32, 256):
+    for bs in (BS_TILE, 32, 256, 512):
         by_path[f"bilu-bs{bs}"] = phase_bilu(dev, bs)
     phase_bilu_card_vs_cpu(dev)
     by_path["cg"] = phase_cg(dev, b)

@@ -13,20 +13,23 @@ a block right-looking LU restricted to that tile pattern:
 On a GPU each runs as its CUDA kernel, on the CPU as its plain PyTorch
 version (:mod:`repro_torch.kernels.ops`). The tiles live in one
 ``(T, bs, bs)`` float32 pool on the device, and every kernel reads and
-writes slots of it in place. Per pivot there are four kinds of launch: the
-tile LU, one left solve of all the pivot's U tiles, one right solve of all
-its L tiles (the batched ``*_slots`` forms, over slot lists built on the
-host once and copied to the device once), then the panel updates, J
-ascending and within J the column T ascending.
+writes slots of it in place. Per pivot there are at most four launches:
+the tile LU, one left solve of all the pivot's U tiles, one right solve of
+all its L tiles (the batched ``*_slots`` forms), then one launch of all
+its panel updates (``ops.panel_update_slots``), J ascending and within J
+the column T ascending. The slot lists of every pivot are built on the
+host once per factorization, checked there once and copied to the device
+once.
 
 The JAX loop runs each right solve just before that tile row's panel
-updates; here every right solve of pivot I runs before pivot I's updates.
-Every tile still sees the same sequence of operations, so the bits are
-those of the per-tile order: a right solve reads only the diagonal tile
-and its own tile (J, I), and pivot I's updates write only tiles (J, T)
-with T > I, never column I. The panel products sum in another order than
-XLA's, so the tiles agree with the JAX package's to a tolerance, not
-bitwise.
+updates, and the updates one by one; here every right solve of pivot I
+runs before pivot I's updates, and the updates run side by side. Every
+tile still sees the same sequence of operations, so the bits are those of
+the per-tile order: a right solve reads only the diagonal tile and its own
+tile (J, I), and pivot I's updates write only tiles (J, T) with J, T > I,
+never a tile of row or column I, which are all that they read besides
+their own. The panel products sum in another order than XLA's, so the
+tiles agree with the JAX package's to a tolerance, not bitwise.
 
 BILU(k) is a different (denser) preconditioner than scalar ILU(k): it
 keeps every scalar ILU(k) position plus the rest of each kept tile.
@@ -155,32 +158,66 @@ def _pivot_lists(tpat: ILUPattern):
     return u_ptr, u_slots, l_ptr, l_slots, diag
 
 
-def _factor_pool(pool: torch.Tensor, tpat: ILUPattern, index) -> None:
+def _pivot_products(tpat: ILUPattern, lists):
+    """Every pivot's tile products A_JT -= L_JI U_IT, CSR-style over the
+    pivots: pivot I's are ``p_l/p_u/p_dst[p_ptr[I]:p_ptr[I + 1]]``, the
+    slots of L_JI, U_IT and (J, T), J ascending and within J the column T
+    ascending (so dst ascends), for every kept (J, T) with (J, I) and
+    (I, T) kept; fill outside the tile pattern is dropped. ``lists`` is
+    :func:`_pivot_lists`'s result. Checked here, once, for one launch per
+    pivot: every slot lies in the pool, dst ascends strictly within a
+    pivot, and every dst lies below and right of its pivot (J, T > I), so
+    it is no tile of row or column I, which hold all the pivot's L and U
+    tiles."""
+    u_ptr, u_slots, l_ptr, l_slots, _ = lists
+    nt = tpat.n
+    rows, cols = _tile_rows(tpat), tpat.indices.astype(np.int64)
+    nl, nu = np.diff(l_ptr), np.diff(u_ptr)
+    count = nl * nu  # candidate products per pivot
+    piv = np.repeat(np.arange(nt, dtype=np.int64), count)
+    q = np.arange(piv.size, dtype=np.int64) - np.repeat(np.cumsum(count) - count, count)
+    ls = l_slots[l_ptr[piv] + q // nu[piv]]
+    us = u_slots[u_ptr[piv] + q % nu[piv]]
+    keys = rows * nt + cols  # ascending: the pool's CSR order
+    want = rows[ls] * nt + cols[us]
+    at = np.minimum(np.searchsorted(keys, want), keys.size - 1)
+    kept = keys[at] == want
+    piv, ls, us, ds = piv[kept], ls[kept], us[kept], at[kept]
+    p_ptr = np.concatenate([[0], np.cumsum(np.bincount(piv, minlength=nt))])
+    same = piv[1:] == piv[:-1]
+    if (ds.size and (min(ls.min(), us.min(), ds.min()) < 0
+                     or max(ls.max(), us.max(), ds.max()) >= tpat.nnz)
+            or np.any(ds[1:][same] <= ds[:-1][same])
+            or np.any(cols[ls] != piv) or np.any(rows[us] != piv)
+            or np.any(rows[ds] <= piv) or np.any(cols[ds] <= piv)):
+        raise ValueError("a pivot's product list cannot run in one launch")
+    return p_ptr, ls, us, ds
+
+
+def _factor_pool(pool: torch.Tensor, tpat: ILUPattern) -> None:
     """The numeric phase, in place on the pool (see the module docstring
     for the order and why the bits are those of the per-tile order)."""
-    u_ptr, u_slots, l_ptr, l_slots, diag = _pivot_lists(tpat)
-    u_ptr, l_ptr, diag = u_ptr.tolist(), l_ptr.tolist(), diag.tolist()
-    rows, cols = _tile_rows(tpat), tpat.indices
-    dev_u = torch.as_tensor(u_slots.astype(np.int32), device=pool.device)
-    dev_l = torch.as_tensor(l_slots.astype(np.int32), device=pool.device)
+    lists = _pivot_lists(tpat)
+    u_ptr, u_slots, l_ptr, l_slots, diag = lists
+    p_ptr, p_l, p_u, p_dst = _pivot_products(tpat, lists)
+    u_ptr, l_ptr, p_ptr, diag = u_ptr.tolist(), l_ptr.tolist(), p_ptr.tolist(), diag.tolist()
+    on = lambda x: torch.as_tensor(x.astype(np.int32), device=pool.device)  # noqa: E731
+    dev_u, dev_l, dev_pl, dev_pu, dev_pd = map(on, (u_slots, l_slots, p_l, p_u, p_dst))
     tiles = pool.unbind(0)  # one view per slot, made once: the loop indexes a tuple
     for i in range(tpat.n):  # pivot tile row, ascending (right-looking)
         d = diag[i]
         ops.tile_lu(tiles[d], out=tiles[d])
         # the packed tile serves as both triangles: the solves read only
         # the strict lower (L, unit diagonal implicit) or the upper part (U)
-        us, ue, ls, le = u_ptr[i], u_ptr[i + 1], l_ptr[i], l_ptr[i + 1]
+        us, ue = u_ptr[i], u_ptr[i + 1]
+        ls, le = l_ptr[i], l_ptr[i + 1]
+        ps, pe = p_ptr[i], p_ptr[i + 1]
         if ue > us:
             ops.trsm_left_unit_lower_slots(pool, d, dev_u[us:ue])
         if le > ls:
             ops.trsm_right_upper_slots(pool, d, dev_l[ls:le])
-        urow = [(int(cols[s]), int(s)) for s in u_slots[us:ue]]
-        for lj in l_slots[ls:le].tolist():
-            jrow = int(rows[lj])
-            for t, ut in urow:
-                dst = index.get((jrow, t))
-                if dst is not None:  # fill outside the level-k tile pattern is dropped
-                    ops.panel_update(tiles[dst], tiles[lj], tiles[ut], out=tiles[dst])
+        if pe > ps:
+            ops.panel_update_slots(pool, dev_pl[ps:pe], dev_pu[ps:pe], dev_pd[ps:pe])
 
 
 def bilu(a: CSRMatrix, k: int, bs: int = 32, rule: str = "sum",
@@ -195,7 +232,7 @@ def bilu(a: CSRMatrix, k: int, bs: int = 32, rule: str = "sum",
     index = _index_of(tpat)
     t1 = time.perf_counter()
     pool = _scatter_a(a, tpat, bs, dev)
-    _factor_pool(pool, tpat, index)
+    _factor_pool(pool, tpat)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t2 = time.perf_counter()

@@ -33,7 +33,7 @@ BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 SOURCES = ("spmv_ell.cu", "factor_wavefront.cu", "tri_solve_wavefront.cu",
            "inverse_chain.cu", "panel_update.cu", "trsm.cu", "tile_lu.cu",
            "epoch_sweep.cu", "superstep_factor.cu")
-HEADERS = ("level_row.cuh",)
+HEADERS = ("level_row.cuh", "tile_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "librepro_torch_kernels.so"
@@ -48,9 +48,11 @@ _SIGNATURES = {
     "tri_solve_chain_floor_launch": [_I] * 3 + [_P] + [_P],
     "inverse_chain_launch": [_P] * 7 + [_I] * 4 + [_P],
     "panel_update_launch": [_P] * 4 + [_I] * 4 + [_P],
+    "panel_update_slots_launch": [_P] * 4 + [_I] * 3 + [_P],
     "trsm_right_upper_launch": [_P] * 4 + [_I] * 5 + [_P],
     "trsm_left_unit_lower_launch": [_P] * 4 + [_I] * 5 + [_P],
     "tile_lu_launch": [_P] * 2 + [_I] + [_P],
+    "tile_lu_chain_floor_launch": [_I, _P, _P],
     "epoch_sweep_launch": [_P] * 5 + [_I] * 9 + [_P],
     "superstep_factor_launch": [_P] * 6 + [_I] * 10 + [_P],
 }

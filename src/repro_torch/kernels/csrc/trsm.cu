@@ -47,8 +47,10 @@
 // tile is 256 KB, which stays in L2). Only where the triangle is read
 // from changes: the chain, its order of rounded operations and so the
 // bits are the same. The left solve still stages its columns in shared
-// memory. The launch picks the variant from the device's limit; only
-// NC = MAX_NC (bs > 224) can need it, so only it is instantiated.
+// memory. The launch picks the variant from the device's limit: NC <= 7
+// (bs <= 224) always fits and NC >= 9 (bs > 256) never does, so the
+// in-place variant is instantiated for NC >= 8 and the other for NC <= 8.
+// Registers bound the tile: NC <= 16 accumulators per lane, bs <= 512.
 //
 // One kernel body serves one panel and a batch of tiles: blockIdx.y picks
 // the panel, at `slots[blockIdx.y]` tiles of the pool (the batched form:
@@ -62,18 +64,17 @@
 // whose slot breaks that traps before it reads or writes a tile, so a bad
 // list ends in a launch error (reported at the next synchronization), never
 // in a write past the pool or a race with the triangle.
-#include <cuda_runtime.h>
+#include "tile_common.cuh"
 
-#define LANES 32
-#define FULL_MASK 0xffffffffu
-#define MAX_NC 8      // accumulators per lane: bs <= 256
+#define MAX_NC 16     // accumulators per lane: bs <= 512
+#define SMEM_NC 8     // the largest NC whose triangle can fit in shared memory (bs <= 241)
 #define ROW_WARPS 8   // right solve: rows of X per block
 #define COL_WARPS 8   // left solve: columns of X per block
 #define XSTRIDE (COL_WARPS + 1)  // left solve: staged x[r, w] at r * XSTRIDE + w
 
 __device__ __forceinline__ void copy_async(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
 }
 
 __device__ __forceinline__ void wait_async() {
@@ -89,16 +90,6 @@ __device__ __forceinline__ size_t panel_of(const int* __restrict__ slots, int n_
   if (s < 0 || s >= n_tiles || s == diag_slot || (blockIdx.y > 0 && slots[blockIdx.y - 1] >= s))
     __trap();
   return (size_t)s;
-}
-
-// num / u, rounded to nearest. A zero numerator, common in the sparse
-// L tiles of Block-ILU, gives the signed zero itself when u is finite and
-// nonzero: __fdiv_rn takes a slow path for it. The warp passes the same
-// num and u to every lane, so the branch never diverges.
-__device__ __forceinline__ float divide(float num, float u) {
-  if (num == 0.0f && u != 0.0f && isfinite(u))
-    return __int_as_float((__float_as_int(num) ^ __float_as_int(u)) & 0x80000000);
-  return __fdiv_rn(num, u);
 }
 
 // NC = ceil(bs / 32): lane `lane` owns columns (right) or rows (left)
@@ -240,7 +231,7 @@ static cudaError_t fits_block(size_t bytes, bool* fits) {
 }
 
 // The smallest NC with NC * 32 >= bs; the triangle in shared memory when
-// it fits, else (NC = MAX_NC only) read in place.
+// it fits, else (NC >= SMEM_NC only) read in place.
 template <int NC>
 static cudaError_t right_launch(const float* a, const float* u, float* out, const int* slots,
                                 int n_tiles, int diag_slot, int n_panels, int m, int bs,
@@ -250,22 +241,28 @@ static cudaError_t right_launch(const float* a, const float* u, float* out, cons
       return right_launch<NC + 1>(a, u, out, slots, n_tiles, diag_slot, n_panels, m, bs, stream);
   }
   const dim3 grid((m + ROW_WARPS - 1) / ROW_WARPS, n_panels);
-  if constexpr (NC == MAX_NC) {
-    bool fits;
-    const cudaError_t err = fits_block(right_smem(bs), &fits);
+  bool fits = true;  // NC < SMEM_NC always fits on sm_90
+  cudaError_t err = cudaSuccess;
+  if constexpr (NC >= SMEM_NC) {
+    err = fits_block(right_smem(bs), &fits);
     if (err != cudaSuccess) return err;
-    if (!fits) {
-      trsm_right_upper_kernel<NC, false><<<grid, ROW_WARPS * LANES, 0, stream>>>(
+  }
+  if constexpr (NC <= SMEM_NC) {
+    if (fits) {
+      const size_t smem = right_smem(bs);
+      err = allow_smem(trsm_right_upper_kernel<NC, true>, smem);
+      if (err != cudaSuccess) return err;
+      trsm_right_upper_kernel<NC, true><<<grid, ROW_WARPS * LANES, smem, stream>>>(
           a, u, out, slots, n_tiles, diag_slot, m, bs);
       return cudaGetLastError();
     }
   }
-  const size_t smem = right_smem(bs);
-  const cudaError_t err = allow_smem(trsm_right_upper_kernel<NC, true>, smem);
-  if (err != cudaSuccess) return err;
-  trsm_right_upper_kernel<NC, true><<<grid, ROW_WARPS * LANES, smem, stream>>>(
-      a, u, out, slots, n_tiles, diag_slot, m, bs);
-  return cudaGetLastError();
+  if constexpr (NC >= SMEM_NC) {
+    trsm_right_upper_kernel<NC, false><<<grid, ROW_WARPS * LANES, 0, stream>>>(
+        a, u, out, slots, n_tiles, diag_slot, m, bs);
+    return cudaGetLastError();
+  }
+  return cudaErrorInvalidValue;
 }
 
 template <int NC>
@@ -277,23 +274,29 @@ static cudaError_t left_launch(const float* l, const float* a, float* out, const
       return left_launch<NC + 1>(l, a, out, slots, n_tiles, diag_slot, n_panels, bs, n, stream);
   }
   const dim3 grid((n + COL_WARPS - 1) / COL_WARPS, n_panels);
-  if constexpr (NC == MAX_NC) {
-    bool fits;
-    const cudaError_t err = fits_block(left_smem(bs), &fits);
+  bool fits = true;  // NC < SMEM_NC always fits on sm_90
+  cudaError_t err = cudaSuccess;
+  if constexpr (NC >= SMEM_NC) {
+    err = fits_block(left_smem(bs), &fits);
     if (err != cudaSuccess) return err;
-    if (!fits) {
-      const size_t smem = left_cols_smem(bs);
-      trsm_left_unit_lower_kernel<NC, false><<<grid, COL_WARPS * LANES, smem, stream>>>(
+  }
+  if constexpr (NC <= SMEM_NC) {
+    if (fits) {
+      const size_t smem = left_smem(bs);
+      err = allow_smem(trsm_left_unit_lower_kernel<NC, true>, smem);
+      if (err != cudaSuccess) return err;
+      trsm_left_unit_lower_kernel<NC, true><<<grid, COL_WARPS * LANES, smem, stream>>>(
           l, a, out, slots, n_tiles, diag_slot, bs, n);
       return cudaGetLastError();
     }
   }
-  const size_t smem = left_smem(bs);
-  const cudaError_t err = allow_smem(trsm_left_unit_lower_kernel<NC, true>, smem);
-  if (err != cudaSuccess) return err;
-  trsm_left_unit_lower_kernel<NC, true><<<grid, COL_WARPS * LANES, smem, stream>>>(
-      l, a, out, slots, n_tiles, diag_slot, bs, n);
-  return cudaGetLastError();
+  if constexpr (NC >= SMEM_NC) {
+    const size_t smem = left_cols_smem(bs);
+    trsm_left_unit_lower_kernel<NC, false><<<grid, COL_WARPS * LANES, smem, stream>>>(
+        l, a, out, slots, n_tiles, diag_slot, bs, n);
+    return cudaGetLastError();
+  }
+  return cudaErrorInvalidValue;
 }
 
 // `slots` null: one panel (A at `a`, X at `out`). Otherwise `n_panels`

@@ -16,10 +16,11 @@ Outputs and scratch are allocated here; the kernels allocate nothing.
 The dense tile kernels of Block-ILU(k) also take an ``out=`` tensor, so
 that the factorization updates the slots of its tile pool in place, and
 the two tile solves have a batched form (``*_slots``) that solves a list
-of the pool's tiles in place in one launch of the same kernel; the
-two kernels of the distributed path (``epoch_sweep``, ``superstep_factor``)
-update their state in place, as the one launch per epoch or superstep
-needs no copy.
+of the pool's tiles in place in one launch of the same kernel, as
+``panel_update_slots`` runs one pivot's tile products in one launch of
+``panel_update``'s kernel; the two kernels of the distributed path
+(``epoch_sweep``, ``superstep_factor``) update their state in place, as
+the one launch per epoch or superstep needs no copy.
 
 Two kernels of the main path also have a form that is checked once and
 launched many times: :class:`EllOperator` (``spmv_ell`` over one matrix)
@@ -29,7 +30,9 @@ entry point bound through :class:`_Bound`, and check only the right-hand
 side on a call. The checked functions ``spmv_ell`` and
 ``tri_solve_wavefront`` make one of these per call and call it once; they
 stay the entry points of the tests and of the comparisons with the plain
-versions.
+versions. The tile kernels of Block-ILU(k) launch through a
+:class:`_Bound` made once per device and entry point (:func:`_bound`);
+the other kernels still go through :func:`_launch`.
 """
 from __future__ import annotations
 
@@ -108,6 +111,19 @@ class _Bound:
         if err != 0:
             msg = self._lib.repro_cuda_error_string(err).decode()
             raise RuntimeError(f"{self._name}: CUDA error {err}: {msg}")
+
+
+_BOUND = {}  # (entry point, device index) -> _Bound
+
+
+def _bound(fn_name: str, device: torch.device) -> _Bound:
+    """The entry point bound to ``device``, made on its first use there and
+    kept: a launch through it costs no lock and no context."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    bound = _BOUND.get((fn_name, index))
+    if bound is None:
+        bound = _BOUND[(fn_name, index)] = _Bound(fn_name, torch.device("cuda", index))
+    return bound
 
 
 def _rhs(name: str, t: torch.Tensor, n: int, device) -> int:
@@ -506,8 +522,8 @@ def panel_update(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     if not _route(dev):
         return _plain(ref.panel_update_ref(c, a, b), out)
     if m and n:
-        _launch("panel_update_launch", dev, c.data_ptr(), a.data_ptr(), b.data_ptr(),
-                o.data_ptr(), m, n, k, int(dtype == _BF16))
+        _bound("panel_update_launch", dev)(c.data_ptr(), a.data_ptr(), b.data_ptr(),
+                                           o.data_ptr(), m, n, k, int(dtype == _BF16))
         if dtype == _BF16:
             panel_update.bf16_launches += 1
         else:
@@ -515,13 +531,71 @@ def panel_update(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     return o
 
 
-_MAX_TILE_BS = 256  # the tile kernels' limit: 8 accumulators of 32 lanes in the solves
+def _check_products(n_tiles: int, l_slots, u_slots, dst_slots) -> None:
+    """Refuse a product list that one launch cannot run: ``dst`` must
+    ascend strictly (so no two products write one tile), no ``dst`` may be
+    an ``l`` or ``u`` slot of the list (no product reads a tile that
+    another writes), and every slot must lie in ``[0, n_tiles)``. Takes
+    1-D integer arrays or CPU tensors of one length."""
+    import numpy as np
+
+    ls, us, ds = (np.asarray(x, dtype=np.int64).reshape(-1) for x in (l_slots, u_slots,
+                                                                       dst_slots))
+    if not ls.size == us.size == ds.size:
+        raise ValueError("panel_update_slots: the three slot lists differ in length")
+    if ds.size and (min(ls.min(), us.min(), ds.min()) < 0
+                    or max(ls.max(), us.max(), ds.max()) >= n_tiles):
+        raise ValueError(f"panel_update_slots: slots must lie inside the pool of {n_tiles}")
+    if np.any(ds[1:] <= ds[:-1]):
+        raise ValueError("panel_update_slots: dst slots must be distinct and ascending")
+    if np.isin(ds, np.concatenate([ls, us])).any():
+        raise ValueError("panel_update_slots: a dst slot is a tile the products read")
+
+
+def panel_update_slots(pool: torch.Tensor, l_slots: torch.Tensor, u_slots: torch.Tensor,
+                       dst_slots: torch.Tensor) -> torch.Tensor:
+    """``pool[d] -= pool[l] @ pool[u]`` for every (l, u, d) of the three
+    slot lists, in place on a (T, bs, bs) float32 pool, in one launch of
+    ``panel_update``'s float32 kernel (counted in ``panel_update.launches``):
+    one pivot's tile products of Block-ILU(k). The lists are 1-D int32 on
+    the pool's device, of one length; see :func:`_check_products` for what
+    they must satisfy. A list on the CPU is checked here; on the card each
+    block of the kernel checks its product and traps on a bad one before it
+    writes (the error shows at the next synchronization). Every ``d``
+    equals :func:`panel_update` on the same tiles bitwise. Returns the pool."""
+    dev = pool.device
+    if not isinstance(pool, torch.Tensor) or pool.ndim != 3 or pool.shape[1] != pool.shape[2]:
+        raise ValueError("panel_update_slots: expected a (T, bs, bs) tile pool")
+    _check("panel_update_slots pool", pool, _F32, pool.shape, dev)
+    n_tiles, bs = int(pool.shape[0]), int(pool.shape[1])
+    for name, t in (("dst_slots", dst_slots), ("l_slots", l_slots), ("u_slots", u_slots)):
+        if not isinstance(t, torch.Tensor) or t.ndim != 1:
+            raise ValueError(f"panel_update_slots {name}: expected a 1-D slot list")
+        _check(f"panel_update_slots {name}", t, _I32, dst_slots.shape, dev)
+    n_products = int(dst_slots.shape[0])
+    if n_products > _MAX_GRID_Y:
+        raise ValueError(f"panel_update_slots: at most {_MAX_GRID_Y} products per launch, "
+                         f"got {n_products}")
+    if not _route(dev):
+        _check_products(n_tiles, l_slots, u_slots, dst_slots)
+        return ref.panel_update_slots_ref(pool, l_slots, u_slots, dst_slots)
+    if n_products and bs:
+        _bound("panel_update_slots_launch", dev)(pool.data_ptr(), l_slots.data_ptr(),
+                                                 u_slots.data_ptr(), dst_slots.data_ptr(),
+                                                 n_tiles, n_products, bs)
+        panel_update.launches += 1
+    return pool
+
+
+# the solves and tile_lu keep a row's (column's) bs / 32 values per lane in
+# registers, at most 16 of them (trsm.cu, tile_lu.cu: MAX_NC)
+_MAX_TILE_BS = 512
 
 
 def _tile_fits(name: str, bs: int) -> None:
-    """Refuse a tile larger than the tile kernels take. Below the limit a
-    triangle or tile too large for shared memory is read in place from
-    device memory, by a variant of the same kernel."""
+    """Refuse a tile larger than the solves and ``tile_lu`` take on the
+    card. Below the limit a triangle or tile too large for shared memory is
+    read in place from device memory, by a variant of the same kernel."""
     if bs > _MAX_TILE_BS:
         raise ValueError(f"{name}: bs={bs} is too large: the kernels take bs <= {_MAX_TILE_BS}")
 
@@ -569,8 +643,8 @@ def trsm_right_upper(a: torch.Tensor, u: torch.Tensor, out: torch.Tensor = None)
         return _plain(ref.trsm_right_upper_ref(a, u), out)
     _tile_fits("trsm_right_upper", bs)
     if m and bs:
-        _launch("trsm_right_upper_launch", dev, a.data_ptr(), u.data_ptr(), o.data_ptr(), None,
-                0, 0, 1, m, bs)
+        _bound("trsm_right_upper_launch", dev)(a.data_ptr(), u.data_ptr(), o.data_ptr(), None,
+                                               0, 0, 1, m, bs)
         trsm_right_upper.launches += 1
     return o
 
@@ -588,8 +662,9 @@ def trsm_right_upper_slots(pool: torch.Tensor, diag_slot: int,
     _tile_fits("trsm_right_upper", bs)
     if slots.shape[0] and bs:
         base = pool.data_ptr()
-        _launch("trsm_right_upper_launch", pool.device, base, base + diag_slot * bs * bs * 4,
-                base, slots.data_ptr(), pool.shape[0], diag_slot, slots.shape[0], bs, bs)
+        _bound("trsm_right_upper_launch", pool.device)(
+            base, base + diag_slot * bs * bs * 4, base, slots.data_ptr(), pool.shape[0],
+            diag_slot, slots.shape[0], bs, bs)
         trsm_right_upper.launches += 1
     return pool
 
@@ -607,8 +682,8 @@ def trsm_left_unit_lower(l: torch.Tensor, a: torch.Tensor,
         return _plain(ref.trsm_left_unit_lower_ref(l, a), out)
     _tile_fits("trsm_left_unit_lower", bs)
     if n and bs:
-        _launch("trsm_left_unit_lower_launch", dev, l.data_ptr(), a.data_ptr(), o.data_ptr(),
-                None, 0, 0, 1, bs, n)
+        _bound("trsm_left_unit_lower_launch", dev)(l.data_ptr(), a.data_ptr(), o.data_ptr(),
+                                                   None, 0, 0, 1, bs, n)
         trsm_left_unit_lower.launches += 1
     return o
 
@@ -626,8 +701,9 @@ def trsm_left_unit_lower_slots(pool: torch.Tensor, diag_slot: int,
     _tile_fits("trsm_left_unit_lower", bs)
     if slots.shape[0] and bs:
         base = pool.data_ptr()
-        _launch("trsm_left_unit_lower_launch", pool.device, base + diag_slot * bs * bs * 4,
-                base, base, slots.data_ptr(), pool.shape[0], diag_slot, slots.shape[0], bs, bs)
+        _bound("trsm_left_unit_lower_launch", pool.device)(
+            base + diag_slot * bs * bs * 4, base, base, slots.data_ptr(), pool.shape[0],
+            diag_slot, slots.shape[0], bs, bs)
         trsm_left_unit_lower.launches += 1
     return pool
 
@@ -645,7 +721,7 @@ def tile_lu(t: torch.Tensor, out: torch.Tensor = None) -> torch.Tensor:
         return _plain(ref.tile_lu_nopiv_ref(t), out)
     _tile_fits("tile_lu", bs)
     if bs:
-        _launch("tile_lu_launch", dev, t.data_ptr(), o.data_ptr(), bs)
+        _bound("tile_lu_launch", dev)(t.data_ptr(), o.data_ptr(), bs)
         tile_lu.launches += 1
     return o
 

@@ -207,6 +207,17 @@ def panel_update_ref(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch
     return (c.float() - a.float() @ b.float()).to(c.dtype)
 
 
+def panel_update_slots_ref(pool: torch.Tensor, l_slots: torch.Tensor, u_slots: torch.Tensor,
+                           dst_slots: torch.Tensor) -> torch.Tensor:
+    """One pivot's tile products in place on the pool (T, bs, bs): each
+    ``pool[d]`` becomes ``panel_update_ref(pool[d], pool[l], pool[u])``,
+    one product at a time, in list order (no product reads a tile that
+    another writes, so the order does not change a bit)."""
+    for l, u, d in zip(l_slots.tolist(), u_slots.tolist(), dst_slots.tolist()):
+        pool[d] = panel_update_ref(pool[d], pool[l], pool[u])
+    return pool
+
+
 def trsm_right_upper_ref(a: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """X with X U = A, U upper-triangular (the BILU L-panel step
     L_JI = A_JI U_II^{-1}), by column substitution in the order the Pallas

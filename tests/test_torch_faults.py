@@ -13,7 +13,8 @@ the port once refused.
   On the CPU route ``bilu`` at bs = 256 is held to the JAX ``bilu`` with
   ``test_torch_bilu.py``'s tolerance; on the card the kernels read a
   triangle or tile that does not fit from device memory, bitwise equal to
-  their plain versions, up to bs = 256, and refuse a larger one.
+  their plain versions, up to bs = 512 (``test_torch_tiles.py`` holds
+  300 and 512), and refuse a larger one.
 
 The ``cuda`` tests skip here. JAX is imported only inside the tests that
 compare with it, so that the ``cuda`` tests also run without JAX.
@@ -155,13 +156,16 @@ def test_cuda_tile_kernels_at_large_bs_equal_plain(bs, cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_tile_kernels_refuse_bs_above_256(cuda_device):
-    t = torch.eye(257, device=cuda_device)
-    with pytest.raises(ValueError, match="bs <= 256"):
+    """The card's limit rose from 256 to 512 (16 values per lane in
+    registers); the kernels take 257..512 (test_torch_tiles.py) and refuse
+    a larger tile."""
+    t = torch.eye(513, device=cuda_device)
+    with pytest.raises(ValueError, match="bs <= 512"):
         ops.tile_lu(t)
-    with pytest.raises(ValueError, match="bs <= 256"):
-        ops.trsm_right_upper(torch.ones((2, 257), device=cuda_device), t)
-    with pytest.raises(ValueError, match="bs <= 256"):
-        ops.trsm_left_unit_lower(t, torch.ones((257, 2), device=cuda_device))
+    with pytest.raises(ValueError, match="bs <= 512"):
+        ops.trsm_right_upper(torch.ones((2, 513), device=cuda_device), t)
+    with pytest.raises(ValueError, match="bs <= 512"):
+        ops.trsm_left_unit_lower(t, torch.ones((513, 2), device=cuda_device))
 
 
 @pytest.mark.cuda

@@ -146,21 +146,24 @@ def test_bilu_pool_equals_per_tile_order(name, k, bs):
 
 def _reckoned(tpat):
     """Calls and tiles per kind, reckoned from the tile pattern alone: a
-    left (right) solve call for each pivot with a U (L) tile, one panel
-    update for each kept (J, T) with (J, I) and (I, T) kept, J, T > I."""
+    left (right) solve call for each pivot with a U (L) tile, a panel update
+    call for each pivot with a product, and a product for each kept (J, T)
+    with (J, I) and (I, T) kept, J, T > I."""
     keys = set()
     for i in range(tpat.n):
         keys.update((i, int(c)) for c in tpat.row(i)[0])
     want = {"tile_lu": tpat.n, "left_calls": 0, "left_tiles": 0, "right_calls": 0,
-            "right_tiles": 0, "panel_update": 0}
+            "right_tiles": 0, "panel_calls": 0, "panel_update": 0}
     for i in range(tpat.n):
         ucols = [c for (r, c) in keys if r == i and c > i]
         lrows = [r for (r, c) in keys if c == i and r > i]
+        products = sum((j, t) in keys for j in lrows for t in ucols)
         want["left_calls"] += bool(ucols)
         want["left_tiles"] += len(ucols)
         want["right_calls"] += bool(lrows)
         want["right_tiles"] += len(lrows)
-        want["panel_update"] += sum((j, t) in keys for j in lrows for t in ucols)
+        want["panel_calls"] += bool(products)
+        want["panel_update"] += products
     return want
 
 
@@ -169,29 +172,34 @@ def _reckoned(tpat):
 @pytest.mark.parametrize("name", sorted(BILU_FIXTURES))
 def test_bilu_calls_equal_the_per_pivot_counts(name, k, bs, monkeypatch):
     """One left and one right batched solve per pivot that has such tiles,
-    and no single-tile solve: the CPU route counts no launch, so the calls
-    are counted here by wrapping the wrappers."""
+    one grouped panel update per pivot that has products (all of them),
+    and no single-tile solve or update: the CPU route counts no launch, so
+    the calls are counted here by wrapping the wrappers."""
     seen = {"tile_lu": 0, "left_calls": 0, "left_tiles": 0, "right_calls": 0,
-            "right_tiles": 0, "panel_update": 0, "single_solves": 0}
+            "right_tiles": 0, "panel_calls": 0, "panel_update": 0, "single_calls": 0}
 
-    def counted(fn, calls, tiles=None):
+    def counted(fn, calls, tiles=None, arg=2):
         def wrapper(*args, **kw):
             seen[calls] += 1
             if tiles:
-                seen[tiles] += int(args[2].shape[0])
+                seen[tiles] += int(args[arg].shape[0])
             return fn(*args, **kw)
         return wrapper
 
-    for name_, calls, tiles in (("tile_lu", "tile_lu", None),
-                                ("trsm_left_unit_lower_slots", "left_calls", "left_tiles"),
-                                ("trsm_right_upper_slots", "right_calls", "right_tiles"),
-                                ("panel_update", "panel_update", None),
-                                ("trsm_left_unit_lower", "single_solves", None),
-                                ("trsm_right_upper", "single_solves", None)):
-        monkeypatch.setattr(ops, name_, counted(getattr(ops, name_), calls, tiles))
+    for name_, calls, tiles, arg in (
+            ("tile_lu", "tile_lu", None, 0),
+            ("trsm_left_unit_lower_slots", "left_calls", "left_tiles", 2),
+            ("trsm_right_upper_slots", "right_calls", "right_tiles", 2),
+            ("panel_update_slots", "panel_calls", "panel_update", 3),
+            ("panel_update", "single_calls", None, 0),
+            ("trsm_left_unit_lower", "single_calls", None, 0),
+            ("trsm_right_upper", "single_calls", None, 0)):
+        monkeypatch.setattr(ops, name_, counted(getattr(ops, name_), calls, tiles, arg))
     fact = bilu(BILU_FIXTURES[name](), k, bs=bs, device="cpu")
     want = _reckoned(fact.tile_pattern)
-    assert seen.pop("single_solves") == 0
+    assert seen.pop("single_calls") == 0
+    panel_calls = seen.pop("panel_calls")
+    assert panel_calls == want.pop("panel_calls")
     assert seen == want
     assert want["left_tiles"] > want["left_calls"]  # some pivot batches several tiles
 
