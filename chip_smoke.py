@@ -21,7 +21,11 @@ with a non-zero exit; nothing is caught):
    staging, shared memory) and its chain floor (the same level loop with
    only a shared-memory exchange and the barrier). The (nb=4, n) forms of
    the three batched kernels likewise, with every row equal to the single
-   form's output for it, and the SpMV at nb = 9. [sweep-window]: the sweep
+   form's output for it, and the SpMV at nb = 9. factor_wavefront is timed
+   in the form the factorizer holds (schedule checked and packed once)
+   beside its checked entry point, its time before this design and its
+   chain floor (the round loop with one dependent L2 load, the divide and
+   the barrier per round). [sweep-window]: the sweep
    bitwise where its shared-memory ring does not cover every gathered
    level (poisson_2d(400) capped, matgen(800, 0.01) ILU(2)).
    [inverse] lines: the inverse plan and value times at full size, and
@@ -37,9 +41,11 @@ with a non-zero exit; nothing is caught):
    one single call per product; each library call's device time from the
    trace, and kernel and library call timed in turns; tile_lu's chain
    floor (its count exchanges alone).
-   [large-tiles]: the tile kernels at bs = 241, 256, 300 and 512, whose
-   triangle or tile does not fit in shared memory, bitwise against their
-   plain versions; tile_lu's device time and chain floor at each.
+   [large-tiles]: the tile kernels at bs = 241, 256, 300, 512, 513, 640,
+   1024 and 2048, whose triangle or tile does not fit in shared memory
+   (above 512 a row or column is walked in chunks of 512 entries), bitwise
+   against their plain versions, single (ragged) and batched on a pool, in
+   place; tile_lu's device time and chain floor at each.
 3. factors — the factor values equal the sequential oracle
    ``numeric_ilu_ref``, bitwise, on ``convection_diffusion_2d(32)`` and
    ``poisson_2d(64)`` at k = 0, 1, 2. 3b: the inverse values W/Z computed
@@ -61,8 +67,8 @@ with a non-zero exit; nothing is caught):
    versions) give the same ``x`` bitwise and the same iteration counts, on
    ``poisson_2d(64)`` and ``convection_diffusion_2d(32)``: the sweep, the
    inverse chain, and a batch of three with per-lane tolerances.
-8. bilu — Block-ILU(1) of ``poisson_2d(400)`` at bs = 128, 32, 256 and
-   512 (``repro_torch.core.bilu.bilu``): the host plan and numeric walls,
+8. bilu — Block-ILU(1) of ``poisson_2d(400)`` at bs = 128, 32, 256, 512
+   and 1024 (``repro_torch.core.bilu.bilu``): the host plan and numeric walls,
    and the numeric phase once more under torch.profiler (device busy
    share); the launches of the four tile kernels equal the counts reckoned
    here from the tile pattern (one left and one right solve and one
@@ -77,12 +83,19 @@ with a non-zero exit; nothing is caught):
    at tol=1e-4 the float64 true residual must be <= 2·tol; on
    ``poisson_2d(64)`` the card's CG equals the CPU's bitwise.
 10. topilu and distributed kernels — the TOP-ILU factorization over
-    D = 4 band owners on the card (values equal phase 4's factor), and the
-    ``epoch_sweep`` and ``superstep_factor`` kernels against their plain
-    versions on every epoch and superstep checked.
+    D = 4 band owners on the card (values equal phase 4's factor), and
+    ``epoch_sweep``'s one-epoch form and ``superstep_factor`` against
+    their plain versions on every epoch and superstep checked.
+    [sharded-sweep]: the whole band-partitioned apply as one persistent
+    ``epoch_sweep`` launch (every epoch and in-kernel exchange) against its
+    plain version (``ref.sharded_sweep_ref``, exchanges through
+    ``BandGroup.exchange``) and against phase 4's single-device apply,
+    bitwise, at D = 1, 2, 3, 4, nb = 1 and 4, gather and ring, on
+    ``poisson_2d(64)`` and ``poisson_2d(400)``, with equal exchange
+    counts; its time per apply, bound and chain floor per epoch.
 11. sharded apply — the band-partitioned apply at D = 1 and D = 4, single
     and nb = 4, bitwise equal to phase 4's apply, one ``epoch_sweep``
-    launch per epoch.
+    launch per apply.
 12. distributed — ``solve_sharded`` at D = 4 (sweep and inverse): ``x``
     bitwise equal to phases 4 and 5, and a D = 2 solve on the card equal
     to the CPU's.
@@ -113,6 +126,8 @@ NB = 4  # right-hand sides of the batched kernel checks and the multi-RHS solve
 BS_TILE = 128  # the Block-ILU tile of the module's docstring; also bs = 32, bilu's default
 CG_TOL = 1e-4  # float32 CG's recursive residual drifts from the true one at 1e-5 here
 TILE_KERNELS = ("panel_update", "trsm_right_upper", "trsm_left_unit_lower", "tile_lu")
+LARGE_TILES = (241, 256, 300, 512, 513, 640, 1024, 2048)  # [large-tiles]: above 512 in chunks
+BILU_SIZES = (BS_TILE, 32, 256, 512, 1024)  # path C's tile sizes
 # the kernels of one sweep apply: the L and U sweeps and 3 permutations
 SWEEP_KERNELS = {"tri_sweep_kernel": 2, "permute_kernel": 3}
 # the two redesigned kernels' times before this design, on poisson_2d(400)
@@ -124,6 +139,14 @@ PREVIOUS_MS = {
                                 batched_device_ms=3.237),
     "spmv_ell": dict(ms=0.0714, device_ms=0.0028, batched_ms=0.0567, batched_device_ms=0.0066),
 }
+# factor_wavefront before its redesign (one thread per op walking the W
+# lanes one dependent trip at a time): ms per call and device ms, and the
+# band-partitioned apply at D = 4 before it became one launch (2,384
+# epoch_sweep launches and 2,383 exchanges): ms per apply; both on
+# poisson_2d(400) on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md), printed
+# in the text lines only
+PREVIOUS_FACTOR_MS = (6.129, 6.136)
+PREVIOUS_SHARDED_APPLY_MS = 261.5
 # the left-looking tile solves' (ms per call, device ms) at (128, 128) on an
 # NVIDIA H100 80GB HBM3 at 700 W (PERF.md), printed beside the new ones
 PREVIOUS_TRSM_MS = {"trsm_right_upper": (0.1950, 0.1441), "trsm_left_unit_lower": (0.2249, 0.1513)}
@@ -309,7 +332,7 @@ def phase_kernels(dev):
     import numpy as np
     import torch
 
-    from repro_torch.core.factor_plan import build_factor_plan
+    from repro_torch.core.factor_plan import SCHEDULE_FIELDS, build_factor_plan
     from repro_torch.core.matgen import poisson_2d
     from repro_torch.core.solvers import csr_to_ell_arrays
     from repro_torch.core.symbolic import pilu1_symbolic
@@ -326,20 +349,35 @@ def phase_kernels(dev):
         f"(host planning {time.perf_counter() - t0:.2f} s)")
     rows = {}
 
-    # factor_wavefront
+    # factor_wavefront: the form the factorizer holds (schedule checked and
+    # packed once), and the checked entry point
     sched = fplan.schedule_tensors(dev)
-    fargs = [sched[f] for f in ("op_row", "op_lane", "op_piv", "op_dlane", "op_dst",
-                                "dst_flat")]
+    fargs = [sched[f] for f in SCHEDULE_FIELDS]
+    fw = ops.FactorWavefront(*fargs, fplan.n)
     a_vals = torch.as_tensor(fplan.a_vals, device=dev)
-    got = ops.factor_wavefront(*fargs, a_vals)
+    got = fw(a_vals)
     want = ref.factor_wavefront_ref(*fargs, a_vals)
     require(bits_equal(got, want), "factor_wavefront kernel != plain version on the card")
+    require(bits_equal(ops.factor_wavefront(*fargs, a_vals), want),
+            "factor_wavefront (checked entry point) != plain version on the card")
     require(bool(torch.isfinite(got).all()), "factor_wavefront produced non-finite values")
     valid = fplan.op_row < a.n
     kept = int((fplan.dst_flat[fplan.op_dst[valid]] < fplan.width).sum())
-    nbytes = sum(t.numel() * 4 for t in fargs) + a_vals.numel() * 4 + got.numel() * 4
+    nbytes = (int(valid.sum()) * 16 + fplan.dst_flat.size * 4 + a_vals.numel() * 4
+              + got.numel() * 4)  # the packed ops of real rows, the dst rows, A in, LU out
     b_ms, b_by = bound(nbytes, int(valid.sum()) + 2 * kept)
-    ms = time_ms(lambda: ops.factor_wavefront(*fargs, a_vals), reps=10)
+    ms = time_ms(lambda: fw(a_vals), reps=10)
+    zeros = torch.zeros(1025, dtype=torch.float32, device=dev)
+    sink = torch.zeros(1, dtype=torch.float32, device=dev)
+    lib = build.load()
+    threads = lib.factor_wavefront_threads(fplan.max_ops, fplan.width)
+
+    def factor_floor():
+        err = lib.factor_wavefront_chain_floor_launch(fplan.n_rounds, threads, zeros.data_ptr(),
+                                                      sink.data_ptr(),
+                                                      torch.cuda.current_stream().cuda_stream)
+        require(err == 0, f"the factor chain floor kernel did not launch (CUDA error {err})")
+
     rows["factor_wavefront"] = dict(
         name="factor_wavefront", route="cuda",
         source="src/repro_torch/kernels/csrc/factor_wavefront.cu",
@@ -348,8 +386,22 @@ def phase_kernels(dev):
         plain_ms=time_ms(lambda: ref.factor_wavefront_ref(*fargs, a_vals), reps=3),
         bound_ms=b_ms, bound_by=b_by, library_ms=None, chain_steps=fplan.n_rounds,
         us_per_step=ms * 1e3 / fplan.n_rounds,
-        device_ms=device_ms(lambda: ops.factor_wavefront(*fargs, a_vals),
-                            "factor_wavefront_kernel"))
+        device_ms=device_ms(lambda: fw(a_vals), "factor_wavefront_kernel"),
+        checked_ms=time_ms(lambda: ops.factor_wavefront(*fargs, a_vals), reps=5),
+        chain_floor_ms=device_ms(factor_floor, "factor_wavefront_chain_floor_kernel", reps=10))
+    r = rows["factor_wavefront"]
+    say(f"[kernels] factor_wavefront: {fplan.n_rounds} rounds of <= {fplan.max_ops} ops, W="
+        f"{fplan.width}; device "
+        + ("not measured" if r["device_ms"] is None else f"{r['device_ms']:.4f} ms")
+        + f" ({r['ms']:.4f} ms per call through the form checked once, {r['checked_ms']:.4f} "
+        f"ms through the checked entry point); chain floor (the kernel's cluster of blocks of "
+        f"{threads} threads and its round loop with one dependent L2 load, the divide and the "
+        f"cluster barrier per round) "
+        + ("not measured" if r["chain_floor_ms"] is None
+           else f"{r['chain_floor_ms']:.4f} ms = "
+           f"{r['chain_floor_ms'] * 1e3 / fplan.n_rounds:.4f} us per round")
+        + f"; the design before took {PREVIOUS_FACTOR_MS[0]:.3f} ms per call, "
+        f"{PREVIOUS_FACTOR_MS[1]:.3f} ms of device (an NVIDIA H100 80GB HBM3 at 700 W)")
     vals = fplan.values_to_csr(got.cpu().numpy())
 
     # tri_solve_wavefront: the apply the main path makes (PrecondApply's
@@ -373,7 +425,6 @@ def phase_kernels(dev):
     dms = device_ms_per_call(lambda: sweep(b), SWEEP_KERNELS)
     maxr = max(tplan.l_cols_lm.shape[1], tplan.u_cols_lm.shape[1])
     floor_out = torch.zeros(1, dtype=torch.float32, device=dev)
-    lib = build.load()
 
     def chain_floor():
         err = lib.tri_solve_chain_floor_launch(levels, maxr, sweep.layout["threads"][0],
@@ -570,12 +621,14 @@ def phase_sweep_window(dev, nx=400):
                 + "nb=3 and single bitwise equal to plain")
 
 
-def phase_large_tiles(dev, sizes=(241, 256, 300, 512)):
+def phase_large_tiles(dev, sizes=LARGE_TILES):
     """[large-tiles]: the tile kernels at sizes whose triangle or tile does
     not fit in the shared memory of one block (the variants that read it in
-    place), bitwise against their plain versions: tile_lu (out of place and
-    in place), both solves, and both batched solves on 3 tiles; tile_lu's
-    device time and chain floor at each size."""
+    place; above bs = 512 the variants that walk a row or column in chunks
+    of 512), bitwise against their plain versions: tile_lu (out of place and
+    in place), both solves (37 rows or columns: ragged), and both batched
+    solves on 3 tiles of a pool, in place; tile_lu's device time and chain
+    floor at each size."""
     import numpy as np
     import torch
 
@@ -607,7 +660,8 @@ def phase_large_tiles(dev, sizes=(241, 256, 300, 512)):
             got = getattr(ops, f"{name}_slots")(pool.clone(), 1, slots)
             require(bits_equal(got, getattr(ref, f"{name}_slots_ref")(pool.clone(), 1, slots)),
                     f"{name}_slots at bs={bs} != plain version")
-        lu_ms = device_ms(lambda: ops.tile_lu(t), "tile_lu_kernel", reps=5)
+        lu_ms = device_ms(lambda: ops.tile_lu(t),
+                          "tile_lu_chunked_kernel" if bs > 512 else "tile_lu_kernel", reps=5)
 
         def lu_floor():
             err = lib.tile_lu_chain_floor_launch(bs, sink.data_ptr(),
@@ -1629,11 +1683,13 @@ def epoch_bound(sched, lo, hi, nb, with_diag):
 
 
 def phase_distributed_kernels(dev, fact, nx_small=64):
-    """[kernels] rows of the distributed path: ``epoch_sweep`` held bitwise
-    against its plain version over every epoch of both sweeps at the
-    full-size tables of ``fact`` (single and nb=NB right-hand sides), and
-    ``superstep_factor`` over every superstep at poisson_2d(nx_small) for
-    D = 1, 2, 4 and both broadcasts; then their times at full size."""
+    """[kernels] rows of the distributed path: ``epoch_sweep``'s one-epoch
+    form held bitwise against its plain version over every epoch of both
+    sweeps at the full-size tables of ``fact`` (single and nb=NB right-hand
+    sides), and ``superstep_factor`` over every superstep at
+    poisson_2d(nx_small) for D = 1, 2, 4 and both broadcasts; then
+    superstep_factor's time at full size (epoch_sweep's row is
+    [sharded-sweep]'s, the form the path runs)."""
     import numpy as np
     import torch
 
@@ -1651,9 +1707,9 @@ def phase_distributed_kernels(dev, fact, nx_small=64):
 
     rng = np.random.default_rng(SEED + 6)
     apply = fact.precond()
-    tp, eng = apply.plan, apply._engine
-    sides = (("L", tp.l_sched, eng._l_cols, apply._lv, None),
-             ("U", tp.u_sched, eng._u_cols, apply._uv, apply._dg))
+    tp, tables = apply.plan, apply.sweep.tables
+    sides = (("L", tp.l_sched, tables.l.cols, apply._lv, None),
+             ("U", tp.u_sched, tables.u.cols, apply._uv, apply._dg))
     t0 = time.perf_counter()
     for nb in (1, NB):
         for side, sched, cols, vals, diag in sides:
@@ -1669,10 +1725,10 @@ def phase_distributed_kernels(dev, fact, nx_small=64):
                 xp = ref.epoch_sweep_ref(xp, cols, vals, rhs, diag, lo, hi, sched.scratch)
             require(bits_equal(xk, xp), f"epoch_sweep ({side}, nb={nb}) kernel != plain version "
                     "over the full-size epochs")
-    say(f"[kernels] epoch_sweep: every epoch of the L ({tp.l_sched.n_epochs}) and U "
-        f"({tp.u_sched.n_epochs}) sweeps of the n={tp.n} plan over {tp.n_devices} owners, "
-        f"single and nb={NB}, bitwise equal to plain on the card "
-        f"({time.perf_counter() - t0:.1f} s)")
+    say(f"[kernels] epoch_sweep, the one-epoch form: every epoch of the L "
+        f"({tp.l_sched.n_epochs}) and U ({tp.u_sched.n_epochs}) sweeps of the n={tp.n} plan "
+        f"over {tp.n_devices} owners, single and nb={NB}, bitwise equal to epoch_sweep_ref on "
+        f"the card ({time.perf_counter() - t0:.1f} s)")
 
     a = poisson_2d(nx_small)
     pattern = pilu1_symbolic(a)
@@ -1690,37 +1746,7 @@ def phase_distributed_kernels(dev, fact, nx_small=64):
                 f"{plan.n_supersteps} supersteps bitwise equal to plain, the factor to "
                 "numeric_ilu_ref")
 
-    # times at full size: the epoch of median length, and the fullest superstep
-    side, sched, cols, vals, diag = sides[0]
-    bounds = np.asarray(sched.epoch_bounds)
-    lens = np.diff(bounds)
-    e = int(np.argsort(lens, kind="stable")[len(lens) // 2])
-    lo, hi = int(bounds[e]), int(bounds[e + 1])
-    D, nlev, maxr, w = cols.shape
-    x = torch.zeros((D, 1, sched.scratch + 1), dtype=torch.float32, device=dev)
-    rhs = torch.as_tensor(rng.standard_normal((D, 1, nlev, maxr)).astype(np.float32), device=dev)
-    b_ms, b_by = bound(*epoch_bound(sched, lo, hi, 1, False))
-    run = lambda: ops.epoch_sweep(x, cols, vals, rhs, None, lo, hi, sched.scratch)  # noqa: E731
-
-    def all_epochs():
-        for s_, sc, cl, vl, dg in sides:
-            bd = [int(v) for v in sc.epoch_bounds]
-            xs = torch.zeros((D, 1, sc.scratch + 1), dtype=torch.float32, device=dev)
-            rs = torch.zeros((D, 1, cl.shape[1], cl.shape[2]), dtype=torch.float32, device=dev)
-            for l0, h0 in zip(bd[:-1], bd[1:]):
-                ops.epoch_sweep(xs, cl, vl, rs, dg, l0, h0, sc.scratch)
-
-    n_ep = tp.l_sched.n_epochs + tp.u_sched.n_epochs
-    rows_out = {"epoch_sweep": dict(
-        name="epoch_sweep", route="cuda", source="src/repro_torch/kernels/csrc/epoch_sweep.cu",
-        replaces="src/repro/kernels/tri_sweep_epoch.py:49", launches=0,
-        max_abs_err=max_abs_err(xk, xp), ms=time_ms(run, reps=50),
-        plain_ms=time_ms(lambda: ref.epoch_sweep_ref(x, cols, vals, rhs, None, lo, hi,
-                                                     sched.scratch), reps=10),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, epoch_levels=hi - lo,
-        launches_per_apply=n_ep, all_epochs_ms=time_ms(all_epochs, reps=3),
-        device_ms=device_ms(run, "epoch_sweep_kernel", reps=20))}
-
+    # the fullest superstep at full size
     plan = fact.plan
     members = (plan.superstep_bands < plan.n_bands).sum(axis=(1, 2))
     s = int(np.argmax(members))
@@ -1746,6 +1772,7 @@ def phase_distributed_kernels(dev, fact, nx_small=64):
     nbytes, nops = superstep_bound(plan, s)
     b_ms, b_by = bound(nbytes, nops)
     st = state.clone()
+    rows_out = {}
     rows_out["superstep_factor"] = dict(
         name="superstep_factor", route="cuda",
         source="src/repro_torch/kernels/csrc/superstep_factor.cu",
@@ -1758,22 +1785,132 @@ def phase_distributed_kernels(dev, fact, nx_small=64):
         superstep_members=int(members[s]), supersteps=plan.n_supersteps,
         device_ms=device_ms(lambda: ops.superstep_factor(st, *targs), "superstep_factor_kernel",
                             reps=20))
-    for r in rows_out.values():
-        dms = "not measured" if r["device_ms"] is None else f"{r['device_ms']:.4f} ms"
-        say(f"[kernels] {r['name']}: bitwise equal to plain; {r['ms']:.4f} ms per call (device "
-            f"{dms}; plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.5f} ms by "
-            f"{r['bound_by']}, no library call)"
-            + (f"; {n_ep} launches per apply, all of them back to back "
-               f"{r['all_epochs_ms']:.2f} ms" if r["name"] == "epoch_sweep" else
-               f"; superstep {s} of {plan.n_supersteps}, {r['superstep_members']} bands"))
+    r = rows_out["superstep_factor"]
+    dms = "not measured" if r["device_ms"] is None else f"{r['device_ms']:.4f} ms"
+    say(f"[kernels] superstep_factor: bitwise equal to plain; {r['ms']:.4f} ms per call (device "
+        f"{dms}; plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.5f} ms by "
+        f"{r['bound_by']}, no library call); superstep {s} of {plan.n_supersteps}, "
+        f"{r['superstep_members']} bands")
     return rows_out
+
+
+def apply_bound(tp, nb):
+    """Bytes and operations of one band-partitioned apply for nb right-hand
+    sides: every level of both sweeps as :func:`epoch_bound` counts them,
+    each entry an owner pulls from another read and written once, b read
+    and x written once."""
+    nbytes_l, ops_l = epoch_bound(tp.l_sched, 0, tp.nl_levels, nb, False)
+    nbytes_u, ops_u = epoch_bound(tp.u_sched, 0, tp.nu_levels, nb, True)
+    pulled = sum(int((ing < sched.scratch).sum()) for sched in (tp.l_sched, tp.u_sched)
+                 for ing in sched.ingress if ing is not None)
+    return nbytes_l + nbytes_u + 8 * nb * pulled + 8 * nb * tp.n, ops_l + ops_u
+
+
+def phase_sharded_sweep(dev, main_fact, sizes=(64, 400)):
+    """[sharded-sweep]: the band-partitioned apply as one persistent launch
+    of epoch_sweep's kernel (every epoch and exchange of the L and U
+    sweeps), bitwise against its plain version (ref.sharded_sweep_ref on
+    the card, whose exchanges go through BandGroup.exchange) and against
+    the single-device PrecondApply, at D = 1, 2, 3, 4, nb = 1 and NB, for
+    "gather" and "ring", on poisson_2d(64) and poisson_2d(400); the group
+    counts what the plain version's exchanges count. At full size and D =
+    SHARDED_D: the time per apply, its bound and the chain floor per epoch
+    (one dependent L2 load, a barrier, a release and an acquire of every
+    other owner's count per epoch). Returns epoch_sweep's kernels row."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.api import ilu, ilu_sharded
+    from repro_torch.core.matgen import poisson_2d
+    from repro_torch.core.top_ilu import BandGroup
+    from repro_torch.kernels import build, ops, ref
+
+    rng = np.random.default_rng(SEED + 10)
+    for nx in sizes:
+        a = main_fact.a if nx == 400 else poisson_2d(nx)
+        single = (main_fact if nx == 400 else ilu(a, 1, device=dev)).precond()
+        bs = torch.as_tensor(rng.standard_normal((NB, a.n)).astype(np.float32), device=dev)
+        t0 = time.perf_counter()
+        for d in (1, 2, 3, 4):
+            for bc in ("gather", "ring"):
+                group = BandGroup(d, dev)
+                apply = ilu_sharded(a, 1, band_rows=BAND_ROWS, group=group, broadcast=bc).precond()
+                for nb in (1, NB):
+                    b = bs[:nb]
+                    group.reset_counts()
+                    ops.reset_launch_counts()
+                    got = apply.batched(b)
+                    launches = ops.launch_counts()["epoch_sweep"]
+                    plain_group = BandGroup(d, dev)
+                    want = ref.sharded_sweep_ref(apply.sweep.tables, apply._lv, apply._uv,
+                                                 apply._dg, b, plain_group, bc)
+                    tag = f"poisson_2d({nx}) D={d} {bc} nb={nb}"
+                    require(launches == 1, f"[sharded-sweep] {tag}: {launches} launches")
+                    require(bits_equal(got, want), f"[sharded-sweep] {tag}: kernel != plain")
+                    require(bits_equal(got, single.batched(b)),
+                            f"[sharded-sweep] {tag}: != the single-device PrecondApply")
+                    require(group.counts() == plain_group.counts(),
+                            f"[sharded-sweep] {tag}: counts {group.counts()} != the plain "
+                            f"version's {plain_group.counts()}")
+        say(f"[sharded-sweep] poisson_2d({nx}): D = 1, 2, 3, 4 x gather, ring x nb = 1, {NB}: "
+            "one launch per apply, bitwise equal to the plain whole sweep and to PrecondApply, "
+            f"the same exchange counts ({time.perf_counter() - t0:.1f} s)")
+
+    group = BandGroup(SHARDED_D, dev)
+    f = ilu_sharded(main_fact.a, 1, band_rows=BAND_ROWS, group=group)
+    apply = f.precond()
+    tp = apply.plan
+    b = torch.as_tensor(rng.standard_normal((1, tp.n)).astype(np.float32), device=dev)
+    n_ep = tp.l_sched.n_epochs + tp.u_sched.n_epochs
+    got = apply.batched(b)
+    plain_group = BandGroup(SHARDED_D, dev)
+    want = ref.sharded_sweep_ref(apply.sweep.tables, apply._lv, apply._uv, apply._dg, b,
+                                 plain_group, "gather")
+    b_ms, b_by = bound(*apply_bound(tp, 1))
+    lib = build.load()
+    zeros = torch.zeros(2, dtype=torch.float32, device=dev)
+    flags = torch.zeros(SHARDED_D, dtype=torch.int32, device=dev)
+    sink = torch.zeros(1, dtype=torch.float32, device=dev)
+    threads = min(1024, max(32, -(-max(tp.maxr_l, tp.maxr_u) // 32) * 32))
+
+    def sweep_floor():
+        err = lib.epoch_sweep_chain_floor_launch(SHARDED_D, n_ep, threads, zeros.data_ptr(),
+                                                 flags.data_ptr(), sink.data_ptr(),
+                                                 torch.cuda.current_stream().cuda_stream)
+        require(err == 0, f"the sweep's chain floor kernel did not launch (CUDA error {err})")
+
+    floor_ms = device_ms(sweep_floor, "epoch_sweep_chain_floor_kernel", reps=5)
+    row = dict(
+        name="epoch_sweep", route="cuda", source="src/repro_torch/kernels/csrc/epoch_sweep.cu",
+        replaces="src/repro/kernels/tri_sweep_epoch.py:49", launches=0,
+        max_abs_err=max_abs_err(got, want), ms=time_ms(lambda: apply.batched(b), reps=20),
+        plain_ms=time_ms(lambda: ref.sharded_sweep_ref(apply.sweep.tables, apply._lv, apply._uv,
+                                                       apply._dg, b, BandGroup(SHARDED_D, dev),
+                                                       "gather"), reps=3),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, launches_per_apply=1, epochs=n_ep,
+        exchanges=tp.sweep_collectives_per_apply(), chain_steps=n_ep,
+        device_ms=device_ms(lambda: apply.batched(b), "epoch_sweep_kernel", reps=10),
+        chain_floor_ms=floor_ms,
+        us_per_epoch_floor=None if floor_ms is None else floor_ms * 1e3 / n_ep)
+    row["us_per_step"] = row["ms"] * 1e3 / n_ep
+    dms = "not measured" if row["device_ms"] is None else f"{row['device_ms']:.4f} ms"
+    say(f"[sharded-sweep] poisson_2d(400) D={SHARDED_D}: one launch per apply for {n_ep} epochs "
+        f"and {row['exchanges']} exchanges: {row['ms']:.4f} ms per apply (device {dms}, "
+        f"{row['us_per_step']:.3f} us per epoch; plain whole sweep {row['plain_ms']:.1f} ms, "
+        f"bound {b_ms:.5f} ms by {b_by}); chain floor "
+        + ("not measured" if floor_ms is None else
+           f"{floor_ms:.4f} ms = {row['us_per_epoch_floor']:.3f} us per epoch")
+        + f"; the design before took {PREVIOUS_SHARDED_APPLY_MS} ms per apply (an NVIDIA H100 "
+        "80GB HBM3 at 700 W)")
+    return {"epoch_sweep": row}
 
 
 def phase_sharded_apply(dev, main_fact, fact4, nx=400):
     """[sharded-apply]: the band-partitioned apply at D = 1 and D =
     SHARDED_D, single and nb=NB, bitwise equal to the main path's
-    PrecondApply; exactly one epoch_sweep launch per epoch per apply and the
-    plan's exchanges; the time per apply."""
+    PrecondApply; exactly one epoch_sweep launch per apply (every epoch and
+    exchange in it) and the plan's exchanges counted in the group; the time
+    per apply."""
     import numpy as np
     import torch
 
@@ -1797,23 +1934,25 @@ def phase_sharded_apply(dev, main_fact, fact4, nx=400):
         tag = f"sharded-apply D={f.n_devices}"
         check_launches(tag, counts, ("epoch_sweep",),
                        idle=("tri_solve_wavefront", "spmv_ell", "inverse_chain"))
-        require(counts["epoch_sweep"] == n_ep, f"{tag}: {counts['epoch_sweep']} epoch_sweep "
-                f"launches for {n_ep} epochs")
+        require(counts["epoch_sweep"] == 1, f"{tag}: {counts['epoch_sweep']} epoch_sweep "
+                f"launches for one apply of {n_ep} epochs")
         require(f.group.collectives == tp.sweep_collectives_per_apply("gather"),
                 f"{tag}: {f.group.collectives} exchanges, the plan models "
                 f"{tp.sweep_collectives_per_apply('gather')}")
         require(bits_equal(got, want(b)), f"{tag} != the single-device PrecondApply")
         got_b = apply.batched(bs)
         require(bits_equal(got_b, want.batched(bs)), f"{tag} nb={NB} != PrecondApply nb={NB}")
-        reps = 10 if f.n_devices == 1 else 3
+        reps = 10
         ms = time_ms(lambda: apply(b), reps=reps)
         ms_b = time_ms(lambda: apply.batched(bs), reps=reps)
         say(f"[{tag}] {tp.nl_levels}+{tp.nu_levels} levels in {tp.l_sched.n_epochs}+"
             f"{tp.u_sched.n_epochs} epochs, {tp.sweep_collectives_per_apply()} exchanges and "
             f"{tp.sweep_payload_slots()} payload slots per apply (comm_summary "
             f"{json.dumps(tp.comm_summary())}); single and nb={NB} bitwise equal to "
-            f"PrecondApply; {ms:.3f} ms per apply, nb={NB} {ms_b:.3f} ms "
-            f"(tri_solve_wavefront {ref_ms:.3f} ms)")
+            f"PrecondApply; one launch per apply; {ms:.3f} ms per apply, nb={NB} {ms_b:.3f} ms "
+            f"(tri_solve_wavefront {ref_ms:.3f} ms)"
+            + (f"; the design before took {PREVIOUS_SHARDED_APPLY_MS} ms per apply at D=4 "
+               "(an NVIDIA H100 80GB HBM3 at 700 W)" if f.n_devices == 4 else ""))
     return fact1
 
 
@@ -1843,9 +1982,9 @@ def phase_distributed(dev, b, single, nx=400):
         f"{len(res.history)} residual={res.residual:.3e} float64 true residual={true_rel:.3e}")
     say(f"[distributed] wall {wall:.3f} s = factor {factor_s:.3f} s (symbolic "
         f"{fact.symbolic_seconds:.3f} s, plan + supersteps + audit {fact.numeric_seconds:.3f} s)"
-        f" + solve {wall - factor_s:.3f} s (row-block ELL, sweep plan + extract, GMRES; "
-        f"{tp.l_sched.n_epochs + tp.u_sched.n_epochs} epoch launches and "
-        f"{tp.sweep_collectives_per_apply()} exchanges per apply)")
+        f" + solve {wall - factor_s:.3f} s (row-block ELL, sweep plan + extract, GMRES; one "
+        f"epoch_sweep launch per apply for {tp.l_sched.n_epochs + tp.u_sched.n_epochs} epochs "
+        f"and {tp.sweep_collectives_per_apply()} exchanges)")
     check_launches("distributed", counts, ("epoch_sweep", "superstep_factor", "spmv_ell"),
                    idle=("factor_wavefront", "tri_solve_wavefront", "inverse_chain"))
     require(res.verdict == single.verdict and res.iterations == single.iterations
@@ -1943,12 +2082,13 @@ def run(oracles):
     by_path["main-inverse"], inv_single = phase_main_inverse(dev, b)
     by_path["multi-rhs"] = phase_multi_rhs(dev, b, single, single_wall)
     phase_card_vs_cpu(dev)
-    for bs in (BS_TILE, 32, 256, 512):
+    for bs in BILU_SIZES:
         by_path[f"bilu-bs{bs}"] = phase_bilu(dev, bs)
     phase_bilu_card_vs_cpu(dev)
     by_path["cg"] = phase_cg(dev, b)
     fact4, _ = phase_topilu(dev, main_fact)
     rows.update(phase_distributed_kernels(dev, fact4))
+    rows.update(phase_sharded_sweep(dev, main_fact))
     phase_sharded_apply(dev, main_fact, fact4)
     by_path["distributed"] = phase_distributed(dev, b, single)
     by_path["distributed-inverse"] = phase_distributed_inverse(dev, b, inv_single)

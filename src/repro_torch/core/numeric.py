@@ -20,21 +20,23 @@ import torch
 
 from repro_torch.kernels import ops
 
+from .factor_plan import SCHEDULE_FIELDS
+
 
 def make_wavefront_factorizer(plan, device):
     """``(n+1, W) A values -> (n, W) factor values`` on ``device``.
 
-    The schedule arrays are uploaded once; the returned callable takes a
-    NumPy array or a tensor and returns a tensor on ``device``.
+    The schedule arrays are uploaded, checked and (on a GPU) packed once
+    (:class:`repro_torch.kernels.ops.FactorWavefront`); the returned
+    callable takes a NumPy array or a tensor and returns a tensor on
+    ``device``.
     """
     dev = torch.device(device)
     sched = plan.schedule_tensors(dev)
+    kernel = ops.FactorWavefront(*(sched[f] for f in SCHEDULE_FIELDS), plan.n)
 
     def factorize(vals) -> torch.Tensor:
-        a_vals_ext = torch.as_tensor(vals, dtype=torch.float32, device=dev).contiguous()
-        return ops.factor_wavefront(sched["op_row"], sched["op_lane"], sched["op_piv"],
-                                    sched["op_dlane"], sched["op_dst"], sched["dst_flat"],
-                                    a_vals_ext)
+        return kernel(torch.as_tensor(vals, dtype=torch.float32, device=dev).contiguous())
 
     return factorize
 

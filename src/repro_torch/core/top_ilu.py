@@ -16,9 +16,11 @@ device:
 * the Fig-4 ring pipeline → ONE exchange per superstep through
   :class:`BandGroup`, of exactly the rows another owner needs.
 
-No kernel reads another owner's slice: values cross owners only through
-:meth:`BandGroup.exchange`, a pure copy. A backend over several cards
-replaces that method and nothing else (ROADMAP). The factorization stays on
+No kernel reads another owner's slice, except the sharded sweep's on a
+CUDA device, whose exchanges are pure copies inside one launch; elsewhere
+values cross owners through :meth:`BandGroup.exchange`, a pure copy. A
+backend over several cards replaces that method, and the sweep's
+in-kernel exchange with it (ROADMAP). The factorization stays on
 the device as a :class:`ShardedILUFactorization`, whose ``precond()`` and
 ``solve`` consume the sharded values in place.
 """
@@ -59,11 +61,12 @@ class BandGroup:
     package's 1-D ``band`` mesh (``repro.core.top_ilu.band_mesh``).
 
     Owner ``d``'s data is slice ``d`` of the leading axis of every sharded
-    tensor. :meth:`exchange` is the only way a value crosses owners, and it
-    counts what it does: ``exchanges`` (calls), ``collectives`` (one per
-    ``"gather"``, D-1 hops per ``"ring"``) and ``payload_bytes`` (bytes one
-    owner sends per exchange, summed) — the quantities the plans' comm
-    models predict.
+    tensor. Values cross owners through :meth:`exchange`, or, in the sharded
+    sweep on a CUDA device, through copies inside one kernel
+    (:class:`~repro_torch.kernels.ops.ShardedSweep`). Both count through
+    :meth:`record`: ``exchanges``, ``collectives`` (one per ``"gather"``,
+    D-1 hops per ``"ring"``) and ``payload_bytes`` (bytes one owner sends
+    per exchange, summed) — the quantities the plans' comm models predict.
     """
 
     def __init__(self, n_devices: int, device=None):
@@ -82,6 +85,14 @@ class BandGroup:
         return {"exchanges": self.exchanges, "collectives": self.collectives,
                 "payload_bytes": self.payload_bytes}
 
+    def record(self, exchanges: int, payload_bytes: int, broadcast: str = "gather") -> None:
+        """Count ``exchanges`` exchanges of ``payload_bytes`` bytes per owner
+        in all, each one collective (``"gather"``) or D-1 hops (``"ring"``)."""
+        self.exchanges += exchanges
+        self.collectives += exchanges * (1 if _broadcast(broadcast) == "gather"
+                                         else self.n_devices - 1)
+        self.payload_bytes += payload_bytes
+
     def exchange(self, payload: torch.Tensor, broadcast: str = "gather") -> torch.Tensor:
         """All-to-all copy of each owner's payload: ``payload`` is (D, E, …),
         row d the payload owner d sends; returns (D, D, E, …), where
@@ -97,12 +108,9 @@ class BandGroup:
         if payload.shape[0] != D:
             raise ValueError(f"exchange: payload of {payload.shape[0]} owners, group of {D}")
         broadcast = _broadcast(broadcast)
-        self.exchanges += 1
-        self.payload_bytes += payload[0].numel() * payload.element_size()
+        self.record(1, payload[0].numel() * payload.element_size(), broadcast)
         if broadcast == "gather":
-            self.collectives += 1
             return payload.clone().unsqueeze(0).expand((D,) + tuple(payload.shape))
-        self.collectives += D - 1
         out = torch.empty((D,) + tuple(payload.shape), dtype=payload.dtype,
                           device=payload.device)
         me = torch.arange(D, device=payload.device)

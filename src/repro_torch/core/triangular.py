@@ -452,25 +452,102 @@ def build_sharded_triangular_plan(pattern: ILUPattern, band_rows: int,
 
 
 
+@dataclasses.dataclass
+class SweepSide:
+    """One sweep's tables for :class:`~repro_torch.kernels.ops.ShardedSweep`,
+    on one device. ``cols`` is the schedule's owner-local (D, nlev, maxr, W)
+    dependency table; the right-hand side of slot s of owner d is entry
+    ``rhs_idx[d, s]`` of its source (``rhs_len`` and past: +0.0), and
+    ``limit`` the scratch address. Exchanges, flattened with per-exchange
+    offsets: ``ex_after[l]`` is k + 1 when exchange k follows level l (else
+    0); exchange k has E_k = ``ex_off[k+1] - ex_off[k]`` entries per owner,
+    ``eg[D*ex_off[k]:]`` (D, E_k) the senders' local addresses,
+    ``ing[D*D*ex_off[k]:]`` (D recv, D send, E_k) where each receiver files
+    them (pad: ``limit``), ``rep`` (D, E_k) their global slots (pad: the
+    output's scratch slot; U only). ``ex_base`` counts the exchanges of the
+    sweeps before this one."""
+
+    cols: torch.Tensor
+    rhs_idx: torch.Tensor
+    rhs_len: int
+    limit: int
+    ex_after: torch.Tensor
+    ex_off: torch.Tensor
+    eg: torch.Tensor
+    ing: torch.Tensor
+    rep: torch.Tensor
+    ex_base: int
+
+
+@dataclasses.dataclass
+class ShardedSweepTables:
+    """The tables of a band-partitioned apply, built once per plan and device:
+    the L and U :class:`SweepSide`, ``out_row`` (D, nu, maxr_u) (the output
+    row of each U slot, ``n`` for a pad), the final assembly's ``fin_src``
+    (D, F) local addresses and ``fin_slots`` (D, F) global slots (pad: the
+    output's scratch slot ``nu_slots``), ``out_perm`` (n,) and the plan's
+    exchanges and payload slots per apply (what ``BandGroup`` counts)."""
+
+    n: int
+    n_owners: int
+    nu_slots: int
+    l: SweepSide
+    u: SweepSide
+    out_row: torch.Tensor
+    fin_src: torch.Tensor
+    fin_slots: torch.Tensor
+    out_perm: torch.Tensor
+    exchanges: int
+    payload_slots: int
+
+
+def _sweep_side(sched: SweepEpochSchedule, rhs_idx, rhs_len: int, ex_base: int, rep_pad: int,
+                device) -> SweepSide:
+    """Flatten one sweep's per-epoch egress/ingress lists (exact payloads,
+    ragged per epoch) into the offsets-and-entries tables the kernel reads."""
+    ex_after = np.zeros(sched.n_levels, np.int32)
+    off, eg, ing, rep = [0], [], [], []
+    for e, (g, i, sl) in enumerate(zip(sched.egress, sched.ingress, sched.egress_slots)):
+        if g is None:
+            continue
+        ex_after[int(sched.epoch_bounds[e + 1]) - 1] = len(off)
+        off.append(off[-1] + g.shape[1])
+        eg.append(g.reshape(-1))
+        ing.append(i.reshape(-1))
+        rep.append(np.where(sl >= 0, sl, rep_pad).reshape(-1))
+
+    def on(x, dtype=torch.int32):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype, device=device)
+
+    def cat(parts):
+        return np.concatenate(parts) if parts else np.zeros(0, np.int64)
+
+    return SweepSide(cols=on(sched.cols_local), rhs_idx=on(rhs_idx), rhs_len=int(rhs_len),
+                     limit=int(sched.scratch), ex_after=on(ex_after), ex_off=on(off),
+                     eg=on(cat(eg)), ing=on(cat(ing)), rep=on(cat(rep), torch.int64),
+                     ex_base=int(ex_base))
+
 
 class ShardedTriangularEngine:
     """Structure-only machinery of the band-partitioned sweeps, over D band
     owners on one device.
 
-    Holds the schedule tables on the device of ``group`` (a
-    :class:`~repro_torch.core.top_ilu.BandGroup`), each with a leading
-    owner axis, and two steps: :meth:`extract` (each owner's local factor
-    ELL block -> its level-major L/U/diag blocks) and :meth:`sweep`, the
+    Holds the schedule as :class:`ShardedSweepTables` on the device of
+    ``group`` (a :class:`~repro_torch.core.top_ilu.BandGroup`), each table
+    with a leading owner axis, and :meth:`extract` (each owner's local
+    factor ELL block -> its level-major L/U/diag blocks). The
     **epoch-fused** L-then-U sweep over owner-local sweep vectors
-    ``[local slots | ingress halo | scratch]``. Per collective epoch one
-    ``epoch_sweep`` launch runs the epoch's levels for every owner and
-    right-hand side, then, when some owner reads another's slots
-    downstream, ONE :meth:`BandGroup.exchange` ships exactly those slots
-    (``"gather"``: one collective; ``"ring"``: D-1 hops). The final output
-    assembly ships only the rows no epoch exchange already broadcast. The
-    engine binds no group: each :meth:`sweep` exchanges through the group
-    its caller passes, so one cached engine serves every group of its
-    owner count and device.
+    ``[local slots | ingress halo | scratch]`` is
+    :class:`~repro_torch.kernels.ops.ShardedSweep`: per collective epoch the
+    epoch's levels for every owner and right-hand side, then, when some
+    owner reads another's slots downstream, ONE exchange of exactly those
+    slots (``"gather"``: one collective; ``"ring"``: D-1 hops); the final
+    output assembly ships only the rows no epoch exchange already
+    broadcast. On a CUDA device the whole apply is one persistent launch
+    whose exchanges are copies inside the card; on the CPU each exchange
+    goes through ``BandGroup.exchange``. The engine binds no group: each
+    apply exchanges through the group its caller passes, so one cached
+    engine serves every group of its owner count and device.
 
     The JAX engine defaults to ``use_pallas=False`` and every JAX caller
     keeps it, so the JAX sharded path runs ``epoch_sweep_jnp`` — the Pallas
@@ -490,9 +567,6 @@ class ShardedTriangularEngine:
         D = plan.n_devices
         ls, us = plan.l_sched, plan.u_sched
 
-        def i32(x):
-            return torch.as_tensor(np.ascontiguousarray(x), dtype=torch.int32, device=dev)
-
         def i64(x):
             return torch.as_tensor(np.ascontiguousarray(x), dtype=torch.int64, device=dev)
 
@@ -500,18 +574,23 @@ class ShardedTriangularEngine:
         self._l_src, self._u_src = i64(plan.l_src), i64(plan.u_src)
         self._l_lane, self._u_lane = i64(plan.l_lane), i64(plan.u_lane)
         self._u_dlane = i64(plan.u_dlane)
-        self._l_cols, self._u_cols = i32(ls.cols_local), i32(us.cols_local)
-        self._l_rhs, self._u_rhs = i64(plan.l_rhs), i64(plan.u_rhs_loc)
-        self._fin_src = plan.fin_src
-        self._ex_l = [(e, i) for e, i in zip(ls.egress, ls.ingress) if e is not None]
-        self._ex_u = [(e, i, np.where(sl >= 0, sl, plan.nu_slots))
-                      for e, i, sl in zip(us.egress, us.ingress, us.egress_slots) if e is not None]
-        self._by_nb = {}
-        self._out_perm = i64(plan.out_perm)
-        self._l_bounds = [int(v) for v in ls.epoch_bounds]
-        self._u_bounds = [int(v) for v in us.epoch_bounds]
-        self._l_has = [e is not None for e in ls.egress]
-        self._u_has = [e is not None for e in us.egress]
+        n, maxr_u = plan.n, plan.maxr_u
+        out_row = np.full((D, plan.nu_levels, maxr_u), n, np.int64)
+        slot = plan.out_perm.astype(np.int64)
+        out_row[(slot // maxr_u) % D, slot // (D * maxr_u), slot % maxr_u] = np.arange(n)
+        fin = D > 1 and plan.fin_src.shape[1] > 0
+        self.tables = ShardedSweepTables(
+            n=n, n_owners=D, nu_slots=plan.nu_slots,
+            l=_sweep_side(ls, plan.l_rhs, n, 0, plan.nu_slots, dev),
+            u=_sweep_side(us, plan.u_rhs_loc, ls.scratch, ls.exchange_count(), plan.nu_slots,
+                          dev),
+            out_row=torch.as_tensor(out_row, dtype=torch.int32, device=dev),
+            fin_src=i64(plan.fin_src),
+            fin_slots=i64(np.where(plan.fin_slots >= 0, plan.fin_slots, plan.nu_slots)),
+            out_perm=i64(plan.out_perm),
+            exchanges=ls.exchange_count() + us.exchange_count() + int(fin),
+            payload_slots=(ls.exchanged_slot_count() + us.exchanged_slot_count()
+                           + (plan.fin_src.shape[1] if fin else 0)))
 
     def extract(self, loc: torch.Tensor):
         """(D, s_loc, W) local factor blocks -> level-major (D, nl, maxr_l,
@@ -533,100 +612,6 @@ class ShardedTriangularEngine:
         dg = ext[self._owner[:, None, None], self._u_src, self._u_dlane]
         return lv.contiguous(), uv.contiguous(), dg.contiguous()
 
-    def _lane_tables(self, nb: int) -> dict:
-        """The exchanges' index tables for an nb-lane batch, flattened once
-        and cached: per exchange the (D, nb, E) egress gather of each
-        owner's own vector, the (D recv, D send, nb, E) flat halo addresses
-        each receiver scatters into its own vector, and (U side) the
-        (D, nb, E) flat addresses in the replicated output vector."""
-        t = self._by_nb.get(nb)
-        if t is not None:
-            return t
-        p = self.plan
-        D, dev = p.n_devices, self.device
-        lane = np.arange(nb, dtype=np.int64)
-        rows = np.arange(D, dtype=np.int64)[:, None] * nb + lane[None, :]  # (D, nb)
-
-        def gather(eg):  # (D, E) -> (D, nb, E)
-            return np.broadcast_to(np.asarray(eg, np.int64)[:, None, :], (D, nb, eg.shape[1]))
-
-        def scatter(ing, xlen):  # (D, D, E) -> (D, D, nb, E) flat into x.view(-1)
-            return rows[:, None, :, None] * xlen + np.asarray(ing, np.int64)[:, :, None, :]
-
-        def rep(slots):  # (D, E) -> (D, nb, E) flat into x_rep.view(-1)
-            return lane[None, :, None] * (p.nu_slots + 1) + slots[:, None, :].astype(np.int64)
-
-        def on(x):
-            return torch.as_tensor(np.array(x, dtype=np.int64, order="C"), device=dev)
-
-        xl, xu = p.l_sched.scratch + 1, p.u_sched.scratch + 1
-        t = self._by_nb[nb] = dict(
-            l=[(on(gather(e)), on(scatter(i, xl))) for e, i in self._ex_l],
-            u=[(on(gather(e)), on(scatter(i, xu)), on(rep(r))) for e, i, r in self._ex_u],
-            fin=(on(gather(self._fin_src)),
-                 on(rep(np.where(p.fin_slots >= 0, p.fin_slots, p.nu_slots)))))
-        return t
-
-    def _exchange_into(self, group, x, g_idx, s_idx):
-        """One epoch exchange: each owner's egress slots of ``x`` (D, nb,
-        xlen) go to every owner through ``group``, and each receiver writes
-        them into its own halo. Returns the received payloads (D recv,
-        D send, nb, E)."""
-        payload = torch.gather(x, 2, g_idx)  # (D, nb, E): each owner's own slots
-        got = group.exchange(payload, self.broadcast)
-        x.view(-1).index_put_((s_idx,), got)
-        return got
-
-    def sweep(self, lv, uv, dg, b: torch.Tensor, group) -> torch.Tensor:
-        """x = (LU)^{-1} b for a (nb, n) batch ``b`` (replicated), over the
-        extracted blocks ``lv``/``uv``/``dg``, exchanging through ``group``;
-        returns (nb, n)."""
-        from repro_torch.kernels import ops
-
-        p = self.plan
-        D = p.n_devices
-        if group.n_devices != D:
-            raise ValueError(f"sweep: a group of {group.n_devices} owners, the plan has {D}")
-        ls, us = p.l_sched, p.u_sched
-        maxr_u = p.maxr_u
-        nb = b.shape[0]
-        dev = b.device
-        tabs = self._lane_tables(nb)
-        b_ext = torch.cat([b, b.new_zeros((nb, 1))], dim=1)
-        l_r = b_ext[:, self._l_rhs].transpose(0, 1).contiguous()  # (D, nb, nl, maxr_l)
-        x_l = torch.zeros((D, nb, ls.scratch + 1), dtype=torch.float32, device=dev)
-        k = 0
-        for e in range(ls.n_epochs):
-            lo, hi = self._l_bounds[e], self._l_bounds[e + 1]
-            ops.epoch_sweep(x_l, self._l_cols, lv, l_r, None, lo, hi, ls.scratch)
-            if self._l_has[e] and D > 1:
-                self._exchange_into(group, x_l, *tabs["l"][k])
-                k += 1
-        # the U right-hand side: each owner's own rows' L output, owner-local
-        nu = p.nu_levels
-        u_r = torch.gather(x_l, 2, self._u_rhs.reshape(D, 1, -1).expand(D, nb, nu * maxr_u))
-        u_r = u_r.view(D, nb, nu, maxr_u)
-        x_u = torch.zeros((D, nb, us.scratch + 1), dtype=torch.float32, device=dev)
-        # the replicated output vector (slot space), assembled from exchanges
-        x_rep = torch.zeros((nb, p.nu_slots + 1), dtype=torch.float32, device=dev)
-        k = 0
-        for e in range(us.n_epochs):
-            lo, hi = self._u_bounds[e], self._u_bounds[e + 1]
-            ops.epoch_sweep(x_u, self._u_cols, uv, u_r, dg, lo, hi, us.scratch)
-            if self._u_has[e] and D > 1:
-                g_idx, s_idx, r_idx = tabs["u"][k]
-                got = self._exchange_into(group, x_u, g_idx, s_idx)
-                # an exchange leaves its payload on every owner: fold it into
-                # the output right away, so the final assembly never re-ships it
-                x_rep.view(-1).index_put_((r_idx,), got[0])
-                k += 1
-        if self._fin_src.shape[1]:  # F == 0: every output row was already broadcast
-            g_idx, r_idx = tabs["fin"]
-            payload = torch.gather(x_u, 2, g_idx)  # (D, nb, F)
-            allf = group.exchange(payload, self.broadcast)[0] if D > 1 else payload
-            x_rep.view(-1).index_put_((r_idx,), allf)
-        return x_rep[:, self._out_perm]
-
 
 class ShardedPrecondApply:
     """Band-partitioned, device-resident application of M^{-1} = (LU)^{-1}.
@@ -642,9 +627,11 @@ class ShardedPrecondApply:
 
     ``__call__`` takes an (n,) or (nb, n) float32 tensor on the group's
     device; ``batched`` requires (nb, n). A batch rides through one epoch
-    schedule: every launch and every exchange carries all right-hand sides.
-    Pass a cached :class:`ShardedTriangularEngine` to rebind new values to
-    it (refactorizations of one structure); the exchanges go through
+    schedule: every exchange carries all right-hand sides, and on a CUDA
+    device the whole apply is one launch
+    (:class:`~repro_torch.kernels.ops.ShardedSweep`). Pass a cached
+    :class:`ShardedTriangularEngine` to rebind new values to it
+    (refactorizations of one structure); the exchanges go through
     ``group``, whichever group the engine was built with.
     """
 
@@ -660,6 +647,7 @@ class ShardedPrecondApply:
         self.group = group
         self.n = self.plan.n
         self._lv, self._uv, self._dg = engine.extract(loc_vals)
+        self.sweep = ops.ShardedSweep(engine.tables, self._lv, self._uv, self._dg)
 
     def __call__(self, b: torch.Tensor) -> torch.Tensor:
         if b.ndim == 2:
@@ -667,11 +655,11 @@ class ShardedPrecondApply:
         if b.ndim != 1 or b.shape[0] != self.n:
             raise ValueError(f"expected b of shape ({self.n},) or (nb, {self.n}), got "
                              f"{tuple(b.shape)}")
-        return self._engine.sweep(self._lv, self._uv, self._dg, b[None], self.group)[0]
+        return self.sweep(b[None], self.group, self._engine.broadcast)[0]
 
     apply = __call__
 
     def batched(self, bs: torch.Tensor) -> torch.Tensor:
         if bs.ndim != 2 or bs.shape[1] != self.n:
             raise ValueError(f"batched expects (nb, {self.n}), got shape {tuple(bs.shape)}")
-        return self._engine.sweep(self._lv, self._uv, self._dg, bs, self.group)
+        return self.sweep(bs, self.group, self._engine.broadcast)

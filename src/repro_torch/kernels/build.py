@@ -42,7 +42,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _IP, _PP = ctypes.POINTER(_I), ctypes.POINTER(_P)
 _SIGNATURES = {
     "spmv_ell_launch": [_P] * 4 + [_I] * 4 + [_P],
-    "factor_wavefront_launch": [_P] * 7 + [_I] * 4 + [_P],
+    "factor_wavefront_launch": [_P] * 4 + [_I] * 4 + [_P],
+    "factor_wavefront_chain_floor_launch": [_I, _I, _P, _P, _P],
+    "factor_wavefront_threads": [_I, _I],
     "tri_solve_sweep_config": [_I] * 7 + [_IP],
     "tri_solve_wavefront_launch": [_PP, _IP] + [_P] * 4 + [_I, _P],
     "tri_solve_chain_floor_launch": [_I] * 3 + [_P] + [_P],
@@ -54,6 +56,9 @@ _SIGNATURES = {
     "tile_lu_launch": [_P] * 2 + [_I] + [_P],
     "tile_lu_chain_floor_launch": [_I, _P, _P],
     "epoch_sweep_launch": [_P] * 5 + [_I] * 9 + [_P],
+    "epoch_sweep_apply_launch": [_PP, _IP] + [_P] * 5 + [_I, _P],
+    "epoch_sweep_max_owners": [_I, _IP],
+    "epoch_sweep_chain_floor_launch": [_I] * 3 + [_P] * 4,
     "superstep_factor_launch": [_P] * 6 + [_I] * 10 + [_P],
 }
 

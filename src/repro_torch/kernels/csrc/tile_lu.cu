@@ -42,12 +42,24 @@
 // 256 KB at bs = 256). Only where the final rows are read from changes:
 // the chain, its rounded operations and so the bits are the same. The
 // shared-memory variant writes the output once, after the last row. The
-// launch picks the variant from the device's limit. Registers bound the
-// row: NC <= 16, bs <= 512.
+// launch picks the variant from the device's limit.
+//
+// Tiles above bs = 512 (more than 16 entries of a row per lane): the
+// CHUNKED variant walks each row in chunks of 16 x 32 = 512 columns. For
+// chunk [cb, cb + 512) the row first takes the steps c < min(r, cb), in
+// ascending c, with l = t[r][c] read back from the row's earlier chunk in
+// the output (written by the same warp, ordered by __syncwarp); then the
+// steps c in [cb, min(r, cb + 512)) as the bs <= 512 body runs them. A step
+// c only touches columns j > c, so chunk cb's entries are final after the
+// steps c < cb + 512, and each entry still receives its steps in ascending
+// c, the rounded operations of the plain version: the bits are the same.
+// Each chunk has its own counts of final rows (see the kernel); the final
+// rows are read from the output (IN_SMEM = false).
 #include "tile_common.cuh"
 
 #define WARPS 32
-#define MAX_NC 16  // registers per lane for one row: bs <= 512
+#define MAX_NC 16  // registers per lane for one row: bs <= 512 in one chunk
+#define CHUNK (MAX_NC * LANES)  // columns of one chunk of the CHUNKED variant
 #define SMEM_NC 8  // the largest NC whose tile can fit in shared memory (bs <= 240)
 #define HEAD LANES // floats before the tile in shared memory: the lanes' counts
 
@@ -105,6 +117,82 @@ tile_lu_kernel(const float* t, float* out, int bs) {
   }
 }
 
+// bs > CHUNK: the rows in chunks of CHUNK columns, final rows read from
+// the output. Each chunk has its own count per lane: a row publishes chunk
+// k once its entries there are final (after the row before it did), and a
+// step c of chunk k waits only for row c's chunk k. So a row's chunks
+// pipeline behind the rows before it, and the steps of a chunk's earlier
+// columns (its catch-up) stay off the chain of rows. Every wait is for a
+// lower row of the same chunk, so the lowest unfinished row can always go
+// on: no wait can deadlock.
+__global__ void __launch_bounds__(WARPS * LANES)
+tile_lu_chunked_kernel(const float* t, float* out, int bs) {
+  extern __shared__ int counts[];  // [chunk][lane]: rows whose chunk is final
+  const int lane = threadIdx.x % LANES, warp = threadIdx.x / LANES;
+  const int n_chunks = (bs + CHUNK - 1) / CHUNK;
+  for (int i = threadIdx.x; i < n_chunks * LANES; i += blockDim.x) counts[i] = 0;
+  __syncthreads();
+  for (int r = warp; r < bs; r += WARPS) {
+    const size_t row = (size_t)r * bs;
+    for (int cb = 0; cb < bs; cb += CHUNK) {
+      int* done = counts + (cb / CHUNK) * LANES + lane;  // this lane's count of chunk cb
+      int known = 0;  // this lane's last reading of it
+      float x[MAX_NC];
+#pragma unroll
+      for (int q = 0; q < MAX_NC; ++q) {
+        const int j = cb + q * LANES + lane;
+        x[q] = j < bs ? t[row + j] : 0.0f;
+      }
+      const int early = min(r, cb);
+      for (int c = 0; c < early; ++c) {  // the earlier chunks' steps, ascending
+        if (c >= known) {
+          do known = load_acquire(done);
+          while (known <= c);
+        }
+        const float l = out[row + c];  // final: written by this warp
+        const float* uc = out + (size_t)c * bs + cb + lane;
+#pragma unroll
+        for (int q = 0; q < MAX_NC; ++q) {
+          const float uv = cb + q * LANES + lane < bs ? uc[q * LANES] : 0.0f;
+          x[q] = __fsub_rn(x[q], __fmul_rn(l, uv));
+        }
+      }
+#pragma unroll
+      for (int q0 = 0; q0 < MAX_NC; ++q0) {
+        const int steps = min(LANES, r - cb - q0 * LANES);
+        for (int jj = 0; jj < steps; ++jj) {
+          const int c = cb + q0 * LANES + jj;
+          if (c >= known) {
+            do known = load_acquire(done);
+            while (known <= c);
+          }
+          const float* uc = out + (size_t)c * bs + cb + q0 * LANES + lane;
+          float uv[MAX_NC];
+#pragma unroll
+          for (int q = q0; q < MAX_NC; ++q)
+            uv[q] = cb + q * LANES + lane < bs ? uc[(q - q0) * LANES] : 0.0f;
+          const float l = divide(__shfl_sync(FULL_MASK, x[q0], jj),
+                                 __shfl_sync(FULL_MASK, uv[q0], jj));
+          x[q0] = lane > jj ? __fsub_rn(x[q0], __fmul_rn(l, uv[q0])) : lane == jj ? l : x[q0];
+#pragma unroll
+          for (int q = q0 + 1; q < MAX_NC; ++q) x[q] = __fsub_rn(x[q], __fmul_rn(l, uv[q]));
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < MAX_NC; ++q) {
+        const int j = cb + q * LANES + lane;
+        if (j < bs) out[row + j] = x[q];
+      }
+      __syncwarp();  // the chunk's L entries, read back by every lane
+      if (r > known) {  // chunks are published in row order
+        do known = load_acquire(done);
+        while (known < r);
+      }
+      store_release(done, r + 1);
+    }
+  }
+}
+
 // The chain floor: the same warps, rows and count exchanges with no
 // arithmetic and no tile, so its time is the chain of bs exchanges alone.
 __global__ void __launch_bounds__(WARPS * LANES) tile_lu_chain_floor_kernel(int bs, int* sink) {
@@ -133,6 +221,16 @@ static cudaError_t launch(const float* t, float* out, int bs, int optin, cudaStr
   if constexpr (NC < MAX_NC) {
     if (NC * LANES < bs) return launch<NC + 1>(t, out, bs, optin, stream);
   }
+  if (bs > CHUNK) {
+    const size_t counts = (size_t)((bs + CHUNK - 1) / CHUNK) * LANES * sizeof(int);
+    if (counts > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          tile_lu_chunked_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)counts);
+      if (err != cudaSuccess) return err;
+    }
+    tile_lu_chunked_kernel<<<1, WARPS * LANES, counts, stream>>>(t, out, bs);
+    return cudaGetLastError();
+  }
   const bool fits = smem_bytes(bs, true) <= (size_t)optin;
   if constexpr (NC <= SMEM_NC) {
     if (fits) {
@@ -154,7 +252,7 @@ static cudaError_t launch(const float* t, float* out, int bs, int optin, cudaStr
 }
 
 extern "C" int tile_lu_launch(const void* t, void* out, int bs, void* stream) {
-  if (bs < 1 || bs > MAX_NC * LANES) return (int)cudaErrorInvalidValue;
+  if (bs < 1) return (int)cudaErrorInvalidValue;
   int dev, optin;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)

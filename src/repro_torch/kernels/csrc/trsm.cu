@@ -50,7 +50,18 @@
 // memory. The launch picks the variant from the device's limit: NC <= 7
 // (bs <= 224) always fits and NC >= 9 (bs > 256) never does, so the
 // in-place variant is instantiated for NC >= 8 and the other for NC <= 8.
-// Registers bound the tile: NC <= 16 accumulators per lane, bs <= 512.
+//
+// Tiles above bs = 512 (more than 16 accumulators per lane): the CHUNKED
+// variant walks the row (right) or column (left) in chunks of 16 x 32 =
+// 512 entries. A lane keeps the current chunk's accumulators in registers;
+// the chunk first receives the terms of the earlier chunks' entries, j = 0,
+// 1, ... in ascending order, each final x[j] read back from the output
+// (L2-resident; written by the same warp, ordered by __syncwarp), and then
+// runs the substitution of the bs <= 512 body from its own first entry on.
+// Every entry so still receives its terms in ascending j, the chain of
+// rounded operations of the plain version, and the bits are the same. The
+// triangle and the panel are read in place from device memory (no shared
+// memory), so any bs runs.
 //
 // One kernel body serves one panel and a batch of tiles: blockIdx.y picks
 // the panel, at `slots[blockIdx.y]` tiles of the pool (the batched form:
@@ -66,7 +77,8 @@
 // in a write past the pool or a race with the triangle.
 #include "tile_common.cuh"
 
-#define MAX_NC 16     // accumulators per lane: bs <= 512
+#define MAX_NC 16     // accumulators per lane: bs <= 512 in one chunk
+#define CHUNK (MAX_NC * LANES)  // entries of one chunk of the CHUNKED variant
 #define SMEM_NC 8     // the largest NC whose triangle can fit in shared memory (bs <= 241)
 #define ROW_WARPS 8   // right solve: rows of X per block
 #define COL_WARPS 8   // left solve: columns of X per block
@@ -204,6 +216,106 @@ trsm_left_unit_lower_kernel(const float* __restrict__ l, const float* a, float* 
   }
 }
 
+// bs > CHUNK: one warp per row of X, the row in chunks of CHUNK columns.
+__global__ void __launch_bounds__(ROW_WARPS * LANES)
+trsm_right_upper_chunked_kernel(const float* a, const float* __restrict__ u, float* out,
+                                const int* __restrict__ slots, int n_tiles, int diag_slot,
+                                int m, int bs) {
+  const int lane = threadIdx.x % LANES, warp = threadIdx.x / LANES;
+  const int r = blockIdx.x * ROW_WARPS + warp;
+  const size_t row = (panel_of(slots, n_tiles, diag_slot) * m + r) * bs;
+  if (r >= m) return;
+  for (int cb = 0; cb < bs; cb += CHUNK) {
+    float x[MAX_NC], acc[MAX_NC];
+#pragma unroll
+    for (int q = 0; q < MAX_NC; ++q) {
+      const int c = cb + q * LANES + lane;
+      x[q] = c < bs ? a[row + c] : 0.0f;
+      acc[q] = 0.0f;
+    }
+    for (int j = 0; j < cb; ++j) {  // the earlier chunks' final x[j], ascending
+      const float xj = out[row + j];
+#pragma unroll
+      for (int q = 0; q < MAX_NC; ++q) {
+        const int c = cb + q * LANES + lane;
+        if (c < bs) acc[q] = __fadd_rn(acc[q], __fmul_rn(xj, u[(size_t)j * bs + c]));
+      }
+    }
+#pragma unroll
+    for (int q0 = 0; q0 < MAX_NC; ++q0) {
+      const int steps = min(LANES, bs - cb - q0 * LANES);
+#pragma unroll 4
+      for (int jj = 0; jj < steps; ++jj) {
+        const int j = cb + q0 * LANES + jj;
+        const float num = __shfl_sync(FULL_MASK, __fsub_rn(x[q0], acc[q0]), jj);
+        const float xj = divide(num, u[(size_t)j * bs + j]);
+        x[q0] = lane == jj ? xj : x[q0];
+#pragma unroll
+        for (int q = q0; q < MAX_NC; ++q) {
+          const int c = cb + q * LANES + lane;
+          if (c > j && c < bs) acc[q] = __fadd_rn(acc[q], __fmul_rn(xj, u[(size_t)j * bs + c]));
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < MAX_NC; ++q) {
+      const int c = cb + q * LANES + lane;
+      if (c < bs) out[row + c] = x[q];
+    }
+    __syncwarp();  // the chunk's x, read back by every lane of the warp
+  }
+}
+
+// bs > CHUNK: one warp per column of X, the column in chunks of CHUNK rows.
+__global__ void __launch_bounds__(COL_WARPS * LANES)
+trsm_left_unit_lower_chunked_kernel(const float* __restrict__ l, const float* a, float* out,
+                                    const int* __restrict__ slots, int n_tiles, int diag_slot,
+                                    int bs, int n) {
+  const int lane = threadIdx.x % LANES, warp = threadIdx.x / LANES;
+  const int col = blockIdx.x * COL_WARPS + warp;
+  const size_t panel = panel_of(slots, n_tiles, diag_slot) * bs * n + col;
+  if (col >= n) return;
+  for (int rb = 0; rb < bs; rb += CHUNK) {
+    float x[MAX_NC], acc[MAX_NC];
+#pragma unroll
+    for (int q = 0; q < MAX_NC; ++q) {
+      const int r = rb + q * LANES + lane;
+      x[q] = r < bs ? a[panel + (size_t)r * n] : 0.0f;
+      acc[q] = 0.0f;
+    }
+    for (int j = 0; j < rb; ++j) {  // the earlier chunks' final x[j], ascending
+      const float xj = out[panel + (size_t)j * n];
+#pragma unroll
+      for (int q = 0; q < MAX_NC; ++q) {
+        const int r = rb + q * LANES + lane;
+        if (r < bs) acc[q] = __fadd_rn(acc[q], __fmul_rn(l[(size_t)r * bs + j], xj));
+      }
+    }
+#pragma unroll
+    for (int q0 = 0; q0 < MAX_NC; ++q0) {
+      const int steps = min(LANES, bs - rb - q0 * LANES);
+#pragma unroll 4
+      for (int jj = 0; jj < steps; ++jj) {
+        const int j = rb + q0 * LANES + jj;
+        const float v = __fsub_rn(x[q0], acc[q0]);
+        const float xj = __shfl_sync(FULL_MASK, v, jj);
+        x[q0] = lane == jj ? v : x[q0];
+#pragma unroll
+        for (int q = q0; q < MAX_NC; ++q) {
+          const int r = rb + q * LANES + lane;
+          if (r > j && r < bs) acc[q] = __fadd_rn(acc[q], __fmul_rn(l[(size_t)r * bs + j], xj));
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < MAX_NC; ++q) {
+      const int r = rb + q * LANES + lane;
+      if (r < bs) out[panel + (size_t)r * n] = x[q];
+    }
+    __syncwarp();  // the chunk's x, read back by every lane of the warp
+  }
+}
+
 // Shared memory above 48 KB must be asked for per kernel (bs >= 106 here).
 template <typename K>
 static cudaError_t allow_smem(K kernel, size_t bytes) {
@@ -241,6 +353,11 @@ static cudaError_t right_launch(const float* a, const float* u, float* out, cons
       return right_launch<NC + 1>(a, u, out, slots, n_tiles, diag_slot, n_panels, m, bs, stream);
   }
   const dim3 grid((m + ROW_WARPS - 1) / ROW_WARPS, n_panels);
+  if (bs > CHUNK) {
+    trsm_right_upper_chunked_kernel<<<grid, ROW_WARPS * LANES, 0, stream>>>(
+        a, u, out, slots, n_tiles, diag_slot, m, bs);
+    return cudaGetLastError();
+  }
   bool fits = true;  // NC < SMEM_NC always fits on sm_90
   cudaError_t err = cudaSuccess;
   if constexpr (NC >= SMEM_NC) {
@@ -274,6 +391,11 @@ static cudaError_t left_launch(const float* l, const float* a, float* out, const
       return left_launch<NC + 1>(l, a, out, slots, n_tiles, diag_slot, n_panels, bs, n, stream);
   }
   const dim3 grid((n + COL_WARPS - 1) / COL_WARPS, n_panels);
+  if (bs > CHUNK) {
+    trsm_left_unit_lower_chunked_kernel<<<grid, COL_WARPS * LANES, 0, stream>>>(
+        l, a, out, slots, n_tiles, diag_slot, bs, n);
+    return cudaGetLastError();
+  }
   bool fits = true;  // NC < SMEM_NC always fits on sm_90
   cudaError_t err = cudaSuccess;
   if constexpr (NC >= SMEM_NC) {
@@ -305,7 +427,7 @@ static cudaError_t left_launch(const float* l, const float* a, float* out, const
 extern "C" int trsm_right_upper_launch(const void* a, const void* u, void* out, const void* slots,
                                        int n_tiles, int diag_slot, int n_panels, int m, int bs,
                                        void* stream) {
-  if (bs < 1 || bs > MAX_NC * LANES) return (int)cudaErrorInvalidValue;
+  if (bs < 1) return (int)cudaErrorInvalidValue;
   return (int)right_launch<1>((const float*)a, (const float*)u, (float*)out, (const int*)slots,
                               n_tiles, diag_slot, n_panels, m, bs, (cudaStream_t)stream);
 }
@@ -316,7 +438,7 @@ extern "C" int trsm_right_upper_launch(const void* a, const void* u, void* out, 
 extern "C" int trsm_left_unit_lower_launch(const void* l, const void* a, void* out,
                                            const void* slots, int n_tiles, int diag_slot,
                                            int n_panels, int bs, int n, void* stream) {
-  if (bs < 1 || bs > MAX_NC * LANES) return (int)cudaErrorInvalidValue;
+  if (bs < 1) return (int)cudaErrorInvalidValue;
   return (int)left_launch<1>((const float*)l, (const float*)a, (float*)out, (const int*)slots,
                              n_tiles, diag_slot, n_panels, bs, n, (cudaStream_t)stream);
 }

@@ -18,21 +18,22 @@ that the factorization updates the slots of its tile pool in place, and
 the two tile solves have a batched form (``*_slots``) that solves a list
 of the pool's tiles in place in one launch of the same kernel, as
 ``panel_update_slots`` runs one pivot's tile products in one launch of
-``panel_update``'s kernel; the two kernels of the distributed path
-(``epoch_sweep``, ``superstep_factor``) update their state in place, as
-the one launch per epoch or superstep needs no copy.
+``panel_update``'s kernel; the per-epoch ``epoch_sweep`` and
+``superstep_factor`` update their state in place.
 
-Two kernels of the main path also have a form that is checked once and
-launched many times: :class:`EllOperator` (``spmv_ell`` over one matrix)
-and :class:`TriSolveWavefront` (``tri_solve_wavefront`` over one plan).
-They check their matrix or plan when they are made, keep the kernel's
-entry point bound through :class:`_Bound`, and check only the right-hand
-side on a call. The checked functions ``spmv_ell`` and
-``tri_solve_wavefront`` make one of these per call and call it once; they
-stay the entry points of the tests and of the comparisons with the plain
-versions. The tile kernels of Block-ILU(k) launch through a
-:class:`_Bound` made once per device and entry point (:func:`_bound`);
-the other kernels still go through :func:`_launch`.
+Four kernels also have a form that is checked once and launched many
+times: :class:`EllOperator` (``spmv_ell`` over one matrix),
+:class:`TriSolveWavefront` (``tri_solve_wavefront`` over one plan),
+:class:`FactorWavefront` (``factor_wavefront`` over one schedule, packed
+once) and :class:`ShardedSweep` (a whole band-partitioned apply, every
+epoch and exchange, in one persistent launch of ``epoch_sweep``'s
+kernel). They check their matrix, plan or tables when they are made, keep
+the kernel's entry point bound through :class:`_Bound`, and check only
+what changes on a call. The checked functions ``spmv_ell``,
+``tri_solve_wavefront`` and ``factor_wavefront`` make one of these per
+call and call it once; they stay the entry points of the tests and of the
+comparisons with the plain versions. Every other wrapper launches through
+a :class:`_Bound` made once per device and entry point (:func:`_bound`).
 """
 from __future__ import annotations
 
@@ -65,18 +66,6 @@ def _route(device: torch.device) -> bool:
     if device.type == "cuda":
         return True
     raise ValueError(f"no kernel or plain version for device {device}")
-
-
-def _launch(fn_name: str, device: torch.device, *args) -> None:
-    from .build import load
-
-    lib = load()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, fn_name)(*args, stream)
-    if err != 0:
-        msg = lib.repro_cuda_error_string(err).decode()
-        raise RuntimeError(f"{fn_name}: CUDA error {err}: {msg}")
 
 
 class _Bound:
@@ -200,28 +189,122 @@ class EllOperator:
         return y
 
 
+def pack_factor_schedule(op_row, op_lane, op_piv, op_dlane, op_dst) -> torch.Tensor:
+    """The (NR, MO) schedule arrays packed into one (NR, MO, 4) int32
+    tensor, one int4 per op: {row j, pivot row i, lane p | dlane << 16,
+    dst row}, what ``factor_wavefront.cu`` reads. Lanes must lie below
+    2**16 (the caller checks W)."""
+    return torch.stack([op_row, op_piv, op_lane | (op_dlane << 16), op_dst], dim=-1).contiguous()
+
+
+_MAX_FACTOR_W = 1 << 16  # a lane and the diagonal lane share one int32 of the packed op
+_GROUP_ROW_W = 32  # factor_wavefront.cu works a row of at most 32 lanes by a thread group
+
+
+def invert_dst_lanes(dst_flat) -> "np.ndarray":
+    """The lane tables of ``factor_wavefront.cu``'s group kernels: the
+    (ops+1, W) destination map inverted per op, ``src[o, e]`` the pivot
+    lane q whose ``dst[o, q]`` is e, or -1 (no update of lane e; lane W is
+    dropped). Refuses a map that sends two pivot lanes to one lane of the
+    reduced row: the kernel gives each lane at most one update, which is
+    right only because a row's lanes are its distinct columns. Takes a
+    NumPy array or a tensor; returns int32 NumPy."""
+    import numpy as np
+
+    d = np.asarray(dst_flat.cpu() if isinstance(dst_flat, torch.Tensor) else dst_flat,
+                   dtype=np.int64)
+    rows, w = d.shape
+    o, q = np.nonzero(d < w)
+    key = o * w + d[o, q]
+    if np.unique(key).size != key.size:
+        first = o[np.nonzero(np.bincount(key, minlength=rows * w)[key] > 1)[0][0]]
+        raise ValueError(f"factor_wavefront: dst row {first} sends two pivot lanes to one lane "
+                         "of the reduced row; a row's lanes must be its distinct columns")
+    src = np.full((rows, w), -1, np.int32)
+    src[o, d[o, q]] = q
+    return src
+
+
+def factor_lane_slots(src, op_dst) -> "np.ndarray":
+    """The lane entries of every op slot, laid out by (round, slot) as
+    ``factor_wavefront.cu`` reads them beside the op words: (NR, MO, G)
+    int8, ``[r, t, e]`` = ``src[op_dst[r, t], e]`` for e < W and -1 past it,
+    G = 8, 16 or 32, the kernel's group of threads per op (W <= 32)."""
+    import numpy as np
+
+    src = np.asarray(src)
+    w = src.shape[1]
+    g = 8 if w <= 8 else 16 if w <= 16 else 32
+    out = np.full(np.shape(op_dst) + (g,), -1, np.int8)
+    out[..., :w] = src[np.asarray(op_dst, dtype=np.int64)]
+    return out
+
+
+class FactorWavefront:
+    """Round-major pivot-op ILU(k) factorization over one FactorPlan's
+    schedule, checked and packed once: (n+1, W) A values on the pattern
+    (plus a zero scratch row) -> (n, W) factor values.
+
+    The schedule arrays (``op_*`` (NR, MO) int32, ``dst_flat`` (ops+1, W)
+    int32) are checked when the object is made, and on a CUDA device packed
+    once (:func:`pack_factor_schedule`), with the lane entries of a row of
+    W <= 32 (:func:`invert_dst_lanes`, which refuses a map that repeats a
+    lane, laid out per op slot by :func:`factor_lane_slots`). A call checks
+    only the values, copies them (the kernel factors in place), launches
+    the kernel on the current stream and counts the launch in
+    ``factor_wavefront.launches``. On the CPU it runs the plain version on
+    the unpacked arrays."""
+
+    def __init__(self, op_row, op_lane, op_piv, op_dlane, op_dst, dst_flat, n: int):
+        dev = op_row.device
+        nr, mo = op_row.shape
+        for name, t in (("op_row", op_row), ("op_lane", op_lane), ("op_piv", op_piv),
+                        ("op_dlane", op_dlane), ("op_dst", op_dst)):
+            _check(f"factor_wavefront {name}", t, _I32, (nr, mo), dev)
+        if dst_flat.ndim != 2:
+            raise ValueError(f"factor_wavefront dst_flat: expected (ops+1, W), got "
+                             f"{tuple(dst_flat.shape)}")
+        self.width = w = int(dst_flat.shape[1])
+        _check("factor_wavefront dst_flat", dst_flat, _I32, dst_flat.shape, dev)
+        self.device, self.n, self.shape = dev, int(n), (int(nr), int(mo))
+        self.args = (op_row, op_lane, op_piv, op_dlane, op_dst, dst_flat)
+        self._cuda = _route(dev)
+        if self._cuda:
+            if w >= _MAX_FACTOR_W:
+                raise ValueError(f"factor_wavefront: W={w} lanes; the packed op holds a lane "
+                                 f"in 16 bits (W < {_MAX_FACTOR_W})")
+            self._ops = pack_factor_schedule(op_row, op_lane, op_piv, op_dlane, op_dst)
+            self._lanes = None
+            if w <= _GROUP_ROW_W:
+                lanes = factor_lane_slots(invert_dst_lanes(dst_flat), op_dst.cpu().numpy())
+                self._lanes = torch.as_tensor(lanes, device=dev)
+            self._launch = _Bound("factor_wavefront_launch", dev)
+
+    def __call__(self, a_vals_ext: torch.Tensor) -> torch.Tensor:
+        _check("factor_wavefront a_vals_ext", a_vals_ext, _F32, (self.n + 1, self.width),
+               self.device)
+        if not self._cuda:
+            return ref.factor_wavefront_ref(*self.args, a_vals_ext)
+        x = a_vals_ext.clone()  # the kernel factors in place
+        nr, mo = self.shape
+        if nr and mo:
+            self._launch(self._ops.data_ptr(), self.args[5].data_ptr(),
+                         None if self._lanes is None else self._lanes.data_ptr(), x.data_ptr(),
+                         nr, mo, self.n, self.width)
+            factor_wavefront.launches += 1
+        return x[: self.n]
+
+
 def factor_wavefront(op_row, op_lane, op_piv, op_dlane, op_dst, dst_flat,
                      a_vals_ext: torch.Tensor) -> torch.Tensor:
     """Round-major pivot-op ILU(k) factorization: (n+1, W) A values on the
-    pattern (plus a zero scratch row) -> (n, W) factor values."""
-    dev = a_vals_ext.device
-    nr, mo = op_row.shape
-    n1, w = a_vals_ext.shape
-    for name, t in (("op_row", op_row), ("op_lane", op_lane), ("op_piv", op_piv),
-                    ("op_dlane", op_dlane), ("op_dst", op_dst)):
-        _check(f"factor_wavefront {name}", t, _I32, (nr, mo), dev)
-    _check("factor_wavefront dst_flat", dst_flat, _I32, (dst_flat.shape[0], w), dev)
-    _check("factor_wavefront a_vals_ext", a_vals_ext, _F32, (n1, w), dev)
-    if not _route(dev):
-        return ref.factor_wavefront_ref(op_row, op_lane, op_piv, op_dlane, op_dst,
-                                        dst_flat, a_vals_ext)
-    x = a_vals_ext.clone()  # the kernel factors in place
-    if nr and mo:
-        _launch("factor_wavefront_launch", dev, op_row.data_ptr(), op_lane.data_ptr(),
-                op_piv.data_ptr(), op_dlane.data_ptr(), op_dst.data_ptr(),
-                dst_flat.data_ptr(), x.data_ptr(), nr, mo, n1 - 1, w)
-        factor_wavefront.launches += 1
-    return x[: n1 - 1]
+    pattern (plus a zero scratch row) -> (n, W) factor values. Checks and
+    packs the schedule on every call (:class:`FactorWavefront` does so
+    once)."""
+    if not isinstance(a_vals_ext, torch.Tensor) or a_vals_ext.ndim != 2:
+        raise ValueError("factor_wavefront a_vals_ext: expected an (n+1, W) tensor")
+    return FactorWavefront(op_row, op_lane, op_piv, op_dlane, op_dst, dst_flat,
+                           a_vals_ext.shape[0] - 1)(a_vals_ext)
 
 
 def sweep_window(cols: torch.Tensor, n_slots: int) -> int:
@@ -381,9 +464,9 @@ def inverse_chain(w_cols: torch.Tensor, w_vals: torch.Tensor, z_cols: torch.Tens
     x = torch.empty_like(b)
     if n == 0 or nb == 0:
         return x
-    _launch("inverse_chain_launch", dev, w_cols.data_ptr(), w_vals.data_ptr(),
-            z_cols.data_ptr(), z_vals.data_ptr(), b.data_ptr(), y.data_ptr(), x.data_ptr(),
-            n, wi, zi, nb)
+    _bound("inverse_chain_launch", dev)(w_cols.data_ptr(), w_vals.data_ptr(), z_cols.data_ptr(),
+                                        z_vals.data_ptr(), b.data_ptr(), y.data_ptr(),
+                                        x.data_ptr(), n, wi, zi, nb)
     inverse_chain.launches += 1
     return x
 
@@ -394,7 +477,9 @@ def epoch_sweep(x: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor, rhs: to
     over the owner-local sweep vectors ``x`` (D, nb, xlen), **in place**,
     and return ``x``. ``cols``/``vals`` (D, nlev, maxr, W), ``rhs`` (D, nb,
     nlev, maxr), ``diag`` (D, nlev, maxr) for the U sweep or None for L;
-    lanes at or past ``limit`` are masked. One launch, grid (D, nb)."""
+    lanes at or past ``limit`` are masked. One launch of the kernel of
+    :class:`ShardedSweep` over these levels and no exchange: one block per
+    owner, its threads over (right-hand side, row)."""
     dev = x.device
     if x.ndim != 3:
         raise ValueError(f"epoch_sweep x: expected (D, nb, xlen), got {tuple(x.shape)}")
@@ -411,16 +496,108 @@ def epoch_sweep(x: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor, rhs: to
     if not 0 <= limit < xlen or hi * maxr > limit:
         raise ValueError(f"epoch_sweep: limit {limit} must be the scratch address past the "
                          f"written slots and inside x (xlen {xlen})")
-    if nb > _MAX_GRID_Y:
-        raise ValueError(f"epoch_sweep: at most {_MAX_GRID_Y} right-hand sides, got {nb}")
     if not _route(dev):
         return x.copy_(ref.epoch_sweep_ref(x, cols, vals, rhs, diag, lo, hi, limit))
     if n_own and nb and hi > lo:
-        _launch("epoch_sweep_launch", dev, x.data_ptr(), cols.data_ptr(), vals.data_ptr(),
-                rhs.data_ptr(), None if diag is None else diag.data_ptr(), n_own, nb, nlev,
-                maxr, w, xlen, lo, hi, limit)
+        _bound("epoch_sweep_launch", dev)(x.data_ptr(), cols.data_ptr(), vals.data_ptr(),
+                                          rhs.data_ptr(), None if diag is None else diag.data_ptr(),
+                                          n_own, nb, nlev, maxr, w, xlen, lo, hi, limit)
         epoch_sweep.launches += 1
     return x
+
+
+class ShardedSweep:
+    """x = (LU)^{-1} b over D band owners: the L and the U sweep of one
+    band-partitioned apply, every epoch and every exchange, in ONE launch of
+    ``epoch_sweep``'s kernel (counted in ``epoch_sweep.launches``).
+
+    ``tables`` are a :class:`~repro_torch.core.triangular.ShardedSweepTables`
+    (the plan's level and exchange tables on one device, built once per
+    plan); ``lv``/``uv``/``dg`` one factorization's extracted (D, nl,
+    maxr_l, WL) L values, (D, nu, maxr_u, WU) U values and (D, nu, maxr_u)
+    diagonals. They are checked when the object is made. A call takes a
+    (nb, n) float32 ``b`` on their device and the group the apply
+    exchanges through:
+
+    * on the CPU it runs the plain whole sweep
+      (:func:`repro_torch.kernels.ref.sharded_sweep_ref`): ``epoch_sweep_ref``
+      per epoch, each exchange through ``group.exchange``;
+    * on a CUDA device one cooperative launch, one block per owner, runs
+      every epoch; after an epoch each owner publishes a count, and each
+      owner pulls what it reads from the others once their counts show the
+      epoch done (``epoch_sweep.cu``). The exchanges are copies inside the
+      card's memory, so ``group.record`` counts, in one call, the
+      exchanges, collectives and payload bytes the plan makes: the counts
+      ``group.exchange`` makes on the CPU.
+
+    Both give ``PrecondApply``'s bits. On the card the D owners' blocks must
+    all be resident: more owners than the card holds at once are refused."""
+
+    def __init__(self, tables, lv: torch.Tensor, uv: torch.Tensor, dg: torch.Tensor):
+        dev = tables.l.cols.device
+        D, nl, ml, wl = tables.l.cols.shape
+        _, nu, mu, wu = tables.u.cols.shape
+        _check("sharded sweep lv", lv, _F32, (D, nl, ml, wl), dev)
+        _check("sharded sweep uv", uv, _F32, (D, nu, mu, wu), dev)
+        _check("sharded sweep dg", dg, _F32, (D, nu, mu), dev)
+        self.tables, self.values = tables, (lv, uv, dg)
+        self.device, self.n_owners, self.n = dev, int(D), int(tables.n)
+        self._cuda = _route(dev)
+        if self._cuda and self.n:
+            self._bind()
+
+    def _bind(self) -> None:
+        import ctypes
+
+        from .build import load
+
+        t, (lv, uv, dg) = self.tables, self.values
+        lib, most = load(), ctypes.c_int(0)
+        with torch.cuda.device(self.device):
+            err = lib.epoch_sweep_max_owners(1024, ctypes.byref(most))
+        if err != 0:
+            raise RuntimeError(f"epoch_sweep: cannot query the card's resident blocks: CUDA "
+                               f"error {err}")
+        if self.n_owners > most.value:
+            raise ValueError(f"epoch_sweep: {self.n_owners} band owners, but one persistent "
+                             f"launch keeps one block per owner resident and this card holds "
+                             f"at most {most.value}")
+        ptrs, cfg = [], []
+        for side, vals, diag, out_row in ((t.l, lv, None, None), (t.u, uv, dg, t.out_row)):
+            ptrs += [side.cols, vals, diag, side.rhs_idx, side.ex_after, side.ex_off, side.eg,
+                     side.ing, out_row]
+            _, nlev, maxr, w = side.cols.shape
+            cfg += [nlev, maxr, w, side.limit + 1, side.limit, side.rhs_len, side.ex_base]
+        cfg += [self.n_owners, self.n]
+        self._ptrs = (ctypes.c_void_p * len(ptrs))(
+            *(None if p is None or p.numel() == 0 else p.data_ptr() for p in ptrs))
+        self._cfg = (ctypes.c_int * len(cfg))(*cfg)
+        self._xlen = (t.l.limit + 1, t.u.limit + 1)
+        self._launch = _Bound("epoch_sweep_apply_launch", self.device)
+
+    def __call__(self, b: torch.Tensor, group, broadcast: str = "gather") -> torch.Tensor:
+        if not (isinstance(b, torch.Tensor) and b.ndim == 2):
+            raise ValueError("sharded sweep b: expected an (nb, n) tensor")
+        _rhs("sharded sweep b", b, self.n, self.device)
+        if group.n_devices != self.n_owners:
+            raise ValueError(f"sweep: a group of {group.n_devices} owners, the plan has "
+                             f"{self.n_owners}")
+        if not self._cuda:
+            return ref.sharded_sweep_ref(self.tables, *self.values, b, group, broadcast)
+        nb = b.shape[0]
+        out = torch.empty_like(b)
+        if self.n == 0 or nb == 0:
+            return out
+        D, dev = self.n_owners, self.device
+        x_l = torch.empty((D, nb, self._xlen[0]), dtype=_F32, device=dev)
+        x_u = torch.empty((D, nb, self._xlen[1]), dtype=_F32, device=dev)
+        flags = torch.empty(D, dtype=_I32, device=dev)
+        self._launch(self._ptrs, self._cfg, b.data_ptr(), x_l.data_ptr(), x_u.data_ptr(),
+                     out.data_ptr(), flags.data_ptr(), nb)
+        epoch_sweep.launches += 1
+        if D > 1:
+            group.record(self.tables.exchanges, self.tables.payload_slots * nb * 4, broadcast)
+        return out
 
 
 def superstep_factor(state: torch.Tensor, sched: torch.Tensor, s: int, piv_addr: torch.Tensor,
@@ -460,10 +637,11 @@ def superstep_factor(state: torch.Tensor, sched: torch.Tensor, s: int, piv_addr:
         # a band that fits is factored in shared memory, a wider one in
         # place in ``state``: the same kernel body, the same bits
         in_smem = int(band_rows * w * 4 <= _MAX_SMEM)
-        _launch("superstep_factor_launch", dev, state.data_ptr(), sched.data_ptr(),
-                piv_addr.data_ptr(), piv_dlane.data_ptr(), piv_dst.data_ptr(),
-                n_piv.data_ptr(), s, n_own, mpd, srows, s_loc, band_rows, w, mp, n_bands,
-                in_smem)
+        _bound("superstep_factor_launch", dev)(state.data_ptr(), sched.data_ptr(),
+                                               piv_addr.data_ptr(), piv_dlane.data_ptr(),
+                                               piv_dst.data_ptr(), n_piv.data_ptr(), s, n_own,
+                                               mpd, srows, s_loc, band_rows, w, mp, n_bands,
+                                               in_smem)
         superstep_factor.launches += 1
     return state
 
@@ -587,19 +765,6 @@ def panel_update_slots(pool: torch.Tensor, l_slots: torch.Tensor, u_slots: torch
     return pool
 
 
-# the solves and tile_lu keep a row's (column's) bs / 32 values per lane in
-# registers, at most 16 of them (trsm.cu, tile_lu.cu: MAX_NC)
-_MAX_TILE_BS = 512
-
-
-def _tile_fits(name: str, bs: int) -> None:
-    """Refuse a tile larger than the solves and ``tile_lu`` take on the
-    card. Below the limit a triangle or tile too large for shared memory is
-    read in place from device memory, by a variant of the same kernel."""
-    if bs > _MAX_TILE_BS:
-        raise ValueError(f"{name}: bs={bs} is too large: the kernels take bs <= {_MAX_TILE_BS}")
-
-
 def _slot_list(name: str, pool: torch.Tensor, diag_slot: int, slots: torch.Tensor) -> int:
     """Check the batched form's arguments: a (T, bs, bs) float32 pool, the
     diagonal slot, and a 1-D int32 slot list on the pool's device; returns
@@ -641,7 +806,6 @@ def trsm_right_upper(a: torch.Tensor, u: torch.Tensor, out: torch.Tensor = None)
     o = _output("trsm_right_upper", out, (m, bs), dev, (u,))
     if not _route(dev):
         return _plain(ref.trsm_right_upper_ref(a, u), out)
-    _tile_fits("trsm_right_upper", bs)
     if m and bs:
         _bound("trsm_right_upper_launch", dev)(a.data_ptr(), u.data_ptr(), o.data_ptr(), None,
                                                0, 0, 1, m, bs)
@@ -659,7 +823,6 @@ def trsm_right_upper_slots(pool: torch.Tensor, diag_slot: int,
     bs = _slot_list("trsm_right_upper_slots", pool, diag_slot, slots)
     if not _route(pool.device):
         return ref.trsm_right_upper_slots_ref(pool, diag_slot, slots)
-    _tile_fits("trsm_right_upper", bs)
     if slots.shape[0] and bs:
         base = pool.data_ptr()
         _bound("trsm_right_upper_launch", pool.device)(
@@ -680,7 +843,6 @@ def trsm_left_unit_lower(l: torch.Tensor, a: torch.Tensor,
     o = _output("trsm_left_unit_lower", out, (bs, n), dev, (l,))
     if not _route(dev):
         return _plain(ref.trsm_left_unit_lower_ref(l, a), out)
-    _tile_fits("trsm_left_unit_lower", bs)
     if n and bs:
         _bound("trsm_left_unit_lower_launch", dev)(l.data_ptr(), a.data_ptr(), o.data_ptr(),
                                                    None, 0, 0, 1, bs, n)
@@ -698,7 +860,6 @@ def trsm_left_unit_lower_slots(pool: torch.Tensor, diag_slot: int,
     bs = _slot_list("trsm_left_unit_lower_slots", pool, diag_slot, slots)
     if not _route(pool.device):
         return ref.trsm_left_unit_lower_slots_ref(pool, diag_slot, slots)
-    _tile_fits("trsm_left_unit_lower", bs)
     if slots.shape[0] and bs:
         base = pool.data_ptr()
         _bound("trsm_left_unit_lower_launch", pool.device)(
@@ -719,7 +880,6 @@ def tile_lu(t: torch.Tensor, out: torch.Tensor = None) -> torch.Tensor:
     o = _output("tile_lu", out, (bs, bs), dev)
     if not _route(dev):
         return _plain(ref.tile_lu_nopiv_ref(t), out)
-    _tile_fits("tile_lu", bs)
     if bs:
         _bound("tile_lu_launch", dev)(t.data_ptr(), o.data_ptr(), bs)
         tile_lu.launches += 1

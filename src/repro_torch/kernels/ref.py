@@ -126,6 +126,75 @@ def epoch_sweep_ref(x: torch.Tensor, cols, vals, rhs, diag, lo: int, hi: int,
     return x
 
 
+def _sweep_side_ref(x: torch.Tensor, side, vals, diag, rhs, group, broadcast, fold=None):
+    """Run one sweep of :func:`sharded_sweep_ref` in place on ``x`` (D, nb,
+    xlen): the levels up to each exchange through :func:`epoch_sweep_ref`,
+    then the exchange through ``group.exchange``; each receiver writes
+    every payload into its halo at its ingress addresses (pads at the
+    scratch slot). ``fold`` (nb, slots + 1), U only: every payload is also
+    written into the replicated output vector at its global slots."""
+    n_own, nb, xlen = x.shape
+    off = side.ex_off.tolist()
+    rows = torch.arange(n_own, device=x.device)[:, None] * nb + torch.arange(nb, device=x.device)
+    lo = 0
+    for lev, k1 in enumerate(side.ex_after.tolist()):
+        if not k1:
+            continue
+        x.copy_(epoch_sweep_ref(x, side.cols, vals, rhs, diag, lo, lev + 1, side.limit))
+        lo = lev + 1
+        start, stop = off[k1 - 1], off[k1]
+        e = stop - start
+        eg = side.eg[n_own * start:n_own * stop].view(n_own, e).long()
+        ing = side.ing[n_own * n_own * start:n_own * n_own * stop].view(n_own, n_own, e).long()
+        payload = torch.gather(x, 2, eg[:, None, :].expand(n_own, nb, e))  # (D, nb, E)
+        got = group.exchange(payload, broadcast)  # (D recv, D send, nb, E)
+        x.view(-1).index_put_((rows[:, None, :, None] * xlen + ing[:, :, None, :],), got)
+        if fold is not None:
+            rep = side.rep[n_own * start:n_own * stop].view(n_own, e)
+            lane = torch.arange(nb, device=x.device)[None, :, None]
+            fold.view(-1).index_put_((lane * fold.shape[1] + rep[:, None, :],), got[0])
+    x.copy_(epoch_sweep_ref(x, side.cols, vals, rhs, diag, lo, side.cols.shape[1], side.limit))
+
+
+def sharded_sweep_ref(tables, lv, uv, dg, b: torch.Tensor, group,
+                      broadcast: str = "gather") -> torch.Tensor:
+    """x = (LU)^{-1} b over D band owners: the band-partitioned apply of
+    ``repro.core.triangular.ShardedTriangularEngine`` written out, the plain
+    version of one persistent ``epoch_sweep`` launch
+    (:class:`repro_torch.kernels.ops.ShardedSweep`).
+
+    ``tables`` is a :class:`repro_torch.core.triangular.ShardedSweepTables`;
+    ``lv``/``uv``/``dg`` the extracted L values, U values and diagonals; ``b``
+    (nb, n), replicated. The L sweep reads b through its rhs table (pads
+    read a zero), the U sweep each owner's own L output. Per epoch
+    :func:`epoch_sweep_ref` runs its levels, and an epoch that ends in an
+    exchange ships its payload through ``group.exchange`` (which counts
+    it); the U payloads are folded into the replicated output right away,
+    and a final exchange ships the rows no epoch exchange broadcast. Every
+    exchange is a copy, so the result is the single-device apply's bits.
+    Returns (nb, n)."""
+    t = tables
+    n_own, nb = t.n_owners, b.shape[0]
+    dev = b.device
+    b_ext = torch.cat([b, b.new_zeros((nb, 1))], dim=1)
+    l_rhs = b_ext[:, t.l.rhs_idx.long()].transpose(0, 1).contiguous()  # (D, nb, nl, maxr_l)
+    x_l = torch.zeros((n_own, nb, t.l.limit + 1), dtype=torch.float32, device=dev)
+    _sweep_side_ref(x_l, t.l, lv, None, l_rhs, group, broadcast)
+    u_idx = t.u.rhs_idx.long()
+    u_rhs = torch.gather(x_l, 2, u_idx.reshape(n_own, 1, -1).expand(n_own, nb, u_idx[0].numel()))
+    x_u = torch.zeros((n_own, nb, t.u.limit + 1), dtype=torch.float32, device=dev)
+    x_rep = torch.zeros((nb, t.nu_slots + 1), dtype=torch.float32, device=dev)
+    _sweep_side_ref(x_u, t.u, uv, dg, u_rhs.view((n_own, nb) + tuple(u_idx.shape[1:])), group,
+                    broadcast, fold=x_rep)
+    f = t.fin_src.shape[1]
+    if f:  # F == 0: every output row was already broadcast
+        payload = torch.gather(x_u, 2, t.fin_src[:, None, :].expand(n_own, nb, f))
+        allf = group.exchange(payload, broadcast)[0] if n_own > 1 else payload
+        lane = torch.arange(nb, device=dev)[None, :, None]
+        x_rep.view(-1).index_put_((lane * x_rep.shape[1] + t.fin_slots[:, None, :],), allf)
+    return x_rep[:, t.out_perm]
+
+
 def superstep_factor_ref(state: torch.Tensor, sched, s: int, piv_addr, piv_dlane, piv_dst,
                          n_piv, n_bands: int, band_rows: int) -> torch.Tensor:
     """One superstep of the band-superstep factorization
@@ -227,16 +296,19 @@ def trsm_right_upper_ref(a: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
 
     The sum runs in ascending ``j`` from +0.0, each product rounded before
     it is added (one eager operation each, never a matrix product), and the
-    divisor is a tensor. Entries of ``u`` below its diagonal are never read,
-    so the packed LU tile can be passed as it is. ``a`` may carry leading
-    batch dimensions (a stack of panels against one ``u``): each element's
-    arithmetic is the same."""
+    divisor is a tensor. It is run right-looking: once x[:, j] is final,
+    every later column's sum adds its product, so each sum still receives
+    its terms j = 0, 1, ... in ascending order (bs steps of whole-row
+    operations, not bs²/2 scalar ones). Entries of ``u`` below its
+    diagonal are never read, so the packed LU tile can be passed as it is.
+    ``a`` may carry leading batch dimensions (a stack of panels against one
+    ``u``): each element's arithmetic is the same."""
+    bs = u.shape[0]
     x = torch.zeros_like(a)
-    for c in range(u.shape[0]):
-        acc = torch.zeros_like(a[..., 0])
-        for j in range(c):
-            acc = acc + x[..., j] * u[j, c]
-        x[..., c] = (a[..., c] - acc) / u[c, c]
+    acc = torch.zeros_like(a)
+    for j in range(bs):
+        x[..., j] = (a[..., j] - acc[..., j]) / u[j, j]
+        acc[..., j + 1:] = acc[..., j + 1:] + x[..., j:j + 1] * u[j, j + 1:]
     return x
 
 
@@ -247,15 +319,16 @@ def trsm_left_unit_lower_ref(l: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
 
         x[r, :] = a[r, :] - sum_{j<r} l[r, j] * x[j, :]
 
-    Ascending ``j`` from +0.0, rounded products. The unit diagonal is
-    implicit: entries of ``l`` on and above its diagonal are never read.
-    ``a`` may carry leading batch dimensions, as in the right solve."""
+    Ascending ``j`` from +0.0, rounded products, run right-looking as the
+    right solve is. The unit diagonal is implicit: entries of ``l`` on and
+    above its diagonal are never read. ``a`` may carry leading batch
+    dimensions, as in the right solve."""
+    bs = l.shape[0]
     x = torch.zeros_like(a)
-    for r in range(l.shape[0]):
-        acc = torch.zeros_like(a[..., 0, :])
-        for j in range(r):
-            acc = acc + l[r, j] * x[..., j, :]
-        x[..., r, :] = a[..., r, :] - acc
+    acc = torch.zeros_like(a)
+    for j in range(bs):
+        x[..., j, :] = a[..., j, :] - acc[..., j, :]
+        acc[..., j + 1:, :] = acc[..., j + 1:, :] + l[j + 1:, j:j + 1] * x[..., j:j + 1, :]
     return x
 
 

@@ -13,8 +13,8 @@ the port once refused.
   On the CPU route ``bilu`` at bs = 256 is held to the JAX ``bilu`` with
   ``test_torch_bilu.py``'s tolerance; on the card the kernels read a
   triangle or tile that does not fit from device memory, bitwise equal to
-  their plain versions, up to bs = 512 (``test_torch_tiles.py`` holds
-  300 and 512), and refuse a larger one.
+  their plain versions at any bs (``test_torch_tiles.py`` holds 300 to
+  2048).
 
 The ``cuda`` tests skip here. JAX is imported only inside the tests that
 compare with it, so that the ``cuda`` tests also run without JAX.
@@ -156,16 +156,17 @@ def test_cuda_tile_kernels_at_large_bs_equal_plain(bs, cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_tile_kernels_refuse_bs_above_256(cuda_device):
-    """The card's limit rose from 256 to 512 (16 values per lane in
-    registers); the kernels take 257..512 (test_torch_tiles.py) and refuse
-    a larger tile."""
-    t = torch.eye(513, device=cuda_device)
-    with pytest.raises(ValueError, match="bs <= 512"):
-        ops.tile_lu(t)
-    with pytest.raises(ValueError, match="bs <= 512"):
-        ops.trsm_right_upper(torch.ones((2, 513), device=cuda_device), t)
-    with pytest.raises(ValueError, match="bs <= 512"):
-        ops.trsm_left_unit_lower(t, torch.ones((513, 2), device=cuda_device))
+    """The card's limit rose from 256 to 512, then went: above bs = 512 the
+    kernels walk a row or column in chunks of 512 entries, so a 513 tile,
+    which they refused before, now equals the plain versions bitwise
+    (test_torch_tiles.py holds 513..2048)."""
+    t = torch.eye(513) + torch.triu(torch.full((513, 513), 0.5), 1)
+    b = torch.ones((2, 513))
+    _bits_equal(ops.tile_lu(t.to(cuda_device)), ref.tile_lu_nopiv_ref(t))
+    _bits_equal(ops.trsm_right_upper(b.to(cuda_device), t.to(cuda_device)),
+                ref.trsm_right_upper_ref(b, t))
+    _bits_equal(ops.trsm_left_unit_lower(t.to(cuda_device), b.t().contiguous().to(cuda_device)),
+                ref.trsm_left_unit_lower_ref(t, b.t().contiguous()))
 
 
 @pytest.mark.cuda

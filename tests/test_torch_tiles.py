@@ -1,5 +1,6 @@
 """Block-ILU(k)'s tile kernels after their redesign: the grouped panel
-update, the row-wavefront tile LU and tiles above bs = 256.
+update, the row-wavefront tile LU and tiles above bs = 256, and above
+bs = 512.
 
 * ``ops.panel_update_slots`` runs one pivot's tile products in one launch.
   Its plain version is held **bitwise** (int32 views) to the single plain
@@ -17,6 +18,16 @@ update, the row-wavefront tile LU and tiles above bs = 256.
   2·bs·2^-24·max|LU|: XLA contracts the product and the subtract of a step
   into one FMA, where the port rounds the product (ROADMAP Queue C), so the
   two differ by an ulp per step at most, not bitwise.
+
+* Above bs = 512 the kernels walk a row (column) in chunks of 512 entries
+  and read the earlier chunks' final entries back. That order, written out
+  here in eager PyTorch at bs = 520, equals the plain versions bitwise, and
+  so does the left-looking order the plain solves ran before they became
+  right-looking. The wrappers route CPU tensors at bs = 513 and 640 to the
+  plain versions, which agree with the JAX ``_lu_nopiv`` within the bound
+  above and with ``trsm_*_subst_ref`` within ``test_torch_kernels.py``'s
+  rtol = atol = 2e-4 (XLA sums the substitution's dot products in its own
+  order).
 
 The ``cuda`` twins skip here. JAX is imported only inside the tests that
 compare with it, so that the ``cuda`` tests also run without JAX.
@@ -203,6 +214,133 @@ def test_tile_lu_plain_vs_jax(bs):
     assert float(np.abs(got.numpy() - want).max()) <= limit
 
 
+@pytest.mark.parametrize("bs", [513, 640])
+def test_wrappers_take_bs_above_512_on_the_cpu(bs):
+    import jax
+    import jax.numpy as jnp
+
+    from repro.core.bilu import _lu_nopiv
+    from repro.kernels import ref as jref
+
+    t = _dominant(bs, seed=bs)
+    packed = ops.tile_lu(t)
+    _bits_equal(packed, ref.tile_lu_nopiv_ref(t))
+    limit = 2 * bs * 2.0 ** -24 * float(packed.abs().max())
+    assert float(np.abs(packed.numpy() - np.asarray(jax.jit(_lu_nopiv)(
+        jnp.asarray(t.numpy())))).max()) <= limit
+    a = torch.from_numpy(np.random.default_rng(bs).standard_normal((5, bs)).astype(np.float32))
+    x = ops.trsm_right_upper(a, packed)
+    _bits_equal(x, ref.trsm_right_upper_ref(a, packed))
+    want = jref.trsm_right_upper_subst_ref(jnp.asarray(a.numpy()),
+                                           jnp.asarray(np.triu(packed.numpy())))
+    np.testing.assert_allclose(x.numpy(), np.asarray(want), rtol=2e-4, atol=2e-4)
+    at = a.t().contiguous()
+    y = ops.trsm_left_unit_lower(packed, at)
+    _bits_equal(y, ref.trsm_left_unit_lower_ref(packed, at))
+    unit = np.tril(packed.numpy(), -1) + np.eye(bs, dtype=np.float32)
+    want = jref.trsm_left_unit_lower_subst_ref(jnp.asarray(unit), jnp.asarray(at.numpy()))
+    np.testing.assert_allclose(y.numpy(), np.asarray(want), rtol=2e-4, atol=2e-4)
+
+
+CHUNK = 512  # entries of a row (column) per chunk in the kernels above bs = 512
+
+
+def _right_chunked(a, u):
+    """trsm_right_upper in the chunked kernel's order: per chunk of columns,
+    the terms of the earlier chunks' final x[j] in ascending j, then the
+    substitution inside the chunk."""
+    bs = u.shape[0]
+    x = torch.zeros_like(a)
+    for cb in range(0, bs, CHUNK):
+        ce = min(bs, cb + CHUNK)
+        acc = torch.zeros_like(a[:, cb:ce])
+        for j in range(cb):
+            acc = acc + x[:, j:j + 1] * u[j, cb:ce]
+        for j in range(cb, ce):
+            x[:, j] = (a[:, j] - acc[:, j - cb]) / u[j, j]
+            acc[:, j - cb + 1:] = acc[:, j - cb + 1:] + x[:, j:j + 1] * u[j, j + 1:ce]
+    return x
+
+
+def _left_chunked(l, a):
+    """trsm_left_unit_lower in the chunked kernel's order, by rows."""
+    bs = l.shape[0]
+    x = torch.zeros_like(a)
+    for rb in range(0, bs, CHUNK):
+        re = min(bs, rb + CHUNK)
+        acc = torch.zeros_like(a[rb:re])
+        for j in range(rb):
+            acc = acc + l[rb:re, j:j + 1] * x[j:j + 1]
+        for j in range(rb, re):
+            x[j] = a[j] - acc[j - rb]
+            acc[j - rb + 1:] = acc[j - rb + 1:] + l[j + 1:re, j:j + 1] * x[j:j + 1]
+    return x
+
+
+def _lu_chunked(t):
+    """tile_lu in the chunked kernel's row order: row r, chunk by chunk,
+    takes the steps c < min(r, chunk start) with l read back from its
+    earlier chunks, then the steps inside the chunk."""
+    bs = t.shape[0]
+    out = t.clone()
+    for r in range(bs):
+        for cb in range(0, bs, CHUNK):
+            ce = min(bs, cb + CHUNK)
+            x = t[r, cb:ce].clone()
+            for c in range(min(r, cb)):
+                x = x - out[r, c] * out[c, cb:ce]
+            for c in range(cb, min(r, ce)):
+                l = x[c - cb] / out[c, c]
+                x[c - cb + 1:] = x[c - cb + 1:] - l * out[c, c + 1:ce]
+                x[c - cb] = l
+            out[r, cb:ce] = x
+    return out
+
+
+def _right_left_looking(a, u):
+    """The left-looking order the plain right solve ran until it became
+    right-looking: one dot product per column, ascending j."""
+    x = torch.zeros_like(a)
+    for c in range(u.shape[0]):
+        acc = torch.zeros_like(a[..., 0])
+        for j in range(c):
+            acc = acc + x[..., j] * u[j, c]
+        x[..., c] = (a[..., c] - acc) / u[c, c]
+    return x
+
+
+def _left_left_looking(l, a):
+    x = torch.zeros_like(a)
+    for r in range(l.shape[0]):
+        acc = torch.zeros_like(a[..., 0, :])
+        for j in range(r):
+            acc = acc + l[r, j] * x[..., j, :]
+        x[..., r, :] = a[..., r, :] - acc
+    return x
+
+
+@pytest.mark.parametrize("kernel", ["trsm_right_upper", "trsm_left_unit_lower", "tile_lu"])
+def test_chunked_order_equals_plain_at_520(kernel):
+    bs = 520
+    t = _dominant(bs, seed=11)
+    t[::7, 3::5] = 0.0  # zero numerators and signed zeros along the chain
+    t.diagonal().copy_(_dominant(bs, seed=11).diagonal())
+    if kernel == "tile_lu":
+        _bits_equal(_lu_chunked(t), ref.tile_lu_nopiv_ref(t))
+        return
+    packed = ref.tile_lu_nopiv_ref(t)
+    a = torch.from_numpy(np.random.default_rng(3).standard_normal((3, bs)).astype(np.float32))
+    if kernel == "trsm_right_upper":
+        want = ref.trsm_right_upper_ref(a, packed)
+        _bits_equal(_right_chunked(a, packed), want)
+        _bits_equal(_right_left_looking(a, packed), want)
+    else:
+        at = a.t().contiguous()
+        want = ref.trsm_left_unit_lower_ref(packed, at)
+        _bits_equal(_left_chunked(packed, at), want)
+        _bits_equal(_left_left_looking(packed, at), want)
+
+
 # --------------------------------------------------------------------------
 # on a GPU
 # --------------------------------------------------------------------------
@@ -239,7 +377,7 @@ def test_cuda_grouped_equals_single(bs, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bs", [1, 31, 128, 241, 256, 300, 512])
+@pytest.mark.parametrize("bs", [1, 31, 128, 241, 256, 300, 512, 513, 640, 1024, 2048])
 def test_cuda_tile_lu_equals_plain(bs, cuda_device):
     t = _dominant(bs, seed=bs + 2)
     diag = t.diagonal().clone()
@@ -253,10 +391,10 @@ def test_cuda_tile_lu_equals_plain(bs, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bs", [300, 512])
+@pytest.mark.parametrize("bs", [300, 512, 513, 640, 1024, 2048])
 def test_cuda_solves_equal_plain_above_256(bs, cuda_device):
     rng = np.random.default_rng(bs)
-    packed = ref.tile_lu_nopiv_ref(_dominant(bs, seed=bs + 3))
+    packed = ref.tile_lu_nopiv_ref(_dominant(bs, seed=bs + 3).to(cuda_device)).cpu()
     a = torch.from_numpy(rng.standard_normal((37, bs)).astype(np.float32))
     d = packed.to(cuda_device)
     _bits_equal(ops.trsm_right_upper(a.to(cuda_device), d), ref.trsm_right_upper_ref(a, packed))
@@ -269,7 +407,7 @@ def test_cuda_solves_equal_plain_above_256(bs, cuda_device):
     for batched, plain in ((ops.trsm_right_upper_slots, ref.trsm_right_upper_slots_ref),
                            (ops.trsm_left_unit_lower_slots, ref.trsm_left_unit_lower_slots_ref)):
         got = batched(pool.to(cuda_device), 1, slots.to(cuda_device))
-        _bits_equal(got, plain(pool.clone(), 1, slots))
+        _bits_equal(got, plain(pool.to(cuda_device), 1, slots.to(cuda_device)))
 
 
 # A bad product list on the card: the kernel traps, which ends the CUDA
