@@ -13,8 +13,10 @@ with a non-zero exit; nothing is caught):
 2. kernels — at the main path's shapes (``poisson_2d(400)``, ILU(1),
    n = 160,000) each CUDA kernel against its plain PyTorch version on the
    card, bitwise; the median time of CUDA-event runs of each, its bound,
-   and a PyTorch sparse CSR yardstick for the SpMV and (two products) for
-   the inverse chain. The sweep and the SpMV are timed in the forms the
+   and its library call where PyTorch has one: a sparse CSR product for
+   the SpMV, two for the inverse chain, and two ``torch.triangular_solve``
+   calls on sparse CSR factors (cuSPARSE) for the sweep, timed in turns
+   with it, single and nb = 4. The sweep and the SpMV are timed in the forms the
    solvers hold (bound once: ``PrecondApply``'s sweep, ``EllOperator``)
    beside their checked entry points and their times before this design;
    the sweep's line also gives its windows R, its layout per sweep (ring,
@@ -83,24 +85,30 @@ with a non-zero exit; nothing is caught):
    at tol=1e-4 the float64 true residual must be <= 2·tol; on
    ``poisson_2d(64)`` the card's CG equals the CPU's bitwise.
 10. topilu and distributed kernels — the TOP-ILU factorization over
-    D = 4 band owners on the card (values equal phase 4's factor), and
-    ``epoch_sweep``'s one-epoch form and ``superstep_factor`` against
-    their plain versions on every epoch and superstep checked.
+    D = 4 band owners on the card (values equal phase 4's factor) as ONE
+    persistent ``superstep_factor`` launch, the group's exchanges the
+    plan's; ``epoch_sweep``'s one-epoch form and the one-superstep
+    ``superstep_factor`` against their plain versions on every epoch and
+    superstep checked (poisson_2d(64), D = 1, 2, 4); at full size the
+    persistent factorization bitwise equal to the plain per-superstep
+    loop, its time, device time per superstep, bound and chain floor.
     [sharded-sweep]: the whole band-partitioned apply as one persistent
     ``epoch_sweep`` launch (every epoch and in-kernel exchange) against its
     plain version (``ref.sharded_sweep_ref``, exchanges through
     ``BandGroup.exchange``) and against phase 4's single-device apply,
     bitwise, at D = 1, 2, 3, 4, nb = 1 and 4, gather and ring, on
     ``poisson_2d(64)`` and ``poisson_2d(400)``, with equal exchange
-    counts; its time per apply, bound and chain floor per epoch.
+    counts; its time per apply, bound and chain floor per epoch, and the
+    two ``torch.triangular_solve`` calls timed in turns with it at D = 4.
 11. sharded apply — the band-partitioned apply at D = 1 and D = 4, single
     and nb = 4, bitwise equal to phase 4's apply, one ``epoch_sweep``
     launch per apply.
 12. distributed — ``solve_sharded`` at D = 4 (sweep and inverse): ``x``
-    bitwise equal to phases 4 and 5, and a D = 2 solve on the card equal
-    to the CPU's.
+    bitwise equal to phases 4 and 5, one ``superstep_factor`` launch per
+    factorization, and a D = 2 solve on the card equal to the CPU's.
 13. wide band — a TOP-ILU factorization whose 32-row band (n = 2100, one
-    dense row) is wider than shared memory, on the card, bitwise equal to
+    dense row) is wider than shared memory, on the card in one persistent
+    launch that factors the bands in place, bitwise equal to
     ``numeric_ilu_ref``.
 
 The line before the last is a JSON object with one entry per kernel; the
@@ -147,6 +155,11 @@ PREVIOUS_MS = {
 # in the text lines only
 PREVIOUS_FACTOR_MS = (6.129, 6.136)
 PREVIOUS_SHARDED_APPLY_MS = 261.5
+# superstep_factor before the persistent launch (one launch per superstep,
+# an exchange on the host after each), on poisson_2d(400) at D = 4 on an
+# NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6): ms per call and
+# device ms of the fullest superstep, launches per factorization
+PREVIOUS_SUPERSTEP = dict(ms=0.0715, device_ms=0.0660, launches=2811)
 # the left-looking tile solves' (ms per call, device ms) at (128, 128) on an
 # NVIDIA H100 80GB HBM3 at 700 W (PERF.md), printed beside the new ones
 PREVIOUS_TRSM_MS = {"trsm_right_upper": (0.1950, 0.1441), "trsm_left_unit_lower": (0.2249, 0.1513)}
@@ -328,6 +341,64 @@ def max_abs_err(got, want):
     return float((got.double() - want.double()).abs().max())
 
 
+def triangular_library(pattern, vals, dev):
+    """x = U^-1 (L^-1 b) by two torch.triangular_solve calls on sparse CSR
+    factors (cuSPARSE's triangular solve on the card): L the strictly lower
+    entries of the factor with the unit diagonal implied, U the upper
+    entries with the diagonal, in the factor's row order (natural: no
+    ordering is ported). Takes and returns (nb, n). The library call
+    that computes what the sweeps compute; the order of its adds differs,
+    so it is a yardstick and never on the port's path."""
+    import numpy as np
+    import torch
+
+    n = pattern.n
+    rows = np.repeat(np.arange(n), np.diff(pattern.indptr))
+    cols = np.asarray(pattern.indices, np.int64)
+
+    def csr(mask):
+        crow = np.zeros(n + 1, np.int64)
+        np.cumsum(np.bincount(rows[mask], minlength=n), out=crow[1:])
+        return torch.sparse_csr_tensor(torch.as_tensor(crow, device=dev),
+                                       torch.as_tensor(cols[mask], device=dev),
+                                       torch.as_tensor(vals[mask], device=dev), size=(n, n),
+                                       check_invariants=False)
+
+    low, up = csr(cols < rows), csr(cols >= rows)
+
+    def solve(b):
+        y = torch.triangular_solve(b.t().contiguous(), low, upper=False, unitriangular=True)[0]
+        return torch.triangular_solve(y, up, upper=True)[0].t()
+
+    return solve
+
+
+def library_pair(row, kern, lib, b, reps, key=""):
+    """Time the kernel and the library call in turns on the same b, into
+    row[f"{key}paired_ms"] and row[f"{key}library_ms"], with the largest
+    difference of their outputs. A library call that raises on the card
+    leaves its error in the row (``library_error``), and no time."""
+    import torch
+
+    try:
+        got = lib(b if b.ndim == 2 else b[None])
+        torch.cuda.synchronize()
+    except RuntimeError as err:
+        row[f"{key}library_ms"], row["library_error"] = None, str(err).splitlines()[0][:300]
+        say(f"[kernels] {row['name']}: the library call raised on the card: "
+            f"{row['library_error']}")
+        return
+    want = kern(b)
+    row[f"{key}library_max_abs_diff"] = float((got.reshape(want.shape) - want).abs().max())
+    row[f"{key}paired_ms"], row[f"{key}library_ms"] = time_pair_ms(
+        lambda: kern(b), lambda: lib(b if b.ndim == 2 else b[None]), reps)
+    form = f"nb={b.shape[0]}" if key else "single"
+    say(f"[kernels] {row['name']} ({form}) and {row['library']} timed in turns "
+        f"({reps} each): {row[f'{key}paired_ms']:.4f} ms against "
+        f"{row[f'{key}library_ms']:.4f} ms per call; max |diff| "
+        f"{row[f'{key}library_max_abs_diff']:.3e} (a yardstick; its order of adds differs)")
+
+
 def phase_kernels(dev):
     import numpy as np
     import torch
@@ -443,8 +514,11 @@ def phase_kernels(dev):
         checked_ms=time_ms(lambda: ops.tri_solve_wavefront(*targs, b), reps=5),
         chain_floor_ms=device_ms(chain_floor, "chain_floor_kernel", reps=10),
         window_levels=list(sweep.windows), layout=sweep.layout,
-        kernels_per_launch=sum(SWEEP_KERNELS.values()))
+        kernels_per_launch=sum(SWEEP_KERNELS.values()),
+        library="torch.triangular_solve on sparse CSR L (unit) then U, two calls")
     r = rows["tri_solve_wavefront"]
+    tri_lib = triangular_library(pattern, vals, dev)
+    library_pair(r, sweep, tri_lib, b, 20)
     say(f"[kernels] sweep: {tplan.l_cols_lm.shape} L levels x rows x lanes, "
         f"{tplan.u_cols_lm.shape} U; windows R = {sweep.windows} levels; per sweep (L, U): "
         f"{json.dumps(sweep.layout)}; chain floor (the level loop with only a shared-memory "
@@ -507,9 +581,9 @@ def phase_kernels(dev):
         max_abs_err=max_abs_err(got, want),
         ms=time_ms(lambda: ops.inverse_chain(*iargs, x), reps=50),
         plain_ms=time_ms(lambda: ref.inverse_chain_ref(*iargs, x), reps=10),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        yardstick="Z_csr @ (W_csr @ b): two torch.sparse_csr_tensor products, not one call",
-        yardstick_ms=time_ms(lambda: z_csr @ (w_csr @ x), reps=50),
+        bound_ms=b_ms, bound_by=b_by,
+        library="Z_csr @ (W_csr @ b): two torch.sparse_csr_tensor products",
+        library_ms=time_ms(lambda: z_csr @ (w_csr @ x), reps=50),
         device_ms=device_ms(lambda: ops.inverse_chain(*iargs, x), "inverse_chain_kernel",
                             reps=20, per_call=2))
     for r in rows.values():
@@ -524,7 +598,6 @@ def phase_kernels(dev):
             f"(device time in the profiler trace {dms}; "
             f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']}"
             + (f", library {r['library_ms']:.4f} ms" if r["library_ms"] is not None else "")
-            + (f", two-call yardstick {r['yardstick_ms']:.4f} ms" if "yardstick_ms" in r else "")
             + (f", {r['us_per_step']:.3f} us per dependent step of {r['chain_steps']}"
                if "chain_steps" in r else "") + ")")
 
@@ -567,6 +640,7 @@ def phase_kernels(dev):
             + (f"; the design before: {PREVIOUS_MS[name]['batched_ms']:.4f} ms per call, device "
                f"{PREVIOUS_MS[name]['batched_device_ms']:.4f} ms (an NVIDIA H100 80GB HBM3 at "
                "700 W)" if name in PREVIOUS_MS else ""))
+    library_pair(rows["tri_solve_wavefront"], sweep, tri_lib, bs, 10, key="batched_")
     # the batched SpMV reads A once per chunk of 8 right-hand sides: nb = 9
     # is two chunks, each row still equal to the single form
     b9 = torch.as_tensor(rng.standard_normal((9, a.n)).astype(np.float32), device=dev)
@@ -705,7 +779,9 @@ def phase_wide_band(dev):
     import torch
 
     from repro_torch.core.api import ilu_sharded
+    from repro_torch.core.numeric import make_superstep_factorizer
     from repro_torch.core.numeric_ref import numeric_ilu_ref
+    from repro_torch.core.top_ilu import BandGroup
     from repro_torch.kernels import ops
 
     a = wide_band_matrix()
@@ -718,15 +794,19 @@ def phase_wide_band(dev):
     counts = ops.launch_counts()
     band_bytes = BAND_ROWS * f.plan.width * 4
     require(band_bytes > 232448, f"the wide band is {band_bytes} B: it fits in shared memory")
-    require(counts["superstep_factor"] == f.plan.n_supersteps,
-            f"wide band: {counts['superstep_factor']} superstep_factor launches for "
-            f"{f.plan.n_supersteps} supersteps")
+    require(counts["superstep_factor"] == 1,
+            f"wide band: {counts['superstep_factor']} superstep_factor launches for one "
+            f"factorization of {f.plan.n_supersteps} supersteps")
+    kernel = make_superstep_factorizer(f.plan, BandGroup(1, dev)).kernel
+    require(not kernel.staged, "wide band: the persistent launch would stage a band wider "
+            "than shared memory")
     require(np.array_equal(f.values_csr().view(np.int32),
                            numeric_ilu_ref(a, f.pattern).view(np.int32)),
             "wide band: the TOP-ILU factor on the card != numeric_ilu_ref")
     say(f"[wide-band] n={a.n} row 0 dense, ILU(0), {BAND_ROWS}-row bands of W={f.plan.width} "
         f"({band_bytes} B a band, above the 232,448 B of shared memory): "
-        f"{counts['superstep_factor']} superstep_factor launches, factor bitwise equal to "
+        f"{counts['superstep_factor']} superstep_factor launch for {f.plan.n_supersteps} "
+        f"supersteps, the bands in place in device memory, factor bitwise equal to "
         f"numeric_ilu_ref ({wall:.3f} s)")
 
 
@@ -1602,17 +1682,22 @@ def phase_topilu(dev, main_fact, nx=400):
         f"{plan_s:.3f} s + numeric and audit {fact.numeric_seconds - plan_s:.3f} s; "
         f"{counts['superstep_factor']} superstep_factor launches, {group.exchanges} exchanges "
         f"({group.payload_bytes / 1e6:.2f} MB sent per owner)")
-    require(counts["superstep_factor"] == plan.n_supersteps,
-            f"topilu launched superstep_factor {counts['superstep_factor']} times for "
-            f"{plan.n_supersteps} supersteps")
-    require(group.exchanges == plan.n_supersteps, "topilu: not one exchange per superstep")
+    require(counts["superstep_factor"] == 1,
+            f"topilu launched superstep_factor {counts['superstep_factor']} times for one "
+            "factorization")
+    require(group.exchanges == plan.n_supersteps,
+            "topilu: the group did not record one exchange per superstep")
     require(np.array_equal(fact.values_csr().view(np.int32), main_fact.vals.view(np.int32)),
             "TOP-ILU values != the main path's factor_wavefront values")
     group.reset_counts()
+    ops.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     again = ilu_sharded(a, 1, band_rows=BAND_ROWS, group=group)  # the engine is cached
     torch.cuda.synchronize()
+    require(ops.launch_counts()["superstep_factor"] == 1
+            and group.exchanges == plan.n_supersteps,
+            "topilu refactorization: not one launch, or not the plan's exchanges")
     say(f"[topilu] values bitwise equal to the main path's factor_wavefront factors; a "
         f"refactorization with the cached plan takes {time.perf_counter() - t0:.3f} s "
         f"(numeric and audit {again.numeric_seconds:.3f} s)")
@@ -1628,35 +1713,6 @@ def checked_superstep(state, sched, s, *rest):
     ops.superstep_factor(state, sched, s, *rest)
     require(bits_equal(state, want), f"superstep_factor kernel != plain version at superstep {s}")
     return state
-
-
-def superstep_bound(plan, s):
-    """Bytes and operations of superstep s, counting what the kernel must
-    read for this superstep's data: the schedule entry of each block; each
-    member band's rows read and written and its n_piv; piv_addr, piv_dlane
-    and the W-lane piv_dst of each valid pivot only (p < n_piv: the kernel
-    reads no other); the out-of-band pivot rows read once. A divide per
-    valid pivot and a rounded update per kept lane."""
-    import numpy as np
-
-    from repro_torch.core.numeric import plan_device_arrays
-
-    arr = plan_device_arrays(plan, keys=("piv_addr", "piv_dst", "n_piv"))
-    bands = plan.superstep_bands[s]
-    R, W, MP, D = plan.band_rows, plan.width, plan.max_piv, plan.n_devices
-    nbytes, nops, pulled = bands.size * 4, 0, set()
-    for d in range(D):
-        for b in bands[d][bands[d] < plan.n_bands]:
-            base = (int(b) // D) * R
-            rows = slice(base, base + R)
-            npv = arr["n_piv"][d, rows]
-            valid = np.arange(MP)[None, :] < npv[:, None]
-            kept = (arr["piv_dst"][d, rows] < W) & valid[:, :, None]
-            nops += int(valid.sum()) + 2 * int(kept.sum())
-            addr = arr["piv_addr"][d, rows][valid]
-            pulled |= {(d, int(x)) for x in addr if not base <= x < base + R}
-            nbytes += 2 * R * W * 4 + R * 4 + int(valid.sum()) * (2 + W) * 4
-    return nbytes + len(pulled) * W * 4, nops
 
 
 def epoch_bound(sched, lo, hi, nb, with_diag):
@@ -1694,16 +1750,12 @@ def phase_distributed_kernels(dev, fact, nx_small=64):
     import torch
 
     from repro_torch.core.matgen import poisson_2d
-    from repro_torch.core.numeric import (
-        make_superstep_factorizer,
-        plan_device_arrays,
-        plan_state_array,
-    )
+    from repro_torch.core.numeric import make_superstep_factorizer, plan_state_array
     from repro_torch.core.numeric_ref import numeric_ilu_ref
     from repro_torch.core.planner import make_plan
     from repro_torch.core.symbolic import pilu1_symbolic
     from repro_torch.core.top_ilu import BandGroup, _values_to_csr_order
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import build, ops, ref
 
     rng = np.random.default_rng(SEED + 6)
     apply = fact.precond()
@@ -1746,52 +1798,132 @@ def phase_distributed_kernels(dev, fact, nx_small=64):
                 f"{plan.n_supersteps} supersteps bitwise equal to plain, the factor to "
                 "numeric_ilu_ref")
 
-    # the fullest superstep at full size
-    plan = fact.plan
-    members = (plan.superstep_bands < plan.n_bands).sum(axis=(1, 2))
-    s = int(np.argmax(members))
-    before = {}
+    # the whole factorization at full size: the persistent launch against
+    # the plain per-superstep loop (ref.superstep_factor_ref per superstep,
+    # each exchange through BandGroup.exchange) on the same state
+    plan, D = fact.plan, fact.n_devices
+    fac = make_superstep_factorizer(plan, fact.group)
+    st0 = torch.as_tensor(plan_state_array(plan, fact.a), device=dev)
+    ops.reset_launch_counts()
+    got = fac(st0.clone())
+    require(ops.launch_counts()["superstep_factor"] == 1,
+            "the persistent superstep factorization is not one launch")
 
-    def capture(st, sched, ss, *rest):  # the state superstep s finds on the path
-        if ss == s:
-            before["state"] = st.clone()
-        ops.superstep_factor(st, sched, ss, *rest)
+    def plain_step(st, *args):
+        st.copy_(ref.superstep_factor_ref(st, *args))
 
-    make_superstep_factorizer(plan, fact.group)(plan_state_array(plan, fact.a), step=capture)
-    state = before["state"]
-    arrs = {k: torch.as_tensor(np.ascontiguousarray(v), dtype=torch.int32, device=dev)
-            for k, v in plan_device_arrays(plan, keys=("sched", "piv_addr", "piv_dlane",
-                                                       "piv_dst", "n_piv")).items()}
-    targs = (arrs["sched"], s, arrs["piv_addr"], arrs["piv_dlane"], arrs["piv_dst"],
-             arrs["n_piv"], plan.n_bands, plan.band_rows)
-    want_s = ref.superstep_factor_ref(state, *targs)
-    got_s = ops.superstep_factor(state.clone(), *targs)
-    require(bits_equal(got_s, want_s), "superstep_factor kernel != plain at full size")
-    require(bool(torch.isfinite(got_s).all()),
-            f"superstep_factor at full size: the state of superstep {s} holds non-finite values")
-    nbytes, nops = superstep_bound(plan, s)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = fac(st0.clone(), group=BandGroup(D, dev), step=plain_step)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    require(bits_equal(got, want), "superstep_factor persistent kernel != the plain per-superstep "
+            "loop at full size")
+    require(bool(torch.isfinite(got).all()), "superstep_factor at full size: non-finite values")
+    per_step = fac(st0.clone(), group=BandGroup(D, dev), step=ops.superstep_factor)
+    require(bits_equal(per_step, want), "the per-superstep kernel loop != the plain loop")
+    host = factor_tables(plan)
+    nbytes, nops = factor_bound(plan, host)
     b_ms, b_by = bound(nbytes, nops)
-    st = state.clone()
-    rows_out = {}
-    rows_out["superstep_factor"] = dict(
+    lib = build.load()
+    flags = torch.zeros(D, dtype=torch.int32, device=dev)
+    sink = torch.zeros(1, dtype=torch.float32, device=dev)
+    chain = in_band_chain(plan, host)
+
+    def floor():
+        err = lib.superstep_factor_chain_floor_launch(D, plan.n_supersteps, chain,
+                                                      flags.data_ptr(), sink.data_ptr(),
+                                                      torch.cuda.current_stream().cuda_stream)
+        require(err == 0, f"the factor's chain floor kernel did not launch (CUDA error {err})")
+
+    n_sup = plan.n_supersteps
+    row = dict(
         name="superstep_factor", route="cuda",
         source="src/repro_torch/kernels/csrc/superstep_factor.cu",
         replaces="src/repro/core/numeric_jax.py:122", launches=0,
-        max_abs_err=max_abs_err(got_s, want_s),
-        ms=time_ms(lambda: ops.superstep_factor(st, *targs), reps=50),
-        plain_ms=time_ms(lambda: ref.superstep_factor_ref(state, *targs), reps=5),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, port_only=True,
-        note="no TPU kernel: the JAX package runs the superstep body as plain JAX",
-        superstep_members=int(members[s]), supersteps=plan.n_supersteps,
-        device_ms=device_ms(lambda: ops.superstep_factor(st, *targs), "superstep_factor_kernel",
-                            reps=20))
-    r = rows_out["superstep_factor"]
-    dms = "not measured" if r["device_ms"] is None else f"{r['device_ms']:.4f} ms"
-    say(f"[kernels] superstep_factor: bitwise equal to plain; {r['ms']:.4f} ms per call (device "
-        f"{dms}; plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.5f} ms by "
-        f"{r['bound_by']}, no library call); superstep {s} of {plan.n_supersteps}, "
-        f"{r['superstep_members']} bands")
-    return rows_out
+        max_abs_err=max_abs_err(got, want),
+        ms=time_ms(lambda: fac(st0.clone()), reps=20),
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None, port_only=True,
+        note="no TPU kernel: the JAX package runs the superstep body as plain JAX; a whole "
+             "factorization per call (state copy included), the plain version the "
+             "per-superstep loop",
+        supersteps=n_sup, n_owners=D, chain_steps=n_sup,
+        device_ms=device_ms(lambda: fac(st0.clone()), "superstep_factor_persistent_kernel",
+                            reps=10),
+        per_superstep_route_ms=time_ms(
+            lambda: fac(st0.clone(), group=BandGroup(D, dev), step=ops.superstep_factor),
+            reps=3),
+        chain_floor_ms=device_ms(floor, "superstep_factor_chain_floor_kernel", reps=5),
+        in_band_chain=chain, staged=bool(fac.kernel.staged), ring_bytes=fac.kernel.smem_bytes)
+    row["us_per_step"] = row["ms"] * 1e3 / n_sup
+    dms = "not measured" if row["device_ms"] is None else f"{row['device_ms']:.4f} ms"
+    floor_ms = row["chain_floor_ms"]
+    say(f"[kernels] superstep_factor, one persistent launch per factorization: n={plan.n} "
+        f"D={D}, {n_sup} supersteps, bitwise equal to the plain per-superstep loop and to the "
+        f"per-superstep kernel loop; {row['ms']:.4f} ms per call (device {dms}"
+        + ("" if row["device_ms"] is None
+           else f", {row['device_ms'] * 1e3 / n_sup:.3f} us per superstep")
+        + f"; plain loop {plain_ms:.1f} ms; per-superstep route "
+        f"{row['per_superstep_route_ms']:.1f} ms; bound {b_ms:.5f} ms by {b_by}; no library "
+        f"call); chain floor ({chain} in-band pivots a superstep, a wait and a release) "
+        + ("not measured" if floor_ms is None
+           else f"{floor_ms:.4f} ms = {floor_ms * 1e3 / n_sup:.3f} us per superstep")
+        + f"; staged {row['staged']} ({row['ring_bytes']} B of ring); the design before: "
+        f"{PREVIOUS_SUPERSTEP['ms']} ms per call and {PREVIOUS_SUPERSTEP['device_ms']} ms of "
+        f"device per superstep, {PREVIOUS_SUPERSTEP['launches']:,} launches per factorization "
+        "(an NVIDIA H100 80GB HBM3 at 700 W)")
+    return {"superstep_factor": row}
+
+
+def factor_tables(plan):
+    """The derived tables of ``plan``'s band-superstep factorization, as the
+    persistent launch's host check derives them (``ops._superstep_tables``)."""
+    from repro_torch.core.numeric import plan_device_arrays
+    from repro_torch.kernels import ops
+
+    arr = plan_device_arrays(plan, keys=ops.SuperstepFactor.FIELDS + ("egress", "ingress"))
+    return ops._superstep_tables(*arr.values(), plan.n_bands, plan.band_rows, plan.halo_size)
+
+
+def in_band_chain(plan, host):
+    """The longest chain of in-band pivots of one band: valid pivots whose
+    row lies in the band (phase 2 of the persistent kernel)."""
+    import numpy as np
+
+    piv = host["pivots"]
+    band = piv["owner"] * (plan.s_loc // plan.band_rows) + piv["row"] // plan.band_rows
+    return int(np.bincount(band[piv["in_band"]], minlength=1).max())
+
+
+def factor_bound(plan, host):
+    """Bytes and operations of one whole band-superstep factorization,
+    counting what this plan's data needs: the schedule; each scheduled
+    band's rows read and written and its n_piv; piv_addr, piv_dlane and the
+    W-lane piv_dst of each valid pivot only (p < n_piv: the kernel reads no
+    other); each out-of-band pivot row read once per superstep that reads
+    it; each halo row written once. An exchange names each row it ships by
+    the sender's row and the receiver's address, so a pushed row costs its
+    W values and two int32 indices; the padding entries of the egress and
+    ingress tables ship nothing and are not counted, nor are the wait
+    counts the persistent launch derives to order its waits (the plain
+    exchange needs none). A divide per valid pivot and a rounded update per
+    kept lane."""
+    import numpy as np
+
+    R, W, D = plan.band_rows, plan.width, plan.n_devices
+    piv = host["pivots"]
+    n_valid = piv["addr"].size
+    nops = n_valid + 2 * piv["kept"]
+    out = ~piv["in_band"] & (piv["step"] < plan.n_supersteps)
+    key = ((piv["step"][out] * D + piv["owner"][out]) * plan.state_rows
+           + piv["addr"][out])
+    pulled = np.unique(key).size
+    pushes = int(host["push_off"][-1])
+    nbytes = (plan.superstep_bands.size * 4
+              + host["n_scheduled"] * (2 * R * W * 4 + R * 4) + n_valid * (2 + W) * 4
+              + pulled * W * 4 + pushes * (W * 4 + 8))
+    return nbytes, nops
 
 
 def apply_bound(tp, nb):
@@ -1893,6 +2025,9 @@ def phase_sharded_sweep(dev, main_fact, sizes=(64, 400)):
         chain_floor_ms=floor_ms,
         us_per_epoch_floor=None if floor_ms is None else floor_ms * 1e3 / n_ep)
     row["us_per_step"] = row["ms"] * 1e3 / n_ep
+    row["library"] = "torch.triangular_solve on sparse CSR L (unit) then U, two calls"
+    library_pair(row, apply.batched, triangular_library(main_fact.pattern, main_fact.vals, dev),
+                 b, 10)
     dms = "not measured" if row["device_ms"] is None else f"{row['device_ms']:.4f} ms"
     say(f"[sharded-sweep] poisson_2d(400) D={SHARDED_D}: one launch per apply for {n_ep} epochs "
         f"and {row['exchanges']} exchanges: {row['ms']:.4f} ms per apply (device {dms}, "
@@ -1987,6 +2122,9 @@ def phase_distributed(dev, b, single, nx=400):
         f"and {tp.sweep_collectives_per_apply()} exchanges)")
     check_launches("distributed", counts, ("epoch_sweep", "superstep_factor", "spmv_ell"),
                    idle=("factor_wavefront", "tri_solve_wavefront", "inverse_chain"))
+    require(counts["superstep_factor"] == 1,
+            f"distributed: {counts['superstep_factor']} superstep_factor launches for one "
+            "factorization")
     require(res.verdict == single.verdict and res.iterations == single.iterations
             and len(res.history) == len(single.history),
             f"distributed solve ({res.verdict}, {res.iterations} steps) != main "
@@ -2024,6 +2162,9 @@ def phase_distributed_inverse(dev, b, single, nx=400):
     check_launches("distributed-inverse", counts, ("superstep_factor", "spmv_ell"),
                    idle=("epoch_sweep", "factor_wavefront", "tri_solve_wavefront",
                          "inverse_chain"))
+    require(counts["superstep_factor"] == 1,
+            f"distributed-inverse: {counts['superstep_factor']} superstep_factor launches for "
+            "one factorization")
     require((res.verdict, res.iterations) == (single.verdict, single.iterations)
             and np.array_equal(res.x.view(np.int32), single.x.view(np.int32)),
             "distributed inverse solve != [main-inverse]")

@@ -7,8 +7,10 @@ The port's counterpart of ``repro/core/numeric_jax.py``:
   ``factor_wavefront`` CUDA kernel on a GPU and by its plain PyTorch
   version on the CPU (:func:`repro_torch.kernels.ops.factor_wavefront`);
 * :func:`make_superstep_factorizer` — the banded TOP-ILU executor over a
-  :class:`~repro_torch.core.planner.NumericPlan`: D band owners, one
-  ``superstep_factor`` launch and one halo exchange per superstep.
+  :class:`~repro_torch.core.planner.NumericPlan`: D band owners, on a GPU
+  one persistent ``superstep_factor`` launch per factorization (every
+  superstep and halo exchange inside it), on the CPU one superstep and one
+  halo exchange at a time.
 
 Both give the values of :func:`repro_torch.core.numeric_ref.numeric_ilu_ref`
 bitwise.
@@ -87,15 +89,20 @@ def make_superstep_factorizer(plan, group, broadcast: str = "gather"):
     over the D band owners of ``group`` (a
     :class:`~repro_torch.core.top_ilu.BandGroup` of ``plan.n_devices``).
 
-    Per superstep: one ``superstep_factor`` launch finishes every owner's
-    bands of the wave (in-band pivots from the band being built, the rest
-    from local rows or the halo through ``piv_addr``); then, when some owner
-    consumes another's rows, ONE exchange ships each owner's (E, W) egress
-    payload — the finalized rows another owner needs — to every owner, which
-    scatters it into its halo through the ingress map (``broadcast="gather"``
-    is one collective, ``"ring"`` D-1 hops; ``"psum"`` is ``"gather"``).
-    Both are copies of finished float32 rows, so the exchange cannot change
-    a bit, and the values equal the sequential oracle's.
+    The plan's tables are checked and bound once
+    (:class:`repro_torch.kernels.ops.SuperstepFactor`). On a CUDA device a
+    call is ONE persistent ``superstep_factor`` launch: every superstep of
+    every owner, each halo exchange a copy inside the kernel, counted in the
+    group through ``BandGroup.record``. On the CPU, or with ``step=``, it is
+    the per-superstep loop: one ``superstep_factor`` per superstep (in-band
+    pivots from the band being built, the rest from local rows or the halo
+    through ``piv_addr``), then, when some owner consumes another's rows,
+    ONE exchange that ships each owner's (E, W) egress payload — the
+    finalized rows another owner needs — to every owner, which scatters it
+    into its halo through the ingress map (``broadcast="gather"`` is one
+    collective, ``"ring"`` D-1 hops; ``"psum"`` is ``"gather"``). Every
+    exchange is a copy of finished float32 rows, so it cannot change a bit,
+    and the values equal the sequential oracle's.
     """
     from .top_ilu import _broadcast
 
@@ -104,40 +111,19 @@ def make_superstep_factorizer(plan, group, broadcast: str = "gather"):
         raise ValueError(f"the plan has {D} band owners, the group {group.n_devices}")
     broadcast = _broadcast(broadcast)
     bound_group, dev = group, group.device
-    tabs = {k: torch.as_tensor(np.ascontiguousarray(v), dtype=torch.int32, device=dev)
-            for k, v in plan_device_arrays(plan, keys=("sched", "piv_addr", "piv_dlane",
-                                                       "piv_dst", "n_piv")).items()}
-    exchange = D > 1 and plan.halo_size > 0
-    srows, W = plan.state_rows, plan.width
-    if exchange:
-        eg = torch.as_tensor(plan.egress_idx, dtype=torch.int64, device=dev)  # (n_sup, D, E)
-        # receiver d's flat state row of each (sender, payload row); padding
-        # lands in the receiver's scratch row, as in the reference
-        own = torch.arange(D, device=dev)[None, :, None] * srows
-        ing = (torch.as_tensor(plan.ingress_idx, dtype=torch.int64, device=dev).reshape(
-            plan.n_supersteps, D, -1) + own).reshape(plan.n_supersteps, -1)
-        owners = torch.arange(D, device=dev)[:, None]
+    kernel = ops.SuperstepFactor(
+        *(plan_device_arrays(plan, keys=ops.SuperstepFactor.FIELDS + ("egress", "ingress"))
+          .values()), plan.n_bands, plan.band_rows, plan.halo_size, dev)
 
     def factorize(state, step=None, group=None) -> torch.Tensor:
-        """``step`` runs one superstep in place: ``ops.superstep_factor`` by
-        default; a check may pass a function that also runs the plain
-        version. ``group`` is the BandGroup the exchanges go through (the
+        """``step`` runs one superstep in place (a check may pass a function
+        that also runs the plain version): the per-superstep loop, on any
+        device. ``group`` is the BandGroup the exchanges go through (the
         one given at build time by default): a factorizer cached per
         structure serves every group of its owner count and device."""
-        step = step or ops.superstep_factor
         group = bound_group if group is None else group
-        if group.n_devices != D:
-            raise ValueError(f"factorize: a group of {group.n_devices} owners, the plan has {D}")
         st = torch.as_tensor(state, dtype=torch.float32, device=dev).contiguous()
-        if tuple(st.shape) != (D, srows, W):
-            raise ValueError(f"state: expected {(D, srows, W)}, got {tuple(st.shape)}")
-        for s in range(plan.n_supersteps):
-            step(st, tabs["sched"], s, tabs["piv_addr"], tabs["piv_dlane"], tabs["piv_dst"],
-                 tabs["n_piv"], plan.n_bands, plan.band_rows)
-            if exchange:
-                payload = st[owners, eg[s]]  # (D, E, W): each owner's finalized rows
-                got = group.exchange(payload, broadcast)  # (D recv, D send, E, W)
-                st.view(-1, W).index_copy_(0, ing[s], got.reshape(-1, W))
-        return st[:, :plan.s_loc]
+        return kernel(st, group, broadcast, step=step)[:, :plan.s_loc]
 
+    factorize.kernel = kernel
     return factorize

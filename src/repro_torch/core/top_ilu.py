@@ -11,18 +11,23 @@ device:
 * values → **sharded**: owner ``d``'s slice of the ``(D, s_loc+H+1, W)``
   state holds only its bands' values plus a halo of the finalized foreign
   pivot rows it consumes (``planner._halo_exchange_schedule``);
-* the frontier loop → one ``superstep_factor`` launch per band-dependency
-  wavefront, every owner's bands of the wave at once;
-* the Fig-4 ring pipeline → ONE exchange per superstep through
-  :class:`BandGroup`, of exactly the rows another owner needs.
+* the frontier loop → the band-dependency wavefronts (supersteps), every
+  owner's bands of a wave at once: on a CUDA device all of them in ONE
+  persistent ``superstep_factor`` launch, on the CPU one superstep at a
+  time;
+* the Fig-4 ring pipeline → ONE exchange per superstep, of exactly the
+  rows another owner needs: on a CUDA device a copy inside that launch
+  (each owner pushes the rows into the receivers' halos and publishes a
+  count the receivers wait on), counted through :meth:`BandGroup.record`;
+  on the CPU through :meth:`BandGroup.exchange`.
 
-No kernel reads another owner's slice, except the sharded sweep's on a
-CUDA device, whose exchanges are pure copies inside one launch; elsewhere
-values cross owners through :meth:`BandGroup.exchange`, a pure copy. A
-backend over several cards replaces that method, and the sweep's
-in-kernel exchange with it (ROADMAP). The factorization stays on
-the device as a :class:`ShardedILUFactorization`, whose ``precond()`` and
-``solve`` consume the sharded values in place.
+On a CUDA device the persistent factorization and the sharded sweep
+exchange inside their launches, as pure copies between the owners' slices
+in the card's memory; elsewhere values cross owners through
+:meth:`BandGroup.exchange`, a pure copy. A backend over several cards
+replaces that method, and the in-kernel exchanges with it (ROADMAP). The
+factorization stays on the device as a :class:`ShardedILUFactorization`,
+whose ``precond()`` and ``solve`` consume the sharded values in place.
 """
 from __future__ import annotations
 
@@ -61,9 +66,10 @@ class BandGroup:
     package's 1-D ``band`` mesh (``repro.core.top_ilu.band_mesh``).
 
     Owner ``d``'s data is slice ``d`` of the leading axis of every sharded
-    tensor. Values cross owners through :meth:`exchange`, or, in the sharded
-    sweep on a CUDA device, through copies inside one kernel
-    (:class:`~repro_torch.kernels.ops.ShardedSweep`). Both count through
+    tensor. Values cross owners through :meth:`exchange`, or, in the
+    factorization and the sharded sweep on a CUDA device, through copies
+    inside one kernel (:class:`~repro_torch.kernels.ops.SuperstepFactor`,
+    :class:`~repro_torch.kernels.ops.ShardedSweep`). Both count through
     :meth:`record`: ``exchanges``, ``collectives`` (one per ``"gather"``,
     D-1 hops per ``"ring"``) and ``payload_bytes`` (bytes one owner sends
     per exchange, summed) — the quantities the plans' comm models predict.
@@ -279,6 +285,10 @@ def topilu_factor_sharded(
 ) -> ShardedILUFactorization:
     """Parallel numeric factorization over the D band owners of ``group``
     (one owner on CUDA when None); the output stays sharded on the device.
+    On a CUDA device it is one persistent ``superstep_factor`` launch whose
+    exchanges are in-kernel copies, counted in ``group`` through
+    ``BandGroup.record`` as the plan's one exchange per superstep; on the
+    CPU each superstep's exchange goes through ``group.exchange``.
 
     The plan and the factorizer are memoized on the matrix object under
     :data:`ENGINE_CACHE_KEY`, keyed by the pattern, the band size, the

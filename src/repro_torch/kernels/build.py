@@ -60,6 +60,9 @@ _SIGNATURES = {
     "epoch_sweep_max_owners": [_I, _IP],
     "epoch_sweep_chain_floor_launch": [_I] * 3 + [_P] * 4,
     "superstep_factor_launch": [_P] * 6 + [_I] * 10 + [_P],
+    "superstep_factor_persistent_launch": [_PP, _IP, _P, _P, _I, _P],
+    "superstep_factor_max_owners": [_IP, _I, _IP, _IP],
+    "superstep_factor_chain_floor_launch": [_I] * 3 + [_P] * 3,
 }
 
 _lock = threading.Lock()

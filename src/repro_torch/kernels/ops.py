@@ -21,15 +21,18 @@ of the pool's tiles in place in one launch of the same kernel, as
 ``panel_update``'s kernel; the per-epoch ``epoch_sweep`` and
 ``superstep_factor`` update their state in place.
 
-Four kernels also have a form that is checked once and launched many
+Five kernels also have a form that is checked once and launched many
 times: :class:`EllOperator` (``spmv_ell`` over one matrix),
 :class:`TriSolveWavefront` (``tri_solve_wavefront`` over one plan),
 :class:`FactorWavefront` (``factor_wavefront`` over one schedule, packed
-once) and :class:`ShardedSweep` (a whole band-partitioned apply, every
+once), :class:`ShardedSweep` (a whole band-partitioned apply, every
 epoch and exchange, in one persistent launch of ``epoch_sweep``'s
-kernel). They check their matrix, plan or tables when they are made, keep
-the kernel's entry point bound through :class:`_Bound`, and check only
-what changes on a call. The checked functions ``spmv_ell``,
+kernel) and :class:`SuperstepFactor` (a whole band-superstep
+factorization, every superstep and exchange, in one persistent launch of
+``superstep_factor``'s kernel; the one-superstep ``superstep_factor``
+stays as the per-superstep route). They check their matrix, plan or
+tables when they are made, keep the kernel's entry point bound through
+:class:`_Bound`, and check only what changes on a call. The checked functions ``spmv_ell``,
 ``tri_solve_wavefront`` and ``factor_wavefront`` make one of these per
 call and call it once; they stay the entry points of the tests and of the
 comparisons with the plain versions. Every other wrapper launches through
@@ -644,6 +647,278 @@ def superstep_factor(state: torch.Tensor, sched: torch.Tensor, s: int, piv_addr:
                                                in_smem)
         superstep_factor.launches += 1
     return state
+
+
+def _superstep_tables(sched, piv_addr, piv_dlane, piv_dst, n_piv, egress, ingress,
+                      n_bands: int, band_rows: int, halo_size: int) -> dict:
+    """Check a band-superstep plan's tables on the host and derive what one
+    persistent launch needs; raises ValueError on a table the kernel must
+    not run (an address outside the state, a band scheduled twice, a halo
+    row read before it is filled, ...), so a bad table never reaches the
+    card.
+
+    The premise of the persistent launch's exchange is checked here: every
+    valid pivot (p < n_piv) of a row of superstep s reads an earlier row of
+    its own band, a local row of a band finished before s, or a halo row
+    filled by exactly one ingress entry in a superstep before s, from a row
+    its sender finished in that superstep. Returns the push lists (per
+    (s, sender) the member-relative source row ``g * R + r`` and the
+    receiver's flat state row; scratch entries dropped) in CSR form over
+    ``s * D + sender``, their longest list, and the wait counts (n_sup,
+    D, D): owner r waits before superstep s until owner t has published
+    ``wait[s, r, t]`` (0: no wait). ``pivots`` describes every valid pivot
+    (its owner, local row, ``piv_addr``, superstep, whether its row lies in
+    the band) and counts their kept lanes; ``n_scheduled`` counts the bands
+    the schedule factors."""
+    import numpy as np
+
+    sched, piv_addr, piv_dlane, n_piv, egress, ingress = (
+        np.asarray(t, dtype=np.int64) for t in (sched, piv_addr, piv_dlane, n_piv, egress,
+                                                 ingress))
+    piv_dst = np.asarray(piv_dst)  # the largest table: read as it is
+    n_sup, D, mpd = sched.shape
+    s_loc, mp = piv_addr.shape[1], piv_addr.shape[2]
+    W = piv_dst.shape[3]
+    R, H = band_rows, halo_size
+    scratch = s_loc + H
+    srows = scratch + 1
+    e_max = egress.shape[2] if egress.ndim == 3 else 0
+    if (piv_addr.shape != (D, s_loc, mp) or piv_dlane.shape != (D, s_loc, mp)
+            or piv_dst.shape != (D, s_loc, mp, W) or n_piv.shape != (D, s_loc)
+            or egress.shape != (n_sup, D, e_max) or ingress.shape != (n_sup, D, D, e_max)):
+        raise ValueError("superstep tables: shapes do not agree with sched (n_sup, D, MPD) and "
+                         "piv_addr (D, s_loc, MP)")
+    if R < 1 or s_loc % R or n_bands != (s_loc // R) * D:
+        raise ValueError(f"superstep tables: {n_bands} bands of {R} rows do not fill {D} owners "
+                         f"of {s_loc} local rows")
+    # sched: band ids (n_bands pads), each band at most once, on its owner
+    if ((sched < 0) | (sched > n_bands)).any():
+        raise ValueError(f"superstep tables: sched holds ids outside [0, {n_bands}]")
+    live = sched < n_bands
+    s_of, d_of, g_of = np.nonzero(live)
+    ids = sched[live]
+    if np.bincount(ids, minlength=n_bands).max(initial=0) > 1:
+        raise ValueError("superstep tables: sched holds a band twice")
+    if (ids % D != d_of).any():
+        raise ValueError("superstep tables: sched gives a band to an owner that does not own it")
+    sup_of_band = np.full(n_bands, n_sup, np.int64)  # n_sup: never factored
+    sup_of_band[ids] = s_of
+    rank_of_band = np.zeros(n_bands, np.int64)
+    rank_of_band[ids] = g_of
+    # the per-row tables of every valid pivot
+    if ((n_piv < 0) | (n_piv > min(mp, W))).any():
+        raise ValueError(f"superstep tables: n_piv outside [0, {min(mp, W)}]")
+    valid = np.arange(mp)[None, None, :] < n_piv[:, :, None]
+    d_i, j_i, p_i = np.nonzero(valid)
+    addr = piv_addr[d_i, j_i, p_i]
+    if ((addr < 0) | (addr >= scratch)).any():
+        raise ValueError(f"superstep tables: a valid piv_addr outside the {scratch} local and "
+                         "halo rows of the state")
+    dl = piv_dlane[d_i, j_i, p_i]
+    if ((dl < 0) | (dl >= W)).any():
+        raise ValueError(f"superstep tables: a valid piv_dlane outside [0, {W})")
+    dst = piv_dst[d_i, j_i, p_i]
+    if ((dst < 0) | (dst > W)).any():
+        raise ValueError(f"superstep tables: a valid piv_dst outside [0, {W}]")
+    kept = dst < W  # no kept lane twice in one pivot's map
+    lanes = (np.arange(dst.shape[0], dtype=np.int64)[:, None] * W + dst)[kept]
+    if np.bincount(lanes, minlength=dst.size).max(initial=0) > 1:
+        raise ValueError("superstep tables: a pivot updates one lane twice")
+    # the premise: what each valid pivot reads is finished before it
+    slot = j_i // R
+    step = sup_of_band[slot * D + d_i]
+    run = step < n_sup  # rows of a scheduled band
+    local = addr < s_loc
+    in_band = local & (addr // R == slot)
+    if (in_band & (addr >= j_i)).any():
+        raise ValueError("superstep tables: a pivot row in the band is not an earlier row")
+    other = local & ~in_band & run
+    if (sup_of_band[(addr[other] // R) * D + d_i[other]] >= step[other]).any():
+        raise ValueError("superstep tables: a pivot row of the owner is finished in the same "
+                         "or a later superstep")
+    # ingress: each halo row filled once, from a real egress row
+    if ((egress < 0) | (egress > scratch) | ((egress >= s_loc) & (egress < scratch))).any():
+        raise ValueError("superstep tables: egress outside the sender's local rows")
+    fill_s, fill_r, fill_t, fill_e = np.nonzero(ingress != scratch)
+    h = ingress[fill_s, fill_r, fill_t, fill_e]
+    if ((h < s_loc) | (h > scratch)).any():
+        raise ValueError("superstep tables: ingress outside the receiver's halo and scratch row")
+    src = egress[fill_s, fill_t, fill_e]
+    if (src == scratch).any():
+        raise ValueError("superstep tables: an ingress entry files a padding egress row")
+    src_band = (src // R) * D + fill_t
+    if (sup_of_band[src_band] != fill_s).any():
+        raise ValueError("superstep tables: an egress row is not finished in its superstep")
+    flat = fill_r * H + (h - s_loc)
+    if np.bincount(flat, minlength=D * H).max(initial=0) > 1:
+        raise ValueError("superstep tables: a halo row is filled twice")
+    fill_step = np.full(D * H, -1, np.int64)
+    fill_from = np.zeros(D * H, np.int64)
+    fill_step[flat], fill_from[flat] = fill_s, fill_t
+    halo = ~local & run
+    hf = d_i[halo] * H + (addr[halo] - s_loc)
+    if (fill_step[hf] < 0).any() or (fill_step[hf] >= step[halo]).any():
+        raise ValueError("superstep tables: a halo row is read before the superstep that "
+                         "fills it")
+    wait = np.zeros((n_sup, D, D), np.int64)
+    sender = fill_from[hf]
+    foreign = sender != d_i[halo]
+    np.maximum.at(wait, (step[halo][foreign], d_i[halo][foreign], sender[foreign]),
+                  fill_step[hf][foreign] + 1)
+    # push lists, grouped by (superstep, sender)
+    key = fill_s * D + fill_t
+    order = np.argsort(key, kind="stable")
+    counts = np.bincount(key, minlength=n_sup * D)
+    off = np.zeros(n_sup * D + 1, np.int64)
+    np.cumsum(counts, out=off[1:])
+    src_rel = rank_of_band[src_band] * R + src % R
+    return dict(push_off=off, push_src=src_rel[order], push_dst=(fill_r * srows + h)[order],
+                p_max=int(counts.max(initial=0)), wait=wait, n_scheduled=int(ids.size),
+                pivots=dict(owner=d_i, row=j_i, addr=addr, step=step, in_band=in_band,
+                            kept=int(kept.sum())))
+
+
+class SuperstepFactor:
+    """The band-superstep factorization over D band owners, every superstep
+    and every halo exchange, **in place** in a (D, s_loc+H+1, W) value
+    state, in ONE persistent launch of ``superstep_factor``'s kernel
+    (counted in ``superstep_factor.launches``).
+
+    ``sched`` … ``ingress`` are a :class:`~repro_torch.core.planner.NumericPlan`'s
+    owner-local tables (``repro_torch.core.numeric.plan_device_arrays``),
+    as NumPy arrays; they are checked once, on the host, when the object is
+    made (:func:`_superstep_tables`: a bad table raises ValueError there)
+    and copied to ``device``. A call takes the state on that device and the
+    :class:`~repro_torch.core.top_ilu.BandGroup` the exchanges go through:
+
+    * on a CUDA device one cooperative launch, one block per owner and one
+      warp per band of a superstep: after each superstep an owner pushes
+      the rows others need into their halos and publishes a count; an
+      owner waits on the counts of the senders it reads before a superstep
+      (``superstep_factor.cu``). The exchanges are copies inside the card's
+      memory, so ``group.record`` counts, in one call, the exchanges,
+      collectives and payload bytes ``group.exchange`` makes on the CPU;
+    * on the CPU, or with ``step=``, the per-superstep loop (:meth:`steps`):
+      ``step`` (``superstep_factor`` by default: its plain version on the
+      CPU, one launch per superstep on the card) and one
+      ``group.exchange`` per superstep.
+
+    Both give the bits of ``numeric_ilu_ref``. On the card the D owners'
+    blocks must all be resident, and a superstep may hold at most 32 bands
+    of one owner: a plan beyond either is refused when the object is made."""
+
+    FIELDS = ("sched", "piv_addr", "piv_dlane", "piv_dst", "n_piv")
+
+    def __init__(self, sched, piv_addr, piv_dlane, piv_dst, n_piv, egress, ingress,
+                 n_bands: int, band_rows: int, halo_size: int, device):
+        import numpy as np
+
+        dev = torch.device(device)
+        host = _superstep_tables(sched, piv_addr, piv_dlane, piv_dst, n_piv, egress, ingress,
+                                 n_bands, band_rows, halo_size)
+        _route(dev)
+        self.n_supersteps, self.n_owners, self.mpd = (int(v) for v in np.shape(sched))
+        self.s_loc, self.max_piv = (int(v) for v in np.shape(piv_addr)[1:])
+        self.width = int(np.shape(piv_dst)[3])
+        self.n_bands, self.band_rows, self.halo_size = int(n_bands), int(band_rows), int(halo_size)
+        self.state_rows = self.s_loc + self.halo_size + 1
+
+        def i32(x):
+            return torch.as_tensor(np.ascontiguousarray(x), dtype=_I32, device=dev)
+
+        self.tabs = {k: i32(v) for k, v in zip(self.FIELDS, (sched, piv_addr, piv_dlane,
+                                                             piv_dst, n_piv))}
+        dev = self.tabs["sched"].device  # "cuda" resolved to its index
+        self.device, self._cuda = dev, _route(dev)
+        # the CPU route's exchange: one per superstep when some owner reads
+        # another's rows, of each owner's (E, W) egress payload
+        D, e_max = self.n_owners, int(np.shape(egress)[2])
+        self.exchanges = self.n_supersteps if D > 1 and self.halo_size > 0 else 0
+        self.payload_bytes = e_max * self.width * 4  # per owner and exchange
+        if self.exchanges:
+            self._eg = torch.as_tensor(np.asarray(egress), dtype=torch.int64, device=dev)
+            # receiver d's flat state row of each (sender, payload row)
+            own = torch.arange(D, device=dev)[None, :, None] * self.state_rows
+            self._ing = (torch.as_tensor(np.asarray(ingress), dtype=torch.int64, device=dev)
+                         .reshape(self.n_supersteps, D, -1) + own).reshape(self.n_supersteps, -1)
+            self._owners = torch.arange(D, device=dev)[:, None]
+        if self._cuda and self.n_supersteps:
+            self._bind(host, i32)
+
+    def _bind(self, host, i32) -> None:
+        import ctypes
+
+        from .build import load
+
+        if self.mpd > 32:
+            raise ValueError(f"superstep_factor: {self.mpd} bands of one owner in a superstep, "
+                             "but the persistent launch gives each a warp of one block (at "
+                             "most 32)")
+        self._host = {k: i32(host[k]) for k in ("push_off", "push_src", "push_dst", "wait")}
+        cfg = [self.n_supersteps, self.n_owners, self.mpd, self.state_rows, self.s_loc,
+               self.band_rows, self.width, self.max_piv, self.n_bands, host["p_max"]]
+        self._cfg = (ctypes.c_int * len(cfg))(*cfg)
+        lib, most, smem = load(), ctypes.c_int(0), ctypes.c_int(0)
+        # the ring of two supersteps in shared memory, else the bands in place
+        for staged in (1, 0):
+            with torch.cuda.device(self.device):
+                err = lib.superstep_factor_max_owners(self._cfg, staged, ctypes.byref(most),
+                                                      ctypes.byref(smem))
+            if err != 0:
+                raise RuntimeError(f"superstep_factor: cannot query the card's resident "
+                                   f"blocks: CUDA error {err}")
+            if most.value:
+                break
+        if self.n_owners > most.value:
+            raise ValueError(f"superstep_factor: {self.n_owners} band owners, but one "
+                             f"persistent launch keeps one block per owner resident and this "
+                             f"card holds at most {most.value}")
+        self.staged, self.smem_bytes = staged, smem.value
+        ptrs = [self.tabs[k] for k in self.FIELDS] + [
+            self._host[k] for k in ("push_off", "push_src", "push_dst", "wait")]
+        self._ptrs = (ctypes.c_void_p * len(ptrs))(
+            *(None if p.numel() == 0 else p.data_ptr() for p in ptrs))
+        self._launch = _Bound("superstep_factor_persistent_launch", self.device)
+
+    def __call__(self, state: torch.Tensor, group, broadcast: str = "gather",
+                 step=None) -> torch.Tensor:
+        _check("superstep factor state", state, _F32,
+               (self.n_owners, self.state_rows, self.width), self.device)
+        if group.n_devices != self.n_owners:
+            raise ValueError(f"factorize: a group of {group.n_devices} owners, the plan has "
+                             f"{self.n_owners}")
+        if step is not None or not self._cuda:
+            return self.steps(state, group, broadcast, step or superstep_factor)
+        if self.n_supersteps:
+            flags = torch.empty(self.n_owners, dtype=_I32, device=self.device)
+            self._launch(self._ptrs, self._cfg, state.data_ptr(), flags.data_ptr(), self.staged)
+            superstep_factor.launches += 1
+        self.record(group, broadcast)
+        return state
+
+    def record(self, group, broadcast: str = "gather") -> None:
+        """Count one factorization's exchanges in ``group``: those the
+        per-superstep loop makes through ``group.exchange``, one per
+        superstep of each owner's (E, W) payload when D > 1 and some owner
+        reads another's rows."""
+        if self.exchanges:
+            group.record(self.exchanges, self.exchanges * self.payload_bytes, broadcast)
+
+    def steps(self, state: torch.Tensor, group, broadcast: str, step) -> torch.Tensor:
+        """The per-superstep loop in place: ``step`` runs superstep s (the
+        signature of :func:`superstep_factor`), then one
+        ``group.exchange`` ships each owner's (E, W) egress payload, which
+        every owner files into its halo through the ingress map (padding
+        into its scratch row)."""
+        t, W = self.tabs, self.width
+        for s in range(self.n_supersteps):
+            step(state, t["sched"], s, t["piv_addr"], t["piv_dlane"], t["piv_dst"], t["n_piv"],
+                 self.n_bands, self.band_rows)
+            if self.exchanges:
+                payload = state[self._owners, self._eg[s]]  # (D, E, W): finished rows
+                got = group.exchange(payload, broadcast)  # (D recv, D send, E, W)
+                state.view(-1, W).index_copy_(0, self._ing[s], got.reshape(-1, W))
+        return state
 
 
 def _matrix(name: str, t: torch.Tensor, device, dtype=_F32) -> tuple:

@@ -11,25 +11,39 @@ holds the Pallas ones, with its shapes and tolerances: the JAX kernels sum
 their substitutions with ``jnp.dot``, in an order of XLA's, where the
 port's plain versions fix ascending order with each product rounded (the
 order the CUDA kernels equal bitwise).
+
+Where JAX is not installed only the ``cuda`` tests run (``-m cuda``), on
+the port's own matrix generators and plan builders.
 """
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from repro.core.factor_plan import build_factor_plan as j_build_factor_plan
-from repro.core.inverse import inverse_chain_jnp
-from repro.core.matgen import convection_diffusion_2d, matgen, poisson_2d
-from repro.core.numeric_jax import factor_wavefront_sweeps_jnp
-from repro.core.numeric_ref import numeric_ilu_ref
-from repro.core.planner import COL_SENTINEL
-from repro.core.symbolic import pilu1_symbolic, symbolic_ilu_k
-from repro.core.triangular import build_triangular_plan as j_build_triangular_plan
-from repro.core.triangular import wavefront_sweeps_jnp
-from repro.core.bilu import _lu_nopiv
-from repro.kernels import ops as jops
-from repro.kernels import ref as jref
 from repro_torch.kernels import ops, ref
+
+try:
+    import jax.numpy as jnp
+
+    from repro.core.factor_plan import build_factor_plan as j_build_factor_plan
+    from repro.core.inverse import inverse_chain_jnp
+    from repro.core.matgen import convection_diffusion_2d, matgen, poisson_2d
+    from repro.core.numeric_jax import factor_wavefront_sweeps_jnp
+    from repro.core.numeric_ref import numeric_ilu_ref
+    from repro.core.planner import COL_SENTINEL
+    from repro.core.symbolic import pilu1_symbolic, symbolic_ilu_k
+    from repro.core.triangular import build_triangular_plan as j_build_triangular_plan
+    from repro.core.triangular import wavefront_sweeps_jnp
+    from repro.core.bilu import _lu_nopiv
+    from repro.kernels import ops as jops
+    from repro.kernels import ref as jref
+except ModuleNotFoundError:  # no JAX (a GPU machine): only the cuda tests run, on the
+    # port's own copies of the generators and plan builders
+    from repro_torch.core.factor_plan import build_factor_plan as j_build_factor_plan
+    from repro_torch.core.matgen import convection_diffusion_2d, matgen, poisson_2d
+    from repro_torch.core.numeric_ref import numeric_ilu_ref
+    from repro_torch.core.planner import COL_SENTINEL
+    from repro_torch.core.symbolic import pilu1_symbolic, symbolic_ilu_k
+    from repro_torch.core.triangular import build_triangular_plan as j_build_triangular_plan
 
 FACTOR_FIELDS = ("op_row", "op_lane", "op_piv", "op_dlane", "op_dst", "dst_flat")
 SWEEP_FIELDS = ("l_cols_lm", "l_vals_lm", "l_rhs_idx", "u_cols_lm", "u_vals_lm",
@@ -414,9 +428,9 @@ def test_cuda_tile_kernels_vs_plain(bs, cuda_device):
 @pytest.mark.parametrize("n_devices", [1, 2, 4])
 def test_cuda_distributed_kernels_bitwise_vs_plain(n_devices, cuda_device):
     """epoch_sweep over every epoch of both sweeps, and superstep_factor over
-    every superstep, on the card against their plain versions on the CPU;
-    then the whole sharded factorization and apply on the card against the
-    CPU's."""
+    every superstep and as one persistent launch, on the card against their
+    plain versions on the CPU; then the whole sharded factorization and
+    apply on the card against the CPU's."""
     from repro_torch.core.api import ilu_sharded
     from repro_torch.core.numeric import make_superstep_factorizer, plan_state_array
     from repro_torch.core.sparse import CSRMatrix
@@ -441,6 +455,10 @@ def test_cuda_distributed_kernels_bitwise_vs_plain(n_devices, cuda_device):
         fac = make_superstep_factorizer(plan, BandGroup(n_devices, cuda_device), broadcast)
         loc = fac(plan_state_array(plan, a), step=checked)
         _bits_equal(loc.cpu().numpy(), cpu.loc_vals.numpy())
+        before = ops.superstep_factor.launches
+        whole = fac(plan_state_array(plan, a))  # the persistent form: the whole factor
+        assert ops.superstep_factor.launches == before + 1
+        _bits_equal(whole.cpu().numpy(), cpu.loc_vals.numpy())
     assert len(steps) == 2 * plan.n_supersteps
 
     apply = cpu.precond()
