@@ -68,7 +68,7 @@ with a non-zero exit; nothing is caught):
 7. card against CPU — the same solves on the card and on the CPU (plain
    versions) give the same ``x`` bitwise and the same iteration counts, on
    ``poisson_2d(64)`` and ``convection_diffusion_2d(32)``: the sweep, the
-   inverse chain, and a batch of three with per-lane tolerances.
+   inverse chain, BiCGSTAB, and a batch of three with per-lane tolerances.
 8. bilu — Block-ILU(1) of ``poisson_2d(400)`` at bs = 128, 32, 256, 512
    and 1024 (``repro_torch.core.bilu.bilu``): the host plan and numeric walls,
    and the numeric phase once more under torch.profiler (device busy
@@ -110,6 +110,32 @@ with a non-zero exit; nothing is caught):
     dense row) is wider than shared memory, on the card in one persistent
     launch that factors the bands in place, bitwise equal to
     ``numeric_ilu_ref``.
+14. ordering — the fusion ordering of ``poisson_2d(400)`` for 4 owners of
+    32-row bands and the RCM ordering on the host (their seconds); the
+    sweep and factor comm models of the natural, fusion and RCM orderings
+    must give ``ORDERING_EXPECTED``: levels, epochs, collectives per apply,
+    supersteps, halo bytes per superstep, fill.
+15. distributed-fusion — path E under that fusion ordering: ``x`` bitwise
+    equal to the card's ``solve_with_ilu`` given the same ``Ordering``, one
+    ``superstep_factor`` launch per factorization and one ``epoch_sweep``
+    launch per apply, device ms per apply and per factorization, one
+    profiled restart; the persistent launches on the fused tables bitwise
+    equal to their plain versions (``poisson_2d(128)``; the apply also at
+    full size).
+16. warm — ``warm_solve`` captures each bucket's GMRES restart as one CUDA
+    graph (main path: nb = 1, 4; path E: nb = 1, 4 natural, 1 fused);
+    the warmed solves replay it once per restart and equal the cold ones
+    bitwise ([main], the [multi-rhs] lanes, [distributed],
+    [distributed-fusion]); a ragged batch of 3 through bucket 4 equals its
+    lanes' solo solves. Launch counts add each graph's kernels (counted at
+    its capture) times its replays to the wrappers' own.
+17. bicgstab — ILU(1) BiCGSTAB on ``poisson_2d(400)`` and on the
+    non-symmetric ``convection_diffusion_2d(400)``, gated on the float64
+    true residual (at 1e-4 where float32 stalls above 1e-5, said in the
+    output); phase 7 holds the card's BiCGSTAB equal to the CPU's.
+18. breakdown — the shift ladder on the four breakdown fixtures, card and
+    CPU equal, the settled factor bitwise equal to ``numeric_ilu_ref`` of
+    the shifted matrix, single-device and over 4 owners.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a GPU, or without
@@ -174,6 +200,18 @@ SHARDED_D = 4  # band owners of the distributed path, on one card
 BAND_ROWS = 32  # rows per band (the JAX package's default)
 SRC = Path(__file__).resolve().parent / "src"
 SMALL = ("poisson_2d(64)", "convection_diffusion_2d(32)")
+# [ordering]: poisson_2d(400), ILU(1), SHARDED_D owners of BAND_ROWS-row bands:
+# the comm models each ordering must reproduce (the JAX package's NumPy
+# models give these numbers on the same matrix)
+ORDERING_EXPECTED = {
+    "natural": dict(levels=2396, epochs=2384, collectives=2383, supersteps=2811,
+                    halo_bytes=1344, fill_nnz=1116802),
+    "fusion": dict(levels=1680, epochs=7, collectives=6, supersteps=1243, halo_bytes=46080,
+                   fill_nnz=1120654),
+    "rcm": dict(levels=3192, epochs=2874, collectives=2873, supersteps=4934, halo_bytes=5376,
+                fill_nnz=1116802),
+}
+BICGSTAB_FALLBACK_TOL = 1e-4  # [bicgstab]'s gate where float32 stalls above TOL
 
 
 def require(cond, what):
@@ -1034,7 +1072,7 @@ def phase_multi_rhs(dev, b, single, single_wall):
     check_launches("multi-rhs", counts, ("spmv_ell", "factor_wavefront", "tri_solve_wavefront"),
                    idle=("inverse_chain",))
     profile_resolve("multi-rhs", a, bs, dev, tol=tols)
-    return counts
+    return counts, (bs, tols, rs)
 
 
 def profile_resolve(path, a, b, dev, solve=None, activities=("cpu", "cuda"), **kw):
@@ -1083,6 +1121,7 @@ def phase_card_vs_cpu(dev):
         bs = np.random.default_rng(SEED + 3).standard_normal((3, a.n)).astype(np.float32)
         for label, rhs, kw in (("sweep", b, dict(tol=TOL)),
                                ("inverse", b, dict(tol=TOL, precond_method="inverse")),
+                               ("bicgstab", b, dict(tol=TOL, method="bicgstab")),
                                ("inverse nb=3, per-lane tol", bs,
                                 dict(tol=tols, precond_method="inverse"))):
             gpu, _ = solve_with_ilu(a, rhs, k=1, device=dev, **kw)
@@ -2134,7 +2173,7 @@ def phase_distributed(dev, b, single, nx=400):
     say("[distributed] steps, restarts, verdict and x bitwise equal to [main]")
     profile_resolve("distributed", a, b, dev, solve=solve_sharded, activities=("cuda",),
                     tol=TOL, n_devices=SHARDED_D, band_rows=BAND_ROWS)
-    return counts
+    return counts, res
 
 
 def phase_distributed_inverse(dev, b, single, nx=400):
@@ -2192,6 +2231,470 @@ def phase_sharded_card_vs_cpu(dev, nx=32):
                 f"card sharded solve ({bc}) != CPU sharded solve on poisson_2d({nx})")
 
 
+def ordering_models(a):
+    """[ordering]'s comm models, on the host: for the natural, fusion (D =
+    SHARDED_D, BAND_ROWS) and RCM orderings of ``a``, the symbolic ILU(1)
+    of the permuted matrix, ``sweep_comm_model`` and ``factor_comm_model``,
+    and their seconds."""
+    from repro_torch.core.api import _symbolic
+    from repro_torch.core.ordering import (
+        factor_comm_model,
+        make_ordering,
+        permuted_system,
+        sweep_comm_model,
+    )
+
+    out = {}
+    for spec in ORDERING_EXPECTED:
+        t0 = time.perf_counter()
+        o = make_ordering(a, spec, n_devices=SHARDED_D, band_rows=BAND_ROWS)
+        ap = a if o is None else permuted_system(a, o)
+        pattern = _symbolic(ap, 1, "sum")
+        out[spec] = dict(sweep=sweep_comm_model(pattern, BAND_ROWS, SHARDED_D),
+                         factor=factor_comm_model(ap, pattern, BAND_ROWS, SHARDED_D),
+                         seconds=time.perf_counter() - t0)
+    return out
+
+
+def phase_ordering(nx=400):
+    """[ordering]: the fusion ordering of poisson_2d(nx) for SHARDED_D owners
+    of BAND_ROWS-row bands and the RCM ordering, built on the host (their
+    seconds); the comm models of the natural, fusion and RCM orderings,
+    which must reproduce ORDERING_EXPECTED. Returns the fusion Ordering."""
+    from repro_torch.core.matgen import poisson_2d
+    from repro_torch.core.ordering import fusion_aware_ordering, rcm_ordering
+
+    a = poisson_2d(nx)
+    t0 = time.perf_counter()
+    o4 = fusion_aware_ordering(a, SHARDED_D, band_rows=BAND_ROWS)
+    t1 = time.perf_counter()
+    rcm = rcm_ordering(a)
+    t2 = time.perf_counter()
+    say(f"[ordering] poisson_2d({nx}) n={a.n}: fusion_aware_ordering(D={SHARDED_D}, "
+        f"band_rows={BAND_ROWS}) {t1 - t0:.3f} s, rcm_ordering {t2 - t1:.3f} s on the host")
+    require(sorted(o4.perm.tolist()) == list(range(a.n)) and rcm.perm.size == a.n,
+            "an ordering is not a permutation")
+    got = ordering_models(a)
+    for spec, want in ORDERING_EXPECTED.items():
+        rec = got[spec]
+        sw, fa = rec["sweep"], rec["factor"]
+        have = dict(levels=sw["levels"], epochs=sw["epochs"],
+                    collectives=sw["collectives_per_apply"], supersteps=fa["n_supersteps"],
+                    halo_bytes=fa["halo_bytes_per_superstep"], fill_nnz=fa["fill_nnz"])
+        say(f"[ordering] {spec}: {have['levels']} sweep levels, {have['epochs']} epochs, "
+            f"{have['collectives']} collectives per apply, {have['supersteps']} supersteps, "
+            f"{have['halo_bytes']} halo bytes per superstep, fill nnz {have['fill_nnz']:,}; "
+            f"payload {sw['payload_slots_per_apply']} slots per apply; symbolic and models "
+            f"{rec['seconds']:.2f} s on the host")
+        require(have == want, f"[ordering] {spec}: {have} != the expected {want}")
+    return o4
+
+
+def fused_kernels_check(dev, nx=128):
+    """The persistent superstep_factor and epoch_sweep launches on the
+    tables of a fusion ordering (poisson_2d(nx), SHARDED_D owners), bitwise
+    against their plain versions: the per-superstep loop of
+    ref.superstep_factor_ref and ref.sharded_sweep_ref (nb = 1 and NB), and
+    against numeric_ilu_ref of the permuted matrix."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.api import ilu, ilu_sharded
+    from repro_torch.core.matgen import poisson_2d
+    from repro_torch.core.numeric import make_superstep_factorizer, plan_state_array
+    from repro_torch.core.numeric_ref import numeric_ilu_ref
+    from repro_torch.core.ordering import fusion_aware_ordering
+    from repro_torch.core.top_ilu import BandGroup
+    from repro_torch.kernels import ops, ref
+
+    a = poisson_2d(nx)
+    o = fusion_aware_ordering(a, SHARDED_D, band_rows=BAND_ROWS)
+    group = BandGroup(SHARDED_D, dev)
+    ops.reset_launch_counts()
+    f = ilu_sharded(a, 1, band_rows=BAND_ROWS, group=group, ordering=o)
+    require(ops.launch_counts()["superstep_factor"] == 1, "fused factorization: not one launch")
+    plan = f.plan
+    want = numeric_ilu_ref(f.a, f.pattern)
+    require(bits_equal(f.values_csr(), want), f"fused poisson_2d({nx}) factor != numeric_ilu_ref")
+    fac = make_superstep_factorizer(plan, group)
+    st0 = torch.as_tensor(plan_state_array(plan, f.a), device=dev)
+
+    def plain_step(st, *args):
+        st.copy_(ref.superstep_factor_ref(st, *args))
+
+    got = fac(st0.clone())
+    plain = fac(st0.clone(), group=BandGroup(SHARDED_D, dev), step=plain_step)
+    require(bits_equal(got, plain), "fused: persistent superstep_factor != the plain loop")
+    apply = f.precond()
+    single = ilu(f.a, 1, device=dev).precond()
+    bs = torch.as_tensor(np.random.default_rng(SEED + 11).standard_normal((NB, a.n))
+                         .astype(np.float32), device=dev)
+    for nb in (1, NB):
+        ops.reset_launch_counts()
+        got = apply.batched(bs[:nb])
+        require(ops.launch_counts()["epoch_sweep"] == 1, "fused apply: not one launch")
+        want = ref.sharded_sweep_ref(apply.sweep.tables, apply._lv, apply._uv, apply._dg,
+                                     bs[:nb], BandGroup(SHARDED_D, dev), "gather")
+        require(bits_equal(got, want), f"fused apply nb={nb}: epoch_sweep != plain version")
+        require(bits_equal(got, single.batched(bs[:nb])), f"fused apply nb={nb} != PrecondApply")
+    tp = apply.plan
+    say(f"[distributed-fusion] poisson_2d({nx}) fused over {SHARDED_D} owners: "
+        f"{plan.n_supersteps} supersteps (<= {plan.bands_per_superstep} bands per owner, halo "
+        f"{plan.halo_size} rows, E={plan.egress_max}), {tp.l_sched.n_epochs}+"
+        f"{tp.u_sched.n_epochs} epochs (maxr {tp.maxr_l}/{tp.maxr_u}): the persistent "
+        "superstep_factor equal to the plain per-superstep loop and to numeric_ilu_ref, the "
+        f"persistent epoch_sweep (nb = 1, {NB}) to sharded_sweep_ref and PrecondApply, bitwise")
+
+
+def phase_distributed_fusion(dev, b, o4, nx=400):
+    """Path E under the fusion ordering ``o4``: solve_sharded over
+    SHARDED_D owners, GMRES(30) at TOL; x bitwise equal to the card's
+    single-device solve_with_ilu given the same Ordering; one
+    superstep_factor launch per factorization and one epoch_sweep launch
+    per apply; device ms per apply and per factorization; the fused full-
+    size apply against ref.sharded_sweep_ref; one profiled restart."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.matgen import poisson_2d
+    from repro_torch.core.numeric import make_superstep_factorizer, plan_state_array
+    from repro_torch.core.solvers import solve_sharded, solve_with_ilu
+    from repro_torch.core.top_ilu import BandGroup
+    from repro_torch.kernels import build, ops, ref
+
+    fused_kernels_check(dev)
+    a = poisson_2d(nx)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res, fact = solve_sharded(a, b, k=1, n_devices=SHARDED_D, band_rows=BAND_ROWS,
+                              ordering=o4, tol=TOL, device=dev)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    factor_s = fact.symbolic_seconds + fact.numeric_seconds
+    true_rel = true_residual(a, b, res.x)
+    apply = fact.precond()
+    tp, plan = apply.plan, fact.plan
+    n_ep = tp.l_sched.n_epochs + tp.u_sched.n_epochs
+    applies = len(res.history) * 31  # m = 30 Arnoldi applies and the update's, per restart
+    say(f"[distributed-fusion] poisson_2d({nx}) n={a.n} ILU(1), fusion ordering for "
+        f"{SHARDED_D} owners of {BAND_ROWS}-row bands, GMRES(30) tol={TOL}: verdict="
+        f"{res.verdict} inner steps={res.iterations} restarts={len(res.history)} "
+        f"residual={res.residual:.3e} float64 true residual={true_rel:.3e}")
+    say(f"[distributed-fusion] wall {wall:.3f} s = factor {factor_s:.3f} s (symbolic "
+        f"{fact.symbolic_seconds:.3f} s, plan + supersteps + audit {fact.numeric_seconds:.3f} s;"
+        f" {plan.n_supersteps} supersteps) + solve {wall - factor_s:.3f} s; {n_ep} epochs and "
+        f"{tp.sweep_collectives_per_apply()} exchanges per apply; launches: "
+        f"{counts['superstep_factor']} superstep_factor, {counts['epoch_sweep']} epoch_sweep "
+        f"for {applies} applies, {counts['spmv_ell']} spmv_ell")
+    check_launches("distributed-fusion", counts, ("epoch_sweep", "superstep_factor", "spmv_ell"),
+                   idle=("factor_wavefront", "tri_solve_wavefront", "inverse_chain"))
+    require(counts["superstep_factor"] == 1, "distributed-fusion: not one factorization launch")
+    require(counts["epoch_sweep"] == applies, f"distributed-fusion: {counts['epoch_sweep']} "
+            f"epoch_sweep launches for {applies} applies")
+    require(res.verdict == "converged" and true_rel <= 2 * TOL,
+            f"distributed-fusion: {res.verdict}, true residual {true_rel:.3e}")
+    single, sf = solve_with_ilu(a, b, k=1, ordering=o4, tol=TOL, device=dev)
+    require((single.iterations, single.verdict) == (res.iterations, res.verdict)
+            and np.array_equal(single.x.view(np.int32), res.x.view(np.int32)),
+            "distributed-fusion x != solve_with_ilu(ordering=o4) on the card")
+    require(bits_equal(fact.values_csr(), sf.vals),
+            "distributed-fusion factor != the single-device factor of the permuted matrix")
+    bp = torch.as_tensor(o4.permute_vector(b)[None], device=dev)
+    want = ref.sharded_sweep_ref(apply.sweep.tables, apply._lv, apply._uv, apply._dg, bp,
+                                 BandGroup(SHARDED_D, dev), "gather")
+    require(bits_equal(apply.batched(bp), want), "fused full-size apply != sharded_sweep_ref")
+    say(f"[distributed-fusion] x bitwise equal to solve_with_ilu(ordering=o4) on the card "
+        f"({single.iterations} steps), the factor to its factor_wavefront factor, the "
+        "full-size apply to sharded_sweep_ref")
+    apply_ms = time_ms(lambda: apply.batched(bp), reps=20)
+    apply_dev = device_ms(lambda: apply.batched(bp), "epoch_sweep_kernel", reps=10)
+    fac = make_superstep_factorizer(plan, fact.group)
+    st0 = torch.as_tensor(plan_state_array(plan, fact.a), device=dev)
+    fac_ms = time_ms(lambda: fac(st0.clone()), reps=10)
+    fac_dev = device_ms(lambda: fac(st0.clone()), "superstep_factor_persistent_kernel", reps=5)
+    host = factor_tables(plan)
+    chain = in_band_chain(plan, host)
+    lib = build.load()
+    flags = torch.zeros(SHARDED_D, dtype=torch.int32, device=dev)
+    sink = torch.zeros(1, dtype=torch.float32, device=dev)
+
+    def floor():
+        err = lib.superstep_factor_chain_floor_launch(SHARDED_D, plan.n_supersteps, chain,
+                                                      flags.data_ptr(), sink.data_ptr(),
+                                                      torch.cuda.current_stream().cuda_stream)
+        require(err == 0, f"the factor's chain floor kernel did not launch (CUDA error {err})")
+
+    floor_ms = device_ms(floor, "superstep_factor_chain_floor_kernel", reps=5)
+    na = "not measured"
+    say(f"[distributed-fusion] {apply_ms:.4f} ms per apply (device "
+        + (na if apply_dev is None else f"{apply_dev:.4f} ms, {apply_dev * 1e3 / n_ep:.3f} us "
+           f"per epoch, {apply_dev * 1e3 / (tp.nl_levels + tp.nu_levels):.3f} us per level")
+        + f"; levels of up to {tp.maxr_l}/{tp.maxr_u} rows per owner); {fac_ms:.3f} ms per "
+        "factorization (device "
+        + (na if fac_dev is None else f"{fac_dev:.3f} ms, {fac_dev * 1e3 / plan.n_supersteps:.3f}"
+           " us per superstep") + "; chain floor "
+        + (na if floor_ms is None else f"{floor_ms:.3f} ms") + f" for {chain} in-band pivots a "
+        f"superstep; <= {plan.bands_per_superstep} bands per owner a superstep, halo "
+        f"{plan.halo_size} rows, E={plan.egress_max} W={plan.width} MP={plan.max_piv}, "
+        f"{host['push_src'].size} rows pushed, <= {host['p_max']} per superstep and sender)")
+    profile_resolve("distributed-fusion", a, b, dev, solve=solve_sharded, activities=("cuda",),
+                    tol=TOL, n_devices=SHARDED_D, band_rows=BAND_ROWS, ordering=o4)
+    return counts, res
+
+
+def engines_of(matvec):
+    return list(matvec.__dict__.get("_torch_engines", {}).values())
+
+
+def replay_busy(engine, tag):
+    """Wall, device busy time and kernels of one replay of a warmed
+    restart's graph, under torch.profiler (device trace)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.graph.replay()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = kernel_events(prof)
+    busy = sum(us for _, us in events) / 1e6
+    share = (f"{len(events)} kernels traced, device busy {busy:.4f} s "
+             f"({100 * busy / wall:.1f}% of wall)" if events
+             else "no kernel events in the trace: device busy not measured")
+    say(f"[profile {tag}] one replayed restart under torch.profiler: wall {wall:.4f} s, {share}")
+
+
+def warm_counts():
+    """The launches of a run: each wrapper's own, plus those its graph
+    replays made (counted per graph at its capture, times its replays)."""
+    from repro_torch.kernels import ops
+
+    counts = ops.launch_counts()
+    graphs = ops.graph_counts()
+    for name, n in graphs["kernels"].items():
+        counts[name] += n
+    return counts, graphs
+
+
+def phase_warm(dev, b, single, multi, dist_cold, fused_cold, o4, nx=400):
+    """[warm]: warm_solve on the main path (nb buckets 1 and NB) and on path
+    E (SHARDED_D owners, natural ordering: buckets 1 and NB; fusion ordering
+    o4: bucket 1), each bucket's GMRES restart captured as one CUDA graph;
+    the warmed solves replay it once per restart and must equal the cold
+    solves bitwise ([main], the [multi-rhs] lanes, [distributed],
+    [distributed-fusion]); a ragged batch of 3 through bucket NB equals its
+    lanes' solo solves. Prints the capture seconds, the kernels per graph,
+    the wall per restart, the replays, and one replayed restart's device
+    busy share. Returns the launch counts of the main and path E warm
+    solves (wrapper launches plus graph replays)."""
+    import numpy as np
+
+    from repro_torch.core import solvers
+    from repro_torch.core.matgen import poisson_2d
+    from repro_torch.core.solvers import solve_sharded, solve_with_ilu, warm_solve
+    from repro_torch.kernels import ops
+
+    def same(got, want, what):
+        require((got.iterations, got.verdict, len(got.history))
+                == (want.iterations, want.verdict, len(want.history))
+                and np.array_equal(got.x.view(np.int32), want.x.view(np.int32)),
+                f"[warm] {what}: ({got.iterations}, {got.verdict}) != ({want.iterations}, "
+                f"{want.verdict}) or x differs")
+
+    def report(tag, secs, matvec):
+        engines = sorted(engines_of(matvec), key=lambda e: e.nb)
+        for e in engines:
+            require(e.graph is not None, f"[warm] {tag}: nb={e.nb} was not captured")
+            say(f"[warm] {tag} nb={e.nb}: restart graph of {sum(e.kernels.values())} kernels "
+                f"({json.dumps(e.kernels)}) captured in {e.capture_seconds:.3f} s")
+        say(f"[warm] {tag}: warm_solve seconds per batch size {json.dumps(secs)}")
+        return engines
+
+    bs, tols, multi_rs = multi
+    by_path = {}
+    # the main path
+    a = poisson_2d(nx)
+    secs = warm_solve(a, k=1, batch_sizes=(1, NB), sharded=False, tol=TOL, device=dev)
+    mv = a.__dict__[solvers.SOLVE_CACHE_KEY][("matvec", str(dev))]
+    engines = report("main", secs, mv)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res, _ = solve_with_ilu(a, b, k=1, tol=TOL, device=dev)
+    wall = time.perf_counter() - t0
+    counts, graphs = warm_counts()
+    same(res, single, "main nb=1 != [main]")
+    require(graphs["replays"] == len(res.history), f"[warm] main: {graphs['replays']} replays "
+            f"for {len(res.history)} restarts")
+    say(f"[warm] main: {res.iterations} steps, residual {res.residual:.3e}, x bitwise equal to "
+        f"[main]; wall {wall:.3f} s for {len(res.history)} restarts = "
+        f"{wall / len(res.history):.4f} s per restart (factor cached), {graphs['replays']} "
+        "graph replays")
+    check_launches("warm", counts, ("spmv_ell", "tri_solve_wavefront"),
+                   idle=("inverse_chain", "epoch_sweep"))
+    by_path["warm"] = counts
+    replay_busy(engines[0], "warm main")
+    t0 = time.perf_counter()
+    rs, _ = solve_with_ilu(a, bs, k=1, tol=tols, device=dev)
+    wall = time.perf_counter() - t0
+    for i, (g, w) in enumerate(zip(rs, multi_rs)):
+        same(g, w, f"main nb={NB} lane {i} != [multi-rhs]")
+    say(f"[warm] main nb={NB}: every lane bitwise equal to [multi-rhs]'s; wall {wall:.3f} s "
+        f"({wall / NB:.3f} s per RHS)")
+    replay_busy(engines[1], f"warm main nb={NB}")
+
+    # path E, natural ordering
+    a = poisson_2d(nx)
+    secs = warm_solve(a, k=1, batch_sizes=(1, NB), n_devices=SHARDED_D, band_rows=BAND_ROWS,
+                      tol=TOL, device=dev)
+    cache = a.__dict__[solvers.SOLVE_CACHE_KEY]
+    mv = next(v[1] for key, v in cache.items() if key[0] == "sharded_matvec")
+    engines = report("distributed", secs, mv)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res, fact = solve_sharded(a, b, k=1, n_devices=SHARDED_D, band_rows=BAND_ROWS, tol=TOL,
+                              device=dev)
+    wall = time.perf_counter() - t0
+    counts, graphs = warm_counts()
+    same(res, dist_cold, "distributed nb=1 != [distributed]")
+    say(f"[warm] distributed: x bitwise equal to [distributed] (and [main]); wall {wall:.3f} s "
+        f"for {len(res.history)} restarts = {wall / len(res.history):.4f} s per restart, "
+        f"{graphs['replays']} graph replays")
+    check_launches("warm-distributed", counts, ("spmv_ell", "epoch_sweep"),
+                   idle=("tri_solve_wavefront", "inverse_chain", "superstep_factor"))
+    by_path["warm-distributed"] = counts
+    replay_busy(engines[0], "warm distributed")
+    ragged, _ = solve_sharded(a, bs[:3], fact=fact, tol=tols[:3])
+    require(len(ragged) == 3, "[warm] ragged batch: not 3 results")
+    same(ragged[0], single, "distributed ragged lane 0 != [main]")
+    for i in (1, 2):
+        solo, _ = solve_sharded(a, bs[i], fact=fact, tol=float(tols[i]))
+        same(ragged[i], solo, f"distributed ragged lane {i} != its solo solve")
+    say(f"[warm] distributed: a ragged batch of 3 through bucket {NB}, each lane bitwise equal "
+        "to its solo solve")
+
+    # path E, fusion ordering
+    a = poisson_2d(nx)
+    secs = warm_solve(a, k=1, batch_sizes=(1,), n_devices=SHARDED_D, band_rows=BAND_ROWS,
+                      ordering=o4, tol=TOL, device=dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res, fact = solve_sharded(a, b, k=1, n_devices=SHARDED_D, band_rows=BAND_ROWS, ordering=o4,
+                              tol=TOL, device=dev)
+    wall = time.perf_counter() - t0
+    counts, graphs = warm_counts()
+    same(res, fused_cold, "distributed-fusion != [distributed-fusion]")
+    check_launches("warm-distributed-fusion", counts, ("spmv_ell", "epoch_sweep"),
+                   idle=("tri_solve_wavefront", "inverse_chain", "superstep_factor"))
+    by_path["warm-distributed-fusion"] = counts
+    mv = next(v[1] for key, v in fact.a.__dict__[solvers.SOLVE_CACHE_KEY].items()
+              if key[0] == "sharded_matvec")
+    engines = report("distributed-fusion", secs, mv)
+    say(f"[warm] distributed-fusion: x bitwise equal to [distributed-fusion]; wall {wall:.3f} s "
+        f"for {len(res.history)} restarts = {wall / len(res.history):.4f} s per restart, "
+        f"{graphs['replays']} graph replays")
+    replay_busy(engines[0], "warm distributed-fusion")
+    return by_path
+
+
+def phase_bicgstab(dev):
+    """[bicgstab]: ILU(1) BiCGSTAB on poisson_2d(400) and on the
+    non-symmetric convection_diffusion_2d(400) at TOL. Where float32 stalls
+    above TOL (a verdict other than converged, or a float64 true residual
+    above 2·TOL), the solve runs again at BICGSTAB_FALLBACK_TOL with the
+    factor cached, and says so; the gate is the float64 true residual <=
+    2·tol of the solve that passes."""
+    import numpy as np
+
+    from repro_torch.core.matgen import convection_diffusion_2d, poisson_2d
+    from repro_torch.core.solvers import solve_with_ilu
+    from repro_torch.kernels import ops
+
+    counts = None
+    for name, make in (("poisson_2d(400)", lambda: poisson_2d(400)),
+                       ("convection_diffusion_2d(400)", lambda: convection_diffusion_2d(400))):
+        t0 = time.perf_counter()
+        a = make()
+        gen_s = time.perf_counter() - t0
+        b = np.random.default_rng(SEED + 12).standard_normal(a.n).astype(np.float32)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res, fact = solve_with_ilu(a, b, k=1, method="bicgstab", tol=TOL, device=dev)
+        wall = time.perf_counter() - t0
+        counts = counts or ops.launch_counts()
+        factor_s = fact.symbolic_seconds + fact.numeric_seconds
+        true_rel = true_residual(a, b, res.x)
+        t0 = time.perf_counter()
+        again, _ = solve_with_ilu(a, b, k=1, method="bicgstab", tol=TOL, device=dev)
+        cached = time.perf_counter() - t0
+        require(bits_equal(again.x, res.x), f"bicgstab on {name}: a second solve differs")
+        say(f"[bicgstab] {name} n={a.n} nnz={a.nnz} (made in {gen_s:.1f} s) ILU(1) fill "
+            f"{fact.nnz:,}, BiCGSTAB tol={TOL}: verdict={res.verdict} iterations="
+            f"{res.iterations} residual={res.residual:.3e} float64 true residual="
+            f"{true_rel:.3e}; wall {wall:.3f} s = factor {factor_s:.3f} s + solve "
+            f"{wall - factor_s:.3f} s (sweep plan, BiCGSTAB); again with the factor and "
+            f"plan cached {cached:.3f} s = {cached * 1e3 / max(1, res.iterations):.2f} ms per "
+            "iteration")
+        require(np.isfinite(res.x).all() and res.x.shape == (a.n,),
+                f"bicgstab x malformed on {name}")
+        tol = TOL
+        if res.verdict != "converged" or true_rel > 2 * TOL:
+            tol = BICGSTAB_FALLBACK_TOL
+            say(f"[bicgstab] {name}: float32 BiCGSTAB stalls above tol={TOL} here (verdict "
+                f"{res.verdict}, float64 true residual {true_rel:.3e}); gated at tol={tol}")
+            res, _ = solve_with_ilu(a, b, k=1, method="bicgstab", tol=tol, device=dev)
+            true_rel = true_residual(a, b, res.x)
+            say(f"[bicgstab] {name} tol={tol}: verdict={res.verdict} iterations="
+                f"{res.iterations} float64 true residual={true_rel:.3e}")
+        require(res.verdict == "converged", f"bicgstab on {name}: {res.verdict} at tol {tol}")
+        require(true_rel <= 2 * tol, f"bicgstab on {name}: float64 true residual "
+                f"{true_rel:.3e} > 2*tol")
+    check_launches("bicgstab", counts, ("spmv_ell", "factor_wavefront", "tri_solve_wavefront"),
+                   idle=("inverse_chain", "epoch_sweep"))
+    return counts
+
+
+def phase_breakdown(dev):
+    """[breakdown]: the shift ladder (on_breakdown="shift") on the four
+    breakdown fixtures at small n, on the card and on the CPU: equal shifts
+    and equal factor bits, the settled factor bitwise equal to
+    numeric_ilu_ref of the shifted matrix, single-device (factor_wavefront)
+    and over SHARDED_D band owners (superstep_factor)."""
+    import numpy as np
+
+    from repro_torch.core import matgen
+    from repro_torch.core.api import ilu, ilu_sharded
+    from repro_torch.core.guard import shifted_matrix
+    from repro_torch.core.numeric_ref import numeric_ilu_ref
+    from repro_torch.kernels import ops
+
+    fixtures = (("singular_block_matrix(64)", matgen.singular_block_matrix(64, 0.1, seed=3), {}),
+                ("zero_diagonal_matrix(64)", matgen.zero_diagonal_matrix(64, 0.1, seed=4), {}),
+                ("indefinite_matrix(8)", matgen.indefinite_matrix(8), dict(pivot_tol=1e-2)),
+                ("denormal_pivot_matrix(64)", matgen.denormal_pivot_matrix(64, 0.1, seed=5), {}))
+    ops.reset_launch_counts()
+    for name, a, kw in fixtures:
+        card = ilu(a, 1, on_breakdown="shift", device=dev, **kw)
+        cpu = ilu(a, 1, on_breakdown="shift", device="cpu", **kw)
+        h = card.health
+        require(h.ok and h.shift > 0 and h.attempts > 1, f"[breakdown] {name}: {h.summary()}")
+        want = numeric_ilu_ref(shifted_matrix(a, h.shift), card.pattern)
+        require(cpu.health.shift == h.shift and bits_equal(card.vals, cpu.vals),
+                f"[breakdown] {name}: card != CPU")
+        require(bits_equal(card.vals, want), f"[breakdown] {name}: != numeric_ilu_ref(shifted)")
+        sh = ilu_sharded(a, 1, n_devices=SHARDED_D, band_rows=16, on_breakdown="shift",
+                         device=dev, **kw)
+        require(sh.health.shift == h.shift and bits_equal(sh.values_csr(), want),
+                f"[breakdown] {name}: sharded ladder != numeric_ilu_ref(shifted)")
+        say(f"[breakdown] {name}: the ladder settles on shift {h.shift:g} after {h.attempts} "
+            f"attempts, card and CPU equal bits, equal to numeric_ilu_ref of the shifted "
+            f"matrix (single-device and over {SHARDED_D} owners)")
+    counts = ops.launch_counts()
+    check_launches("breakdown", counts, ("factor_wavefront", "superstep_factor"))
+    return counts
+
+
 def run(oracles):
     import torch
 
@@ -2221,7 +2724,7 @@ def run(oracles):
     counts, b, single, single_wall, main_fact = phase_main_path(dev)
     by_path["main"] = counts
     by_path["main-inverse"], inv_single = phase_main_inverse(dev, b)
-    by_path["multi-rhs"] = phase_multi_rhs(dev, b, single, single_wall)
+    by_path["multi-rhs"], multi = phase_multi_rhs(dev, b, single, single_wall)
     phase_card_vs_cpu(dev)
     for bs in BILU_SIZES:
         by_path[f"bilu-bs{bs}"] = phase_bilu(dev, bs)
@@ -2231,10 +2734,15 @@ def run(oracles):
     rows.update(phase_distributed_kernels(dev, fact4))
     rows.update(phase_sharded_sweep(dev, main_fact))
     phase_sharded_apply(dev, main_fact, fact4)
-    by_path["distributed"] = phase_distributed(dev, b, single)
+    by_path["distributed"], dist_cold = phase_distributed(dev, b, single)
     by_path["distributed-inverse"] = phase_distributed_inverse(dev, b, inv_single)
     phase_sharded_card_vs_cpu(dev)
     phase_wide_band(dev)
+    o4 = phase_ordering()
+    by_path["distributed-fusion"], fused_cold = phase_distributed_fusion(dev, b, o4)
+    by_path.update(phase_warm(dev, b, single, multi, dist_cold, fused_cold, o4))
+    by_path["bicgstab"] = phase_bicgstab(dev)
+    by_path["breakdown"] = phase_breakdown(dev)
 
     for name, r in rows.items():
         path = ("main-inverse" if name == "inverse_chain"

@@ -43,7 +43,8 @@ class ILUFactorization:
     ``precond_method`` is how M^{-1} applies by default: ``"sweep"`` (the
     exact triangular sweeps), ``"inverse"`` (the level-truncated
     incomplete-inverse SpMV chain) or ``"auto"`` (the sweep, on one
-    device)."""
+    device). ``ordering`` is the row permutation the system was factored
+    under (None: the natural order)."""
 
     a: CSRMatrix
     k: int
@@ -54,6 +55,11 @@ class ILUFactorization:
     device: torch.device
     health: Optional[FactorHealth] = None
     precond_method: str = "sweep"
+    # the row ordering the system was permuted with before factoring (None =
+    # natural): ``a``/``pattern``/``vals`` describe the permuted system,
+    # ``solve`` un/permutes at its boundary, ``precond()`` stays in permuted
+    # row order (the solvers own the boundary on their paths)
+    ordering: Optional[object] = None
     # the preconditioners, one per resolved method (or the identity for a
     # degraded factor), each built once and reused across solves and restarts
     _preconds: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
@@ -86,10 +92,10 @@ class ILUFactorization:
 
     def solve(self, b: np.ndarray) -> np.ndarray:
         """Apply the default preconditioner to an (n,) or (nb, n) host
-        array (for the sweep: L y = b, U x = y)."""
-        bt = torch.as_tensor(np.asarray(b, np.float32)).to(self.device).contiguous()
-        apply = self.precond()
-        return (apply.batched(bt) if bt.ndim == 2 else apply(bt)).cpu().numpy()
+        array (for the sweep: L y = b, U x = y). With an ordering, ``b`` is
+        permuted in and ``x`` un-permuted out (pure gathers), so the caller
+        stays in the original row order."""
+        return _apply_in_order(self.precond(), self.ordering, b, self.device)
 
     @property
     def nnz(self) -> int:
@@ -102,11 +108,29 @@ def _symbolic(a: CSRMatrix, k: int, rule: str):
     return symbolic_ilu_k(a, k, rule=rule)
 
 
-def _check_ordering(ordering) -> None:
-    if ordering not in (None, "natural"):
-        raise NotImplementedError(
-            f"ordering={ordering!r}: only the natural ordering is ported so far; the RCM "
-            "and fusion orderings come with ROADMAP Queue A item 7")
+def _apply_in_order(apply, ordering, b, device) -> np.ndarray:
+    """``apply`` on an (n,) or (nb, n) host array given in the original row
+    order, through the permutation ``ordering`` (None: none)."""
+    b = np.asarray(b, np.float32)
+    if ordering is not None:
+        b = ordering.permute_vector(b)
+    bt = torch.as_tensor(np.ascontiguousarray(b)).to(device)
+    out = (apply.batched(bt) if bt.ndim == 2 else apply(bt)).cpu().numpy()
+    return out if ordering is None else ordering.unpermute_vector(out)
+
+
+def _resolve_ordering(a: CSRMatrix, ordering, n_devices: int, band_rows: int):
+    """Resolve ``ordering=`` and return ``(system, Ordering or None)``.
+
+    The permuted matrix is cached on ``a`` (``ordering.permuted_system``),
+    so repeated calls with one ordering reuse one matrix object, and with
+    it every plan and engine cached on it."""
+    from .ordering import make_ordering, permuted_system
+
+    ord_ = make_ordering(a, ordering, n_devices=n_devices, band_rows=band_rows)
+    if ord_ is None:
+        return a, None
+    return permuted_system(a, ord_), ord_
 
 
 def _group(n_devices: int, device, group):
@@ -151,13 +175,17 @@ def ilu_sharded(
     shift ladder refactors ``A + α·diag(‖row‖₁)`` through the same cached
     engine (the shifted matrix shares A's structure, so a rung re-scatters
     values and re-runs), each shifted factor bitwise equal to the sequential
-    oracle of the shifted matrix. ``ordering`` other than the natural one is
-    not ported yet (ROADMAP Queue A item 7)."""
+    oracle of the shifted matrix. ``ordering=`` (``"rcm"``, ``"fusion"`` —
+    which targets these owners' band ownership, so sweep epochs fuse — an
+    ``Ordering`` or a permutation array) permutes the system once at plan
+    time: the sharded factors then equal sequential ILU(k) of the permuted
+    matrix bitwise, the factorization's ``ordering`` carries the
+    permutation and its ``solve`` un/permutes at the boundary."""
     from .guard import audit_sharded
     from .top_ilu import topilu_factor_sharded
 
-    _check_ordering(ordering)
     grp = _group(n_devices, device, group)
+    a, ord_ = _resolve_ordering(a, ordering, grp.n_devices, band_rows)
     t0 = time.perf_counter()
     pattern = _symbolic(a, k, rule)
     t1 = time.perf_counter()
@@ -173,6 +201,7 @@ def ilu_sharded(
     fact.numeric_seconds = time.perf_counter() - t1
     fact.precond_method = precond_method
     fact.health = health
+    fact.ordering = ord_
     return fact
 
 
@@ -202,13 +231,15 @@ def ilu(
     the band-superstep factorization over ``n_devices`` band owners (or
     ``group``'s) with ``band_rows``-row bands and ``broadcast`` exchanges,
     and gathers its values to the host; :func:`ilu_sharded` keeps them
-    sharded."""
+    sharded. ``ordering=`` factors the permuted system (see
+    :func:`ilu_sharded`; ``"fusion"`` targets the band owners of the
+    ``topilu`` backend, and is the plain BFS ordering on one device)."""
     if backend not in ("torch", "oracle", "topilu"):
         raise ValueError(f"unknown backend {backend!r}: expected 'torch', 'oracle' or "
                          "'topilu'")
-    _check_ordering(ordering)
     dev = resolve_device(device if group is None or device is not None else group.device)
     grp = _group(n_devices, dev, group) if backend == "topilu" else None
+    a, ord_ = _resolve_ordering(a, ordering, grp.n_devices if grp is not None else 1, band_rows)
     t0 = time.perf_counter()
     pattern = _symbolic(a, k, rule)
     t1 = time.perf_counter()
@@ -234,7 +265,8 @@ def ilu(
     t2 = time.perf_counter()
     return ILUFactorization(
         a=sysmat, k=k, pattern=pattern, vals=vals, symbolic_seconds=t1 - t0,
-        numeric_seconds=t2 - t1, device=dev, health=health, precond_method=precond_method)
+        numeric_seconds=t2 - t1, device=dev, health=health, precond_method=precond_method,
+        ordering=ord_)
 
 
 def factorization_from_arrays(a: CSRMatrix, k: int, indptr, indices, levels, diag_ptr,

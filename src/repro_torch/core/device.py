@@ -5,6 +5,8 @@ runs the plain PyTorch version of every kernel; it is what the tests use.
 """
 from __future__ import annotations
 
+import time
+
 import torch
 
 
@@ -19,3 +21,25 @@ def resolve_device(device=None) -> torch.device:
             "repro_torch runs on a CUDA device by default and none is available; "
             "pass device='cpu' to run the plain PyTorch versions on the CPU")
     return dev
+
+
+def warm_apply(apply, n: int, device: torch.device, batch_sizes, group=None) -> dict:
+    """The ``warm`` of a preconditioner apply: on a CUDA device one apply on
+    zeros per batch size, which loads its kernels before a solve or a CUDA
+    graph capture needs them (``group``'s exchange counts are left as they
+    were); on the CPU nothing, since the plan and its bound tables are made
+    with the apply. Returns {batch_size: seconds}."""
+    import time
+
+    out = {}
+    for nb in batch_sizes:
+        t0 = time.perf_counter()
+        if device.type == "cuda":
+            counts = None if group is None else group.counts()
+            shape = (n,) if nb == 1 else (int(nb), n)
+            apply(torch.zeros(shape, dtype=torch.float32, device=device))
+            torch.cuda.synchronize(device)
+            if group is not None:
+                group.set_counts(counts)
+        out[int(nb)] = time.perf_counter() - t0
+    return out

@@ -119,7 +119,7 @@ class IdentityPrecondApply:
     """The last rung of the fallback chain: M⁻¹ = I.
 
     Matches the ``PrecondApply`` surface the solver consumes (a callable
-    on (n,) or (nb, n), and ``batched``), so a degraded factorization drops
+    on (n,) or (nb, n), ``batched`` and ``warm``), so a degraded factorization drops
     into the solve unchanged. Identity-preconditioned GMRES through this
     object is bitwise identical to ``precond=None`` — both apply the same
     no-op.
@@ -132,6 +132,9 @@ class IdentityPrecondApply:
         if xs.ndim != 2:
             raise ValueError(f"batched expects (nb, n), got shape {tuple(xs.shape)}")
         return xs
+
+    def warm(self, batch_sizes=(1,), *args, **kw) -> dict:
+        return {int(nb): 0.0 for nb in batch_sizes}
 
 
 # --------------------------------------------------------------------------

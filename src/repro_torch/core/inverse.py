@@ -34,7 +34,7 @@ import torch
 from repro_torch.kernels import ops
 
 from .bitmath import masked_lane_sum
-from .device import resolve_device
+from .device import resolve_device, warm_apply
 from .inverse_ref import inverse_pattern_ref
 from .planner import COL_SENTINEL, wavefront_schedule_ell
 from .solvers import RowBlockELL
@@ -261,6 +261,11 @@ class InversePrecondApply:
             raise ValueError(f"batched expects (nb, n), got shape {tuple(bs.shape)}")
         return self(bs)
 
+    def warm(self, batch_sizes=(1,)) -> dict:
+        """Load the chain's kernel for the given batch sizes; see
+        :func:`~repro_torch.core.device.warm_apply`."""
+        return warm_apply(self, self.n, self.device, batch_sizes)
+
 
 class ShardedInversePrecondApply:
     """Row-block sharded M^{-1} ~= Z W apply over the D owners of a
@@ -298,6 +303,12 @@ class ShardedInversePrecondApply:
         return self.batched(b[None])[0]
 
     apply = __call__
+
+    def warm(self, batch_sizes=(1,)) -> dict:
+        """Load the chain's kernels for the given batch sizes, the group's
+        counts left as they were; see
+        :func:`~repro_torch.core.device.warm_apply`."""
+        return warm_apply(self, self.n, self.group.device, batch_sizes, self.group)
 
 
 # --------------------------------------------------------------------------

@@ -10,7 +10,9 @@ Driven Cavity ``e40r3000``, incompressible Navier-Stokes). We reproduce:
 * :func:`convection_diffusion_2d` — a structured nonsymmetric 9-point stencil
   used as a surrogate for e40r3000 (density/row-degree are matched).
 * :func:`poisson_2d` — 5-point Laplacian, the classical SPD test.
-* :func:`zero_diagonal_matrix` — a breakdown fixture for the pivot guard.
+* :func:`singular_block_matrix`, :func:`zero_diagonal_matrix`,
+  :func:`indefinite_matrix`, :func:`denormal_pivot_matrix` — the breakdown
+  fixtures of the pivot guard.
 
 A copy of the same generators in ``repro/core/matgen.py``: one seed gives
 the same matrix in both packages.
@@ -82,6 +84,29 @@ def poisson_2d(nx: int) -> CSRMatrix:
 # Manteuffel shift `A + α·diag(‖row‖)` of core/guard.py stays a value edit.
 # --------------------------------------------------------------------------
 
+def singular_block_matrix(n: int, density: float = 0.05, seed: int = 0) -> CSRMatrix:
+    """Healthy :func:`matgen` matrix with a singular 2x2 leading block.
+
+    Rows 0-1 are exactly ``[[1, 1], [1, 1]]`` (and nothing else), so *any*
+    ILU(k) eliminates row 1 to the pivot ``1 - 1·1 = 0`` — a guaranteed,
+    position-known zero pivot regardless of level-of-fill or ordering of
+    the healthy remainder.
+    """
+    a = matgen(n, density, seed=seed)
+    indptr, indices, data = a.indptr.copy(), a.indices, a.data.copy()
+    keep = np.ones(len(indices), bool)
+    keep[indptr[0]:indptr[2]] = False  # drop rows 0 and 1 entirely
+    block_cols = np.array([0, 1, 0, 1], np.int32)
+    block_vals = np.ones(4, np.float32)
+    new_indices = np.concatenate([block_cols, indices[keep]])
+    new_data = np.concatenate([block_vals, data[keep]])
+    new_indptr = indptr.copy()
+    new_indptr[1] = 2
+    new_indptr[2] = 4
+    new_indptr[3:] = indptr[3:] - (indptr[2] - 4)
+    return CSRMatrix(n=n, indptr=new_indptr, indices=new_indices, data=new_data)
+
+
 def zero_diagonal_matrix(n: int, density: float = 0.05, seed: int = 0,
                          row: int = 0) -> CSRMatrix:
     """Healthy :func:`matgen` matrix with one diagonal value zeroed.
@@ -96,6 +121,37 @@ def zero_diagonal_matrix(n: int, density: float = 0.05, seed: int = 0,
     lo, hi = a.indptr[row], a.indptr[row + 1]
     dpos = lo + int(np.searchsorted(a.indices[lo:hi], row))
     data[dpos] = 0.0
+    return CSRMatrix(n=a.n, indptr=a.indptr, indices=a.indices, data=data)
+
+
+def indefinite_matrix(nx: int, shift: float = 3.9) -> CSRMatrix:
+    """Helmholtz-like indefinite operator: 5-point Laplacian minus
+    ``shift·I``. For ``shift`` inside the Laplacian's spectrum the matrix
+    is symmetric indefinite — ILU pivots shrink or go negative and CG's
+    ``p·Ap`` inner product can cross zero (a classic breakdown source).
+    """
+    a = poisson_2d(nx)
+    data = a.data.copy()
+    for r in range(a.n):
+        lo, hi = a.indptr[r], a.indptr[r + 1]
+        dpos = lo + int(np.searchsorted(a.indices[lo:hi], r))
+        data[dpos] = np.float32(data[dpos] - shift)
+    return CSRMatrix(n=a.n, indptr=a.indptr, indices=a.indices, data=data)
+
+
+def denormal_pivot_matrix(n: int, density: float = 0.05, seed: int = 0,
+                          row: int = 0, scale: float = 1e-39) -> CSRMatrix:
+    """Healthy :func:`matgen` matrix with one row scaled into the
+    float32 subnormal range (default diag ≈ 1e-39 < 2^-126). The pivot is
+    nonzero but denormal: products against it flush toward zero and the
+    audit's ``n_denormal_pivots`` / ``worst_ratio`` channels must catch it
+    even though nothing is exactly 0 or NaN yet.
+    """
+    a = matgen(n, density, seed=seed)
+    data = a.data.copy()
+    lo, hi = a.indptr[row], a.indptr[row + 1]
+    diag = data[lo + int(np.searchsorted(a.indices[lo:hi], row))]
+    data[lo:hi] = (data[lo:hi] * np.float32(scale / float(diag))).astype(np.float32)
     return CSRMatrix(n=a.n, indptr=a.indptr, indices=a.indices, data=data)
 
 

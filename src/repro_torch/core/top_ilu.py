@@ -91,6 +91,17 @@ class BandGroup:
         return {"exchanges": self.exchanges, "collectives": self.collectives,
                 "payload_bytes": self.payload_bytes}
 
+    def set_counts(self, counts: dict) -> None:
+        """Put back counts read by :meth:`counts` (a CUDA graph capture
+        exchanges nothing)."""
+        self.exchanges, self.collectives, self.payload_bytes = (
+            counts["exchanges"], counts["collectives"], counts["payload_bytes"])
+
+    def add_counts(self, counts: dict) -> None:
+        """Add the counts of a replayed CUDA graph's exchanges (those its
+        capture recorded)."""
+        self.set_counts({k: v + counts[k] for k, v in self.counts().items()})
+
     def record(self, exchanges: int, payload_bytes: int, broadcast: str = "gather") -> None:
         """Count ``exchanges`` exchanges of ``payload_bytes`` bytes per owner
         in all, each one collective (``"gather"``) or D-1 hops (``"ring"``)."""
@@ -165,6 +176,11 @@ class ShardedILUFactorization:
     # means this factorization describes the diagonally shifted system, and
     # ``health.degraded`` routes ``precond()`` to the identity
     health: Optional[object] = None
+    # the row ordering the system was permuted with before factoring (None =
+    # natural): ``a``/``pattern``/``loc_vals`` describe the permuted system,
+    # ``solve`` un/permutes at its boundary, ``precond()`` stays in permuted
+    # row order (``solve_sharded`` owns the boundary on its path)
+    ordering: Optional[object] = None
     # structure-keyed shared cache (the engine-store entry): the sharded
     # triangular plan and its engines live here, so refactorizations of
     # the same structure reuse them
@@ -249,10 +265,11 @@ class ShardedILUFactorization:
 
     def solve(self, b: np.ndarray) -> np.ndarray:
         """Apply the preconditioner to an (n,) or (nb, n) host array:
-        L y = b then U x = y, distributed."""
-        bt = torch.as_tensor(np.asarray(b, np.float32)).to(self.device).contiguous()
-        apply = self.precond()
-        return (apply.batched(bt) if bt.ndim == 2 else apply(bt)).cpu().numpy()
+        L y = b then U x = y, distributed. With an ordering, ``b`` permutes
+        in and ``x`` un-permutes out."""
+        from .api import _apply_in_order
+
+        return _apply_in_order(self.precond(), self.ordering, b, self.device)
 
     def to_host(self):
         """Materialize as the port's single-device
@@ -262,7 +279,8 @@ class ShardedILUFactorization:
         return ILUFactorization(
             a=self.a, k=self.k, pattern=self.pattern, vals=self.values_csr(),
             symbolic_seconds=self.symbolic_seconds, numeric_seconds=self.numeric_seconds,
-            device=self.device, health=self.health, precond_method=self.precond_method)
+            device=self.device, health=self.health, precond_method=self.precond_method,
+            ordering=self.ordering)
 
 
 def _build_topilu_engine(a, pattern, band_rows, group, broadcast):

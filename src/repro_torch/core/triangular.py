@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.kernels import ops
 
+from .device import warm_apply
 from .planner import (
     COL_SENTINEL,
     SweepEpochSchedule,
@@ -195,6 +196,11 @@ class PrecondApply:
         if bs.ndim != 2:
             raise ValueError(f"batched expects (nb, n), got shape {tuple(bs.shape)}")
         return self(bs)
+
+    def warm(self, batch_sizes=(1,)) -> dict:
+        """Load the apply's kernels for the given batch sizes (1 = the
+        single apply); see :func:`~repro_torch.core.device.warm_apply`."""
+        return warm_apply(self, self.n, self.device, batch_sizes)
 
 
 # --------------------------------------------------------------------------
@@ -663,3 +669,9 @@ class ShardedPrecondApply:
         if bs.ndim != 2 or bs.shape[1] != self.n:
             raise ValueError(f"batched expects (nb, {self.n}), got shape {tuple(bs.shape)}")
         return self.sweep(bs, self.group, self._engine.broadcast)
+
+    def warm(self, batch_sizes=(1,)) -> dict:
+        """Load the apply's kernels for the given batch sizes, the group's
+        counts left as they were; see
+        :func:`~repro_torch.core.device.warm_apply`."""
+        return warm_apply(self, self.n, self.group.device, batch_sizes, self.group)

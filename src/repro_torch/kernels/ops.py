@@ -11,7 +11,11 @@ Each wrapper checks device, dtype, shape and contiguity, then
 Each wrapper carries a plain integer ``launches``, raised by one where it
 launches its kernel and nowhere else, so that a run can show which kernels
 its path went through (:func:`reset_launch_counts`, :func:`launch_counts`);
-``panel_update`` counts its bf16 form apart, in ``bf16_launches``.
+``panel_update`` counts its bf16 form apart, in ``bf16_launches``. A
+CUDA graph capture calls the wrappers but launches nothing, and a replay
+calls none: the capturer takes the counts a capture made as the graph's
+kernels and puts the wrappers' counts back (:func:`set_launch_counts`),
+and each replay is counted in :func:`graph_counts`.
 Outputs and scratch are allocated here; the kernels allocate nothing.
 The dense tile kernels of Block-ILU(k) also take an ``out=`` tensor, so
 that the factorization updates the slots of its tile pool in place, and
@@ -1165,17 +1169,50 @@ KERNELS = (spmv_ell, factor_wavefront, tri_solve_wavefront, inverse_chain, panel
            trsm_right_upper, trsm_left_unit_lower, tile_lu, epoch_sweep, superstep_factor)
 
 
+# what replays of captured CUDA graphs launched (a replay calls no wrapper):
+# the number of replays and, per wrapper, the launches they recorded
+_GRAPHS = {"replays": 0, "kernels": {}}
+
+
 def reset_launch_counts() -> None:
+    """Set every wrapper's count, and the graph replay counts, to 0."""
     for fn in KERNELS:
         fn.launches = 0
     panel_update.bf16_launches = 0
+    _GRAPHS["replays"] = 0
+    _GRAPHS["kernels"] = {}
 
 
 def launch_counts() -> dict:
     """Launches per kernel since the last reset; ``panel_update_bf16`` is
-    the bf16 form of ``panel_update``, which ``panel_update`` leaves out."""
+    the bf16 form of ``panel_update``, which ``panel_update`` leaves out.
+    Launches made by replaying a CUDA graph are in :func:`graph_counts`."""
     return {**{fn.__name__: fn.launches for fn in KERNELS},
             "panel_update_bf16": panel_update.bf16_launches}
+
+
+def set_launch_counts(counts: dict) -> None:
+    """Put back counts read by :func:`launch_counts`: a CUDA graph capture
+    calls the wrappers but launches nothing, so the capturer reads what
+    they counted and then restores the counts it read before."""
+    for fn in KERNELS:
+        fn.launches = counts[fn.__name__]
+    panel_update.bf16_launches = counts["panel_update_bf16"]
+
+
+def count_graph_replay(kernels: dict) -> None:
+    """Count one replay of a captured graph that launches ``kernels``
+    ({wrapper name: launches recorded at its capture})."""
+    _GRAPHS["replays"] += 1
+    for name, n in kernels.items():
+        _GRAPHS["kernels"][name] = _GRAPHS["kernels"].get(name, 0) + n
+
+
+def graph_counts() -> dict:
+    """Graph replays since the last reset, and per wrapper the launches
+    those replays made (the launches each graph recorded at its capture,
+    times its replays)."""
+    return {"replays": _GRAPHS["replays"], "kernels": dict(_GRAPHS["kernels"])}
 
 
 reset_launch_counts()

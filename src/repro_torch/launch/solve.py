@@ -1,14 +1,15 @@
-"""ILU(k)-preconditioned GMRES solver CLI of the port (the paper's workload).
+"""ILU(k)-preconditioned solver CLI of the port (the paper's workload).
 
     PYTHONPATH=src python -m repro_torch.launch.solve --n 2000 --k 1 \
-        [--backend torch|oracle|topilu] [--devices D] [--broadcast gather|ring] \
-        [--band-rows R] [--device cuda|cpu]
+        [--method gmres|bicgstab|cg] [--backend torch|oracle|topilu] [--devices D] \
+        [--broadcast gather|ring] [--band-rows R] [--ordering natural|rcm|fusion] \
+        [--device cuda|cpu]
 
 The twin of ``repro.launch.solve``: a random diagonally dominant ``matgen``
-matrix, a right-hand side from the seed, and GMRES — through
+matrix, a right-hand side from the seed, and the Krylov method — through
 ``solve_with_ilu`` (``--backend torch|oracle``), or through the distributed
 ``solve_sharded`` over D band owners of R-row bands (``--backend topilu``).
-``--device`` defaults to CUDA.
+``--ordering`` solves the permuted system. ``--device`` defaults to CUDA.
 """
 import argparse
 import time
@@ -19,6 +20,8 @@ def main():
     ap.add_argument("--n", type=int, default=2000)
     ap.add_argument("--density", type=float, default=None)
     ap.add_argument("--k", type=int, default=1)
+    ap.add_argument("--method", default="gmres", choices=["gmres", "bicgstab", "cg"])
+    ap.add_argument("--ordering", default="natural", choices=["natural", "rcm", "fusion"])
     ap.add_argument("--backend", default="torch", choices=["torch", "oracle", "topilu"])
     ap.add_argument("--devices", type=int, default=1, help="band owners (topilu)")
     ap.add_argument("--broadcast", default="gather", choices=["gather", "ring"])
@@ -39,19 +42,21 @@ def main():
     if args.backend == "topilu":
         res, fact = solve_sharded(a, b, k=args.k, n_devices=args.devices,
                                   band_rows=args.band_rows, broadcast=args.broadcast,
+                                  method=args.method, ordering=args.ordering,
                                   device=args.device)
         where = (f"devices={fact.n_devices} broadcast={args.broadcast} "
                  f"band_rows={args.band_rows} supersteps={fact.plan.n_supersteps}")
     else:
-        res, fact = solve_with_ilu(a, b, k=args.k, method="gmres", backend=args.backend,
+        res, fact = solve_with_ilu(a, b, k=args.k, method=args.method, backend=args.backend,
+                                   band_rows=args.band_rows, ordering=args.ordering,
                                    device=args.device)
         where = ""
     dt = time.perf_counter() - t0
     print(f"n={args.n} nnz={a.nnz} k={args.k} backend={args.backend} device={fact.device} "
-          f"{where}".rstrip())
+          f"ordering={args.ordering} {where}".rstrip())
     print(f"fill {a.nnz} -> {fact.nnz}; symbolic {fact.symbolic_seconds:.3f}s "
           f"numeric {fact.numeric_seconds:.3f}s")
-    print(f"gmres: {res.iterations} iterations, residual {res.residual:.2e}, "
+    print(f"{args.method}: {res.iterations} iterations, residual {res.residual:.2e}, "
           f"total {dt:.2f}s, converged={res.converged} ({res.verdict})")
 
 

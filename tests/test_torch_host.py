@@ -15,6 +15,7 @@ from repro.core import guard as jguard
 from repro.core import inverse as jinv
 from repro.core import inverse_ref as jinv_ref
 from repro.core import numeric_ref as jnr
+from repro.core import ordering as jord
 from repro.core import planner as jplanner
 from repro.core import symbolic as jsym
 from repro.core import triangular as jtri
@@ -25,6 +26,7 @@ from repro_torch.core import inverse as tinv
 from repro_torch.core import inverse_ref as tinv_ref
 from repro_torch.core import matgen as tmg
 from repro_torch.core import numeric_ref as tnr
+from repro_torch.core import ordering as tord
 from repro_torch.core import planner as tplanner
 from repro_torch.core import symbolic as tsym
 from repro_torch.core import triangular as ttri
@@ -282,3 +284,32 @@ def test_make_plan_without_dense_pivot_start():
     jj, bb = np.nonzero(counts > 0)
     _same(pairs, np.unique(plan.band_of_row[jj].astype(np.int64) * plan.n_bands + bb))
     assert (max_inter, max_intra) == (int(counts.max()), int(own.max()))
+
+
+@pytest.mark.parametrize("name", sorted(MATRICES))
+def test_ordering_arrays_match(name):
+    """The copied ordering layer: the symmetrized adjacency, the BFS
+    machinery behind RCM, every ordering's perm/iperm and the permuted
+    CSR arrays."""
+    ja, ta = _pair(name)
+    for got, want in zip(tord._sym_adjacency(ta), jord._sym_adjacency(ja)):
+        _same(got, want)
+    _same(tord._bfs_sequence(ta), jord._bfs_sequence(ja))
+    ptr, nbrs = tord._sym_adjacency(ta)
+    seed = int(np.argmin(np.diff(ptr)))
+    vis = np.zeros(ta.n, bool)
+    assert (tord._pseudo_peripheral(ptr, nbrs, seed, vis)
+            == jord._pseudo_peripheral(*jord._sym_adjacency(ja), seed, vis))
+    for got, want in zip(tord._bfs_component(ptr, nbrs, seed, vis.copy()),
+                         jord._bfs_component(*jord._sym_adjacency(ja), seed, vis.copy())):
+        _same(got, want)
+    orders = [(tord.rcm_ordering(ta), jord.rcm_ordering(ja))]
+    orders += [(tord.fusion_aware_ordering(ta, d, band_rows=r),
+                jord.fusion_aware_ordering(ja, d, band_rows=r)) for d, r in ((2, 8), (4, 16))]
+    for t, j in orders:
+        _same(t.perm, j.perm)
+        _same(t.iperm, j.iperm)
+        _same(tord.inverse_permutation(t.perm), jord.inverse_permutation(j.perm))
+        tp, jp = tord.permuted_system(ta, t), jord.permuted_system(ja, j)
+        for f in ("indptr", "indices", "data"):
+            _same(getattr(tp, f), getattr(jp, f))

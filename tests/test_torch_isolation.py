@@ -1,8 +1,9 @@
 """The port stands alone: no jax, nothing of ``repro``, no quiet CPU fallback.
 
 * A child process imports the port with ``jax`` blocked and runs a tiny
-  GMRES and CG solve, a Block-ILU and a distributed solve over two band
-  owners on the CPU; no ``repro`` module may get loaded.
+  GMRES and CG solve, a Block-ILU, a distributed solve over two band
+  owners, an RCM-ordered BiCGSTAB solve, a fusion-ordered batch and a
+  warm-up on the CPU; no ``repro`` module may get loaded.
 * No source file of the port mentions an import of jax or of ``repro``.
 * Without a GPU, the entry points raise unless the caller passes
   ``device="cpu"``; and ``chip_smoke.py`` fails without printing a result.
@@ -44,6 +45,18 @@ assert r.verdict == "converged" and f.n_devices == 2, r.verdict
 r, _ = solve_sharded(a, np.ones(a.n, np.float32), k=1, n_devices=2, band_rows=8, device="cpu",
                      precond_method="inverse", tol=1e-4)
 assert r.verdict == "converged", r.verdict
+import repro_torch.core.ordering
+from repro_torch.core.ordering import fusion_aware_ordering, sweep_comm_model
+r, f = solve_with_ilu(a, np.ones(a.n, np.float32), k=1, ordering="rcm", method="bicgstab",
+                      device="cpu")
+assert r.verdict == "converged" and f.ordering.name == "rcm", r.verdict
+o = fusion_aware_ordering(a, 2, band_rows=8)
+r, f = solve_sharded(a, np.ones((3, a.n), np.float32), k=1, n_devices=2, band_rows=8,
+                     ordering=o, device="cpu")
+assert len(r) == 3 and f.ordering is o
+assert sweep_comm_model(f.pattern, 8, 2)["epochs"] >= 1
+from repro_torch.core.solvers import warm_solve
+assert set(warm_solve(a, k=1, batch_sizes=(1, 2), sharded=False, device="cpu")) == {1, 2}
 bad = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert not bad, bad
 print("ISOLATED")

@@ -202,10 +202,15 @@ def test_solve_sharded_batched_and_fact_reuse(broadcast):
         solve_sharded(a, bs[0], fact=fact, group=BandGroup(4, "cpu"))
     with pytest.raises(ValueError, match="band owners"):
         solve_sharded(a, bs[0], fact=fact, n_devices=2)
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        solve_sharded(a, bs, fact=fact, bucket=True)
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        solve_sharded(a, bs[0], k=1, ordering="rcm", device="cpu")
+    # bucket=True (the default) pads the 3 lanes to bucket 4 and returns 3,
+    # each equal to the unpadded batch's lane; an unknown ordering is refused
+    padded, _ = solve_sharded(a, bs, fact=fact, tol=tols, bucket=True)
+    assert len(padded) == 3
+    for g, w in zip(padded, got):
+        assert (g.iterations, g.verdict) == (w.iterations, w.verdict)
+        _bits_equal(g.x, w.x)
+    with pytest.raises(ValueError, match="unknown ordering"):
+        solve_sharded(a, bs[0], k=1, ordering="amd", device="cpu")
 
 
 def test_band_group_exchange_is_a_copy():

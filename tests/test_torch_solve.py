@@ -233,7 +233,10 @@ def test_cg_rejects_batched_rhs_and_unported_methods():
         j_solve(a, bs, k=1, method="cg")
     with pytest.raises(ValueError, match="gmres"):
         solve_with_ilu(_port(a), bs, k=1, method="cg", device="cpu")
-    with pytest.raises(NotImplementedError, match="bicgstab"):
-        solve_with_ilu(_port(a), bs[0], k=1, method="bicgstab", device="cpu")
+    # bicgstab is ported (tests/test_torch_bicgstab.py); an unknown method is refused
+    r, _ = solve_with_ilu(_port(a), bs[0], k=1, method="bicgstab", device="cpu")
+    assert r.verdict == "converged"
+    with pytest.raises(ValueError, match="unknown method"):
+        solve_with_ilu(_port(a), bs[0], k=1, method="minres", device="cpu")
     with pytest.raises(TypeError):
         cg(lambda x: x, torch.ones((2, 3)))

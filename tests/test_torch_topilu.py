@@ -103,10 +103,17 @@ def test_ilu_topilu_backend_and_engine_cache():
     ilu(a, 1, backend="topilu", band_rows=8, group=group)
     ilu(a, 1, backend="topilu", band_rows=8, group=group)
     assert len(store) == 2
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        ilu(a, 1, backend="topilu", ordering="rcm", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        ilu_sharded(a, 1, ordering="fusion", device="cpu")
+    # orderings are ported: the ordered factors are the oracle's of the
+    # permuted matrix; an unknown ordering name is refused
+    fr = ilu(a, 1, backend="topilu", ordering="rcm", band_rows=8, device="cpu")
+    _bits_equal(fr.vals, ilu(fr.a, 1, backend="oracle", device="cpu").vals)
+    ff = ilu_sharded(a, 1, ordering="fusion", n_devices=2, band_rows=8, device="cpu")
+    assert ff.ordering.name == "fusion" and ff.ordering.band_rows == 8
+    _bits_equal(ff.values_csr(), ilu(ff.a, 1, backend="oracle", device="cpu").vals)
+    with pytest.raises(ValueError, match="unknown ordering"):
+        ilu(a, 1, backend="topilu", ordering="amd", device="cpu")
+    with pytest.raises(ValueError, match="unknown ordering"):
+        ilu_sharded(a, 1, ordering="nested", device="cpu")
     with pytest.raises(ValueError, match="broadcast"):
         ilu_sharded(a, 1, broadcast="bogus", device="cpu")
 
