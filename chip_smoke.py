@@ -67,7 +67,7 @@ with a non-zero exit; nothing is caught):
    lane 0 equals phase 4's solve bitwise.
 7. card against CPU — the same solves on the card and on the CPU (plain
    versions) give the same ``x`` bitwise and the same iteration counts, on
-   ``poisson_2d(64)`` and ``convection_diffusion_2d(32)``: the sweep, the
+   ``poisson_2d(40)`` and ``convection_diffusion_2d(24)``: the sweep, the
    inverse chain, BiCGSTAB, and a batch of three with per-lane tolerances.
 8. bilu — Block-ILU(1) of ``poisson_2d(400)`` at bs = 128, 32, 256, 512
    and 1024 (``repro_torch.core.bilu.bilu``): the host plan and numeric walls,
@@ -96,9 +96,9 @@ with a non-zero exit; nothing is caught):
     ``epoch_sweep`` launch (every epoch and in-kernel exchange) against its
     plain version (``ref.sharded_sweep_ref``, exchanges through
     ``BandGroup.exchange``) and against phase 4's single-device apply,
-    bitwise, at D = 1, 2, 3, 4, nb = 1 and 4, gather and ring, on
-    ``poisson_2d(64)`` and ``poisson_2d(400)``, with equal exchange
-    counts; its time per apply, bound and chain floor per epoch, and the
+    bitwise, at nb = 1 and 4, gather and ring, at D = 1, 2, 3, 4 on
+    ``poisson_2d(64)`` and D = 4 on ``poisson_2d(400)``, with equal
+    exchange counts; its time per apply, bound and chain floor per epoch, and the
     two ``torch.triangular_solve`` calls timed in turns with it at D = 4.
 11. sharded apply — the band-partitioned apply at D = 1 and D = 4, single
     and nb = 4, bitwise equal to phase 4's apply, one ``epoch_sweep``
@@ -136,6 +136,24 @@ with a non-zero exit; nothing is caught):
 18. breakdown — the shift ladder on the four breakdown fixtures, card and
     CPU equal, the settled factor bitwise equal to ``numeric_ilu_ref`` of
     the shifted matrix, single-device and over 4 owners.
+19. serve — the multi-tenant solve service (``repro_torch.serve``) at full
+    width: three resident matrices (``poisson_2d(400)``, the same
+    structure with its values x1.25, sharing the first one's engine, and
+    ``convection_diffusion_2d(128)``), buckets 1, 2, 4, 8, each engine's
+    bucket restarts captured at warm-up; 48 seeded requests of four
+    tenants, a background value update, a malformed request and an
+    expired deadline; no build, capture or cold restart after warm-up; a
+    seeded sample of 6 responses (every matrix, both value versions)
+    bitwise equal to solo solves on fresh matrix objects warmed with
+    ``warm_solve``; per-tenant p50/p99, solves per second, occupancy, the
+    value-slot copies per batch and their device time, one profiled
+    batch's device-busy share.
+20. serve-sharded — the same service over ``ShardedServeEngine`` (4 band
+    owners of ``poisson_2d(400)``, buckets 1 and 4): 5 requests and a
+    value update, every response bitwise equal to the solo
+    ``solve_sharded`` on its value version, nothing built after warm-up.
+
+``[time]`` lines give the seconds of each group of phases.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a GPU, or without
@@ -200,6 +218,9 @@ SHARDED_D = 4  # band owners of the distributed path, on one card
 BAND_ROWS = 32  # rows per band (the JAX package's default)
 SRC = Path(__file__).resolve().parent / "src"
 SMALL = ("poisson_2d(64)", "convection_diffusion_2d(32)")
+# [card-vs-cpu]'s fixtures: the CPU runs the plain versions in Python, so
+# these are smaller than SMALL (39.6 s of the script at SMALL)
+CARD_VS_CPU = ("poisson_2d(40)", "convection_diffusion_2d(24)")
 # [ordering]: poisson_2d(400), ILU(1), SHARDED_D owners of BAND_ROWS-row bands:
 # the comm models each ordering must reproduce (the JAX package's NumPy
 # models give these numbers on the same matrix)
@@ -212,6 +233,9 @@ ORDERING_EXPECTED = {
                 fill_nnz=1116802),
 }
 BICGSTAB_FALLBACK_TOL = 1e-4  # [bicgstab]'s gate where float32 stalls above TOL
+SERVE_BUCKETS = (1, 2, 4, 8)  # [serve]'s buckets (nb = 8, n = 160,000: a 159 MB basis)
+SERVE_TOLS = (1e-4, 1e-5)
+SERVE_REQUESTS = 48  # [serve]: 24 before the value update of p1, 16 while it runs, 8 after
 
 
 def require(cond, what):
@@ -917,7 +941,9 @@ def small_matrix(name):
     from repro_torch.core import matgen
 
     return {"poisson_2d(64)": lambda: matgen.poisson_2d(64),
-            "convection_diffusion_2d(32)": lambda: matgen.convection_diffusion_2d(32)}[name]()
+            "convection_diffusion_2d(32)": lambda: matgen.convection_diffusion_2d(32),
+            "poisson_2d(40)": lambda: matgen.poisson_2d(40),
+            "convection_diffusion_2d(24)": lambda: matgen.convection_diffusion_2d(24)}[name]()
 
 
 def inverse_oracle(name, k):
@@ -1115,7 +1141,7 @@ def phase_card_vs_cpu(dev):
     from repro_torch.core.solvers import solve_with_ilu
 
     tols = np.array([1e-5, 1e-4, 1e-3], np.float32)
-    for name in SMALL:
+    for name in CARD_VS_CPU:
         a = small_matrix(name)
         b = np.random.default_rng(SEED + 2).standard_normal(a.n).astype(np.float32)
         bs = np.random.default_rng(SEED + 3).standard_normal((3, a.n)).astype(np.float32)
@@ -1982,8 +2008,9 @@ def phase_sharded_sweep(dev, main_fact, sizes=(64, 400)):
     of epoch_sweep's kernel (every epoch and exchange of the L and U
     sweeps), bitwise against its plain version (ref.sharded_sweep_ref on
     the card, whose exchanges go through BandGroup.exchange) and against
-    the single-device PrecondApply, at D = 1, 2, 3, 4, nb = 1 and NB, for
-    "gather" and "ring", on poisson_2d(64) and poisson_2d(400); the group
+    the single-device PrecondApply, at nb = 1 and NB, for "gather" and
+    "ring", at D = 1, 2, 3, 4 on poisson_2d(64) and D = SHARDED_D on
+    poisson_2d(400); the group
     counts what the plain version's exchanges count. At full size and D =
     SHARDED_D: the time per apply, its bound and the chain floor per epoch
     (one dependent L2 load, a barrier, a release and an acquire of every
@@ -2002,7 +2029,8 @@ def phase_sharded_sweep(dev, main_fact, sizes=(64, 400)):
         single = (main_fact if nx == 400 else ilu(a, 1, device=dev)).precond()
         bs = torch.as_tensor(rng.standard_normal((NB, a.n)).astype(np.float32), device=dev)
         t0 = time.perf_counter()
-        for d in (1, 2, 3, 4):
+        owners = (1, 2, 3, 4) if nx < 400 else (SHARDED_D,)  # full size: the path's owners
+        for d in owners:
             for bc in ("gather", "ring"):
                 group = BandGroup(d, dev)
                 apply = ilu_sharded(a, 1, band_rows=BAND_ROWS, group=group, broadcast=bc).precond()
@@ -2023,7 +2051,8 @@ def phase_sharded_sweep(dev, main_fact, sizes=(64, 400)):
                     require(group.counts() == plain_group.counts(),
                             f"[sharded-sweep] {tag}: counts {group.counts()} != the plain "
                             f"version's {plain_group.counts()}")
-        say(f"[sharded-sweep] poisson_2d({nx}): D = 1, 2, 3, 4 x gather, ring x nb = 1, {NB}: "
+        say(f"[sharded-sweep] poisson_2d({nx}): D = {', '.join(map(str, owners))} x gather, "
+            f"ring x nb = 1, {NB}: "
             "one launch per apply, bitwise equal to the plain whole sweep and to PrecondApply, "
             f"the same exchange counts ({time.perf_counter() - t0:.1f} s)")
 
@@ -2695,6 +2724,272 @@ def phase_breakdown(dev):
     return counts
 
 
+def serve_traffic(svc, ids, n, seed):
+    """One seeded run_traffic segment of [serve]'s: four tenants, bursts of
+    1-8, tols from SERVE_TOLS; returns (records, responses, wall)."""
+    from repro_torch.serve import run_traffic
+
+    t0 = time.perf_counter()
+    res = run_traffic(svc, ids, n, seed=seed, tenants=("t0", "t1", "t2", "t3"),
+                      tol_choices=SERVE_TOLS, burst_max=8)
+    wall = time.perf_counter() - t0
+    require(not res.rejected, f"[serve] {len(res.rejected)} well-formed requests rejected")
+    return res.records, res.responses, wall
+
+
+def phase_serve(dev, nx=400, nx_cd=128):
+    """[serve]: the multi-tenant solve service at full width. A
+    SolveService (device=dev, ILU(1), GMRES(30), maxiter 20, buckets
+    SERVE_BUCKETS) with three resident matrices — p0 = poisson_2d(nx) (the
+    main path's), p1 = the same structure with values x1.25 (sharing p0's
+    engine) and cd = convection_diffusion_2d(nx_cd) — is warmed (each
+    engine's bucket restarts captured as CUDA graphs), then serves
+    SERVE_REQUESTS seeded requests of four tenants; between the first 24
+    and the next 16 a value update of p1 starts in the background, one
+    malformed request is rejected and one request's deadline expires; the
+    last 8 come after the update has landed. Launch counts are read around
+    the traffic (wrappers plus graph replays). Gates: every request
+    answered, no build or capture and no cold restart after warm-up, and a
+    seeded sample of 6 responses — every matrix and both versions of p1 —
+    bitwise equal to a solo solve_with_ilu on a fresh matrix object warmed
+    with warm_solve. Prints per-tenant p50/p99, solves per second,
+    batches and occupancy, captures at warm-up and after, engines shared,
+    bind and refactor seconds, the value-slot copies per batch and their
+    device time, and one profiled batch's device-busy share."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.matgen import convection_diffusion_2d, poisson_2d
+    from repro_torch.core.solvers import engine_events, solve_with_ilu, warm_solve
+    from repro_torch.core.sparse import CSRMatrix
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ServeConfig, SolveRequest, SolveService
+
+    def scaled(a, s):
+        return CSRMatrix(n=a.n, indptr=a.indptr, indices=a.indices,
+                         data=(a.data * np.float32(s)).astype(np.float32))
+
+    p0, cd = poisson_2d(nx), convection_diffusion_2d(nx_cd)
+    mats = {"p0": p0, "p1": scaled(p0, 1.25), "cd": cd}
+    svc = SolveService(ServeConfig(device=dev, k=1, restart=30, maxiter=20,
+                                   buckets=SERVE_BUCKETS))
+    factor_s = []
+    real_factorize = svc.cache._factorize
+
+    def timed_factorize(engine, a):
+        t0 = time.perf_counter()
+        out = real_factorize(engine, a)
+        factor_s.append(time.perf_counter() - t0)
+        return out
+
+    svc.cache._factorize = timed_factorize
+    for mid, a in mats.items():
+        t0 = time.perf_counter()
+        svc.register_matrix(mid, a)
+        e = svc.cache.entry(mid)
+        say(f"[serve] register {mid} n={a.n} nnz={a.nnz}: {time.perf_counter() - t0:.3f} s "
+            f"(factor {factor_s[-1]:.3f} s, bind {e.binding.bound_seconds:.3f} s)")
+    snap = svc.metrics_snapshot()
+    engines = {id(svc.cache.entry(m).engine): svc.cache.entry(m).engine for m in mats}
+    require(snap["cache"]["engines_shared"] == 1 and len(engines) == 2
+            and svc.cache.entry("p1").engine is svc.cache.entry("p0").engine,
+            f"[serve] p1 does not share p0's engine ({snap['cache']})")
+    ev0 = engine_events()
+    t0 = time.perf_counter()
+    secs = svc.warmup()
+    warm_wall = time.perf_counter() - t0
+    ev1 = engine_events()
+    require(svc.readyz()["ready"], "[serve] not ready after warmup")
+    say(f"[serve] warmup {warm_wall:.3f} s: {ev1['captures'] - ev0['captures']} restart graphs "
+        f"captured, {ev1['warm_builds'] - ev0['warm_builds']} restart engines built; seconds "
+        "per matrix and bucket "
+        f"{json.dumps({m: {b: round(t, 3) for b, t in v.items()} for m, v in secs.items()})}")
+
+    ops.reset_launch_counts()
+    ids = list(mats)
+    p1_v0 = svc.cache.entry("p1").version  # versions count per engine: p0 and p1 share one
+    rec_a, resp_a, wall_a = serve_traffic(svc, ids, 24, SEED + 22)
+    update = (mats["p1"].data * np.float32(0.8)).astype(np.float32)
+    t_up = time.perf_counter()
+    worker = svc.update_matrix_values("p1", update, background=True)
+    bad = svc.submit("t1", "cd", np.ones(cd.n + 3, np.float32))
+    require(not bad.ok and bad.error_reason == "bad_shape", f"[serve] malformed: {bad}")
+    late = svc.submit("t2", "p0", np.ones(p0.n, np.float32), tol=1e-4, deadline_seconds=1e-6)
+    require(isinstance(late, SolveRequest), "[serve] the deadline request was not admitted")
+    rec_b, resp_b, wall_b = serve_traffic(svc, ids, 16, SEED + 23)
+    update_landed = not worker.is_alive()
+    worker.join()
+    up_wall = time.perf_counter() - t_up
+    rec_c, resp_c, wall_c = serve_traffic(svc, ids, 8, SEED + 24)
+    counts, graphs = warm_counts()
+    snap = svc.metrics_snapshot()
+    records, responses = rec_a + rec_b + rec_c, resp_a + resp_b + resp_c
+    by_id = {r.request_id: r for r in responses}
+    late_resp = by_id.pop(late.request_id, None)
+    require(late_resp is not None and late_resp.error_reason == "deadline_exceeded",
+            f"[serve] the expired request: {late_resp}")
+    wall = wall_a + wall_b + wall_c
+    require(len(records) == SERVE_REQUESTS and all(by_id[r.request_id].ok for r in records),
+            "[serve] a request failed")
+    require(snap["compiles"]["after_warmup"] == 0,
+            f"[serve] builds or captures after warmup: {snap['compiles']}")
+    require(snap["cold_restarts"]["after_warmup"] == 0,
+            f"[serve] cold restarts after warmup: {snap['cold_restarts']}")
+    require(snap["cache"]["refactorizations"] == 1, f"[serve] refactorizations {snap['cache']}")
+    versions = sorted({(r.matrix_id, r.expected_version) for r in records})
+    p1_versions = (p1_v0, svc.cache.entry("p1").version)
+    require(all(("p1", v) in versions for v in p1_versions),
+            f"[serve] the traffic did not see both versions {p1_versions} of p1: {versions}")
+    up_bind = svc.cache.entry("p1").binding.bound_seconds
+    say(f"[serve] {SERVE_REQUESTS} requests of 4 tenants over {len(mats)} matrices in "
+        f"{wall:.3f} s = {SERVE_REQUESTS / wall:.2f} solves/s ({snap['ticks']} ticks); "
+        f"value update of p1 in the background: refactor {factor_s[-1]:.3f} s + bind "
+        f"{up_bind:.3f} s, landed {'during' if update_landed else 'after'} the 16 requests "
+        f"after it ({up_wall:.3f} s of wall to the join)")
+    co = snap["coalescing"]
+    say(f"[serve] batches {co['batches']}, solved lanes {co['solved_lanes']}, padded lanes "
+        f"{co['padded_lanes']}, occupancy mean {co['occupancy_mean']:.3f} min "
+        f"{co['occupancy_min']:.3f}; rejected {json.dumps(snap['requests']['rejected_by_reason'])}"
+        f"; robustness {json.dumps(snap['robustness'])}")
+    for tenant, h in snap["tenants"].items():
+        say(f"[serve] tenant {tenant}: {h['count']} responses, p50 {h['p50_seconds']:.4f} s, "
+            f"p99 {h['p99_seconds']:.4f} s, max {h['max_seconds']:.4f} s")
+    say(f"[serve] compiles {json.dumps(snap['compiles'])} (captures at warmup "
+        f"{ev1['captures'] - ev0['captures']}, after it "
+        f"{engine_events()['captures'] - ev1['captures']}); cold restarts "
+        f"{json.dumps(snap['cold_restarts'])}; engines shared {snap['cache']['engines_shared']}; "
+        f"graph replays {graphs['replays']}")
+    check_launches("serve", counts, ("spmv_ell", "tri_solve_wavefront", "factor_wavefront"),
+                   idle=("inverse_chain", "epoch_sweep", "superstep_factor"))
+
+    # the value slots: copies per batch and their device time
+    eng = svc.cache.entry("p0").engine
+    loads = sum(e.loads for e in engines.values())
+    copies = sum(e.load_copies for e in engines.values())
+    resident = eng._resident
+    fill_ms = device_ms_all(lambda: eng._fill(resident.value_args), reps=10)
+    nbytes = sum(t.numel() * 4 for t in resident.value_args)
+    say(f"[serve] value slots: {loads} refills in {co['batches']} batches ({copies} tensor "
+        f"copies, {len(resident.value_args)} per refill of p0's engine, {nbytes / 1e6:.2f} MB); "
+        f"device {fill_ms if fill_ms is None else round(fill_ms, 4)} ms per refill "
+        f"({nbytes / HBM_BYTES_PER_S * 2e3:.4f} ms bound, bytes read and written)")
+
+    # one profiled batch of 8 on p0
+    rng = np.random.default_rng(SEED + 25)
+    for i in range(8):
+        svc.submit(f"t{i % 4}", "p0", rng.standard_normal(p0.n).astype(np.float32), tol=1e-5)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = svc.tick()
+        torch.cuda.synchronize()
+        tick_wall = time.perf_counter() - t0
+    busy = sum(us for _, us in kernel_events(prof)) / 1e6
+    require(len(out) == 8 and all(r.ok for r in out), "[serve] the profiled batch failed")
+    say(f"[profile serve] one batch of 8 on p0 under torch.profiler: wall {tick_wall:.3f} s, "
+        f"{out[0].iterations} steps (lane 0), device busy {busy:.3f} s "
+        f"({100 * busy / tick_wall:.1f}% of wall)")
+
+    # the gate: a seeded sample against solo solves on fresh, warmed objects
+    groups = {}
+    for r in records:
+        groups.setdefault((r.matrix_id, r.expected_version), []).append(r)
+    pick = np.random.default_rng(SEED + 26)
+    sample = [g[int(pick.integers(len(g)))] for g in (groups[k] for k in sorted(groups))]
+    chosen = {id(r) for r in sample}
+    rest = [r for r in records if id(r) not in chosen]
+    sample += [rest[i] for i in pick.choice(len(rest), 6 - len(sample), replace=False)]
+    fresh = {}
+    for r in sample:
+        key = (r.matrix_id, r.expected_version)
+        if key not in fresh:
+            base = {"p0": poisson_2d(nx), "cd": convection_diffusion_2d(nx_cd)}.get(r.matrix_id)
+            if base is None:
+                p = poisson_2d(nx)
+                base = scaled(p, 1.25) if r.expected_version == p1_v0 else CSRMatrix(
+                    n=p.n, indptr=p.indptr, indices=p.indices, data=update)
+            warm_solve(base, k=1, batch_sizes=(1,), sharded=False, tol=r.tol, device=dev,
+                       restart=30, maxiter=20)
+            fresh[key] = base
+        solo, _ = solve_with_ilu(fresh[key], r.b, k=1, tol=r.tol, device=dev, restart=30,
+                                 maxiter=20)
+        got = by_id[r.request_id]
+        require(got.matrix_version == r.expected_version, "[serve] version mismatch")
+        require(bits_equal(got.x, solo.x) and got.iterations == solo.iterations,
+                f"[serve] response {r.request_id} ({r.matrix_id} v{r.expected_version}, bucket "
+                f"{got.batch_lanes}) != its solo solve")
+    names = ", ".join(f"{r.matrix_id} v{r.expected_version}" for r in sample)
+    say(f"[serve] {len(sample)} sampled responses ({names}) "
+        "bitwise equal to solo solve_with_ilu on fresh matrix objects warmed with warm_solve")
+    return counts
+
+
+def phase_serve_sharded(dev, nx=400):
+    """[serve-sharded]: a SolveService over ShardedServeEngine, SHARDED_D
+    band owners of BAND_ROWS-row bands on poisson_2d(nx), buckets (1, 4),
+    warmed; 3 requests, a value update (x0.8, joined), 2 requests. Every
+    response bitwise equal to the solo solve_sharded on its value version;
+    no build or capture and no cold restart after warm-up."""
+    import numpy as np
+
+    from repro_torch.core.matgen import poisson_2d
+    from repro_torch.core.solvers import solve_sharded, warm_solve
+    from repro_torch.core.sparse import CSRMatrix
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ServeConfig, SolveService
+
+    a = poisson_2d(nx)
+    svc = SolveService(ServeConfig(device=dev, k=1, restart=30, maxiter=20, buckets=(1, NB),
+                                   sharded=True, n_devices=SHARDED_D, band_rows=BAND_ROWS))
+    t0 = time.perf_counter()
+    svc.register_matrix("s0", a)
+    reg = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    svc.warmup()
+    warm = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 27)
+    bs = rng.standard_normal((5, a.n)).astype(np.float32)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    first = [svc.submit(f"t{i}", "s0", bs[i], tol=TOL) for i in range(3)]
+    out = svc.tick()
+    update = (a.data * np.float32(0.8)).astype(np.float32)
+    t1 = time.perf_counter()
+    svc.update_matrix_values("s0", update, background=False)
+    up = time.perf_counter() - t1
+    second = [svc.submit(f"t{i}", "s0", bs[i], tol=TOL) for i in range(3, 5)]
+    out += svc.tick()
+    wall = time.perf_counter() - t0
+    counts, graphs = warm_counts()
+    snap = svc.metrics_snapshot()
+    require(len(out) == 5 and all(r.ok for r in out), "[serve-sharded] a request failed")
+    require(snap["compiles"]["after_warmup"] == 0 and snap["cold_restarts"]["after_warmup"] == 0,
+            f"[serve-sharded] after warmup: {snap['compiles']} {snap['cold_restarts']}")
+    check_launches("serve-sharded", counts, ("spmv_ell", "epoch_sweep", "superstep_factor"),
+                   idle=("tri_solve_wavefront", "inverse_chain"))
+    by_id = {r.request_id: r for r in out}
+    a2 = CSRMatrix(n=a.n, indptr=a.indptr, indices=a.indices, data=update)
+    for mat, reqs, version in ((poisson_2d(nx), first, 1), (a2, second, 2)):
+        warm_solve(mat, k=1, batch_sizes=(1,), n_devices=SHARDED_D, band_rows=BAND_ROWS, tol=TOL,
+                   device=dev, restart=30, maxiter=20)
+        for req in reqs:
+            solo, _ = solve_sharded(mat, req.b, k=1, n_devices=SHARDED_D, band_rows=BAND_ROWS,
+                                    tol=TOL, device=dev, restart=30, maxiter=20)
+            got = by_id[req.request_id]
+            require(got.matrix_version == version and bits_equal(got.x, solo.x)
+                    and got.iterations == solo.iterations,
+                    f"[serve-sharded] response {req.request_id} != solo solve_sharded "
+                    f"(v{version})")
+    say(f"[serve-sharded] poisson_2d({nx}) over {SHARDED_D} owners: register {reg:.3f} s, "
+        f"warmup {warm:.3f} s, 5 requests and one value update (refactor + bind {up:.3f} s) "
+        f"in {wall:.3f} s, {snap['coalescing']['batches']} batches, {graphs['replays']} graph "
+        f"replays; compiles {json.dumps(snap['compiles'])}, cold restarts "
+        f"{json.dumps(snap['cold_restarts'])}; every response bitwise equal to the solo "
+        "solve_sharded on its value version")
+    return counts
+
+
 def run(oracles):
     import torch
 
@@ -2713,36 +3008,58 @@ def run(oracles):
         if "registers" in line or "spill" in line or line.startswith("=="):
             say(f"[setup]   {line.strip()}")
     dev = torch.device("cuda")
+    clock = [time.perf_counter()]
+
+    def lap(phase):
+        now = time.perf_counter()
+        say(f"[time] {phase}: {now - clock[0]:.1f} s")
+        clock[0] = now
 
     rows = phase_kernels(dev)
+    lap("kernels")
     phase_sweep_window(dev)
     rows.update(phase_tile_kernels(dev))
     phase_large_tiles(dev)
+    lap("sweep-window, tiles, large-tiles")
     phase_factors(dev)
     phase_inverse_oracles(dev, oracles)
+    lap("factors")
     by_path = {}
     counts, b, single, single_wall, main_fact = phase_main_path(dev)
     by_path["main"] = counts
     by_path["main-inverse"], inv_single = phase_main_inverse(dev, b)
     by_path["multi-rhs"], multi = phase_multi_rhs(dev, b, single, single_wall)
+    lap("main, main-inverse, multi-rhs")
     phase_card_vs_cpu(dev)
+    lap("card-vs-cpu")
     for bs in BILU_SIZES:
         by_path[f"bilu-bs{bs}"] = phase_bilu(dev, bs)
     phase_bilu_card_vs_cpu(dev)
     by_path["cg"] = phase_cg(dev, b)
+    lap("bilu, cg")
     fact4, _ = phase_topilu(dev, main_fact)
     rows.update(phase_distributed_kernels(dev, fact4))
+    lap("topilu, distributed kernels")
     rows.update(phase_sharded_sweep(dev, main_fact))
     phase_sharded_apply(dev, main_fact, fact4)
+    lap("sharded-sweep, sharded-apply")
     by_path["distributed"], dist_cold = phase_distributed(dev, b, single)
     by_path["distributed-inverse"] = phase_distributed_inverse(dev, b, inv_single)
     phase_sharded_card_vs_cpu(dev)
     phase_wide_band(dev)
+    lap("distributed, wide-band")
     o4 = phase_ordering()
     by_path["distributed-fusion"], fused_cold = phase_distributed_fusion(dev, b, o4)
+    lap("ordering, distributed-fusion")
     by_path.update(phase_warm(dev, b, single, multi, dist_cold, fused_cold, o4))
+    lap("warm")
     by_path["bicgstab"] = phase_bicgstab(dev)
     by_path["breakdown"] = phase_breakdown(dev)
+    lap("bicgstab, breakdown")
+    by_path["serve"] = phase_serve(dev)
+    lap("serve")
+    by_path["serve-sharded"] = phase_serve_sharded(dev)
+    lap("serve-sharded")
 
     for name, r in rows.items():
         path = ("main-inverse" if name == "inverse_chain"

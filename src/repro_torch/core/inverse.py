@@ -266,6 +266,14 @@ class InversePrecondApply:
         :func:`~repro_torch.core.device.warm_apply`."""
         return warm_apply(self, self.n, self.device, batch_sizes)
 
+    def set_values(self, w_vals: torch.Tensor, z_vals: torch.Tensor) -> None:
+        """Refill W's and Z's values in place with another factorization's
+        (:func:`compute_inverse_values` of the same inverse pattern): each
+        apply reads these tensors, so a CUDA graph that captured it replays
+        the new values. A shape mismatch raises."""
+        for name, slot, src in (("w_vals", self.w_vals, w_vals), ("z_vals", self.z_vals, z_vals)):
+            ops._refill(f"InversePrecondApply.set_values {name}", slot, src)
+
 
 class ShardedInversePrecondApply:
     """Row-block sharded M^{-1} ~= Z W apply over the D owners of a
@@ -309,6 +317,13 @@ class ShardedInversePrecondApply:
         counts left as they were; see
         :func:`~repro_torch.core.device.warm_apply`."""
         return warm_apply(self, self.n, self.group.device, batch_sizes, self.group)
+
+    def set_values(self, w_vals: torch.Tensor, z_vals: torch.Tensor) -> None:
+        """Refill the row blocks of W and Z in place with another
+        factorization's (n, WI) and (n, ZI) values (see
+        :meth:`~repro_torch.core.solvers.RowBlockELL.set_values`)."""
+        self._w.set_values(w_vals)
+        self._z.set_values(z_vals)
 
 
 # --------------------------------------------------------------------------

@@ -55,6 +55,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import threading
 import time
 from typing import Callable, List
 
@@ -86,6 +87,26 @@ _KRYLOV_DIV_FACTOR = 1e8
 
 _F32 = torch.float32
 _I64 = torch.int64
+
+# what the serve layer's compile watch counts (``serve.metrics``): the
+# WarmRestart engines made, the CUDA graphs captured, and the GMRES
+# restarts run eagerly because no warmed engine had the solve's key
+_EVENTS = {"warm_builds": 0, "captures": 0, "cold_restarts": 0}
+_EVENTS_LOCK = threading.Lock()
+
+
+def _count_event(name: str, n: int = 1) -> None:
+    with _EVENTS_LOCK:
+        _EVENTS[name] += n
+
+
+def engine_events() -> dict:
+    """Counts since the process started: ``warm_builds`` (WarmRestart
+    engines made), ``captures`` (restarts captured as CUDA graphs) and
+    ``cold_restarts`` (GMRES restarts run eagerly, outside any warmed
+    engine)."""
+    with _EVENTS_LOCK:
+        return dict(_EVENTS)
 
 
 def parse_batch_buckets(spec: str, source: str = "REPRO_BATCH_BUCKETS") -> tuple:
@@ -247,6 +268,16 @@ class RowBlockELL:
         self.n, self.group = n, group
         self._blocks = [ops.EllOperator(c.contiguous(), v.contiguous(), n=n) for c, v in
                         zip(cols.view(D, rows_loc, -1), vals.view(D, rows_loc, -1))]
+
+    def set_values(self, vals: torch.Tensor) -> None:
+        """Refill every row block's values in place from the whole
+        matrix's (n, W) ELL values (the layout it was made from)."""
+        if not isinstance(vals, torch.Tensor) or vals.ndim != 2 or vals.shape[0] != self.n:
+            raise ValueError(f"RowBlockELL.set_values: expected an ({self.n}, W) tensor")
+        D, rows_loc = len(self._blocks), self._blocks[0].m
+        vals = torch.cat([vals, vals.new_zeros((rows_loc * D - self.n, vals.shape[1]))])
+        for block, v in zip(self._blocks, vals.reshape(D, rows_loc, -1)):
+            block.set_values(v)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         xb = x if x.ndim == 2 else x[None]
@@ -425,6 +456,7 @@ class WarmRestart:
         self.kernels = {}  # wrapper name -> launches in one replay
         self.exchanges = []  # (band group, its counts in one replay)
         self.capture_seconds = 0.0
+        _count_event("warm_builds")
 
     def _step(self) -> None:
         new, rtrue = _restart(self.matvec, self.M, self.m, self.maxiter, self.tiny, self.ks,
@@ -457,7 +489,12 @@ class WarmRestart:
         before, group_before = ops.launch_counts(), [g.counts() for g in groups]
         graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(graph):
+            # capture vs. other threads: "thread_local" lets a thread that
+            # refactors on its own stream allocate and synchronize while
+            # this thread captures (the default "global" mode would
+            # invalidate the capture); the serve layer also joins its
+            # refactor workers before it warms
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 self._step()
         finally:
             after = ops.launch_counts()
@@ -471,6 +508,7 @@ class WarmRestart:
         graph.replay()  # the first replay uploads the graph; its state is reset by run()
         torch.cuda.synchronize(self.device)
         self.graph = graph
+        _count_event("captures")
         self.capture_seconds = time.perf_counter() - t0
         return self.capture_seconds
 
@@ -536,6 +574,7 @@ def _gmres_core(matvec, M, bs, m, tol, maxiter):
             # is the first `it` entries of this list
             state, rtrue = _restart(matvec, M, m, maxiter, tiny, ks, bs, bnorm, tolb, state)
             hist.append(rtrue)
+            _count_event("cold_restarts")
         x, _r, it, res, tot, _stall, verdict = state
     # a non-finite ‖b‖ must surface as a non-finite relative residual
     rel = torch.where(bnorm > 0, res / torch.maximum(bnorm, tiny),

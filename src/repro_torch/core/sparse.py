@@ -126,6 +126,13 @@ class ILUPattern:
     def nnz(self) -> int:
         return int(self.indptr[-1])
 
+    def dense_mask(self) -> np.ndarray:
+        """The filled pattern as an (n, n) boolean matrix."""
+        mask = np.zeros((self.n, self.n), dtype=bool)
+        rows = np.repeat(np.arange(self.n), np.diff(self.indptr))
+        mask[rows, self.indices] = True
+        return mask
+
 
 def split_lu(pattern: ILUPattern, vals: np.ndarray):
     """Split filled values into scipy L (unit lower) and U (upper) factors."""

@@ -166,6 +166,33 @@ def build_triangular_plan(pattern: ILUPattern, vals: np.ndarray) -> TriangularPl
     )
 
 
+def rebind_triangular_values(plan: TriangularPlan, pattern: ILUPattern, vals: np.ndarray):
+    """Recompute a plan's level-major *value* arrays for new factor values
+    on the same structure (the refactorize→serve path; a copy of the JAX
+    package's).
+
+    The wavefront schedule, the slot maps, and every column/index array are
+    pure structure — only ``l_vals_lm`` / ``u_vals_lm`` / ``u_diag_lm``
+    depend on the numbers. This redoes just the value scatter (vectorized
+    NumPy, no scheduling), so a serving engine can refill the value slots
+    of an already-bound sweep (:meth:`PrecondApply.set_values`). Returns
+    ``(l_vals_lm, u_vals_lm, u_diag_lm)`` aligned with ``plan``.
+    """
+    n = plan.n
+    l_cols, l_vals, u_cols, u_vals, diag = _split_lu_ell(pattern, vals)
+    if l_cols.shape != plan.l_cols.shape or u_cols.shape != plan.u_cols.shape:
+        raise ValueError(
+            "rebind_triangular_values: pattern structure does not match the "
+            f"plan (L {l_cols.shape} vs {plan.l_cols.shape}, "
+            f"U {u_cols.shape} vs {plan.u_cols.shape})")
+    _, lv = _level_major(plan.l_levels, l_cols, l_vals, n)
+    _, uv = _level_major(plan.u_levels, u_cols, u_vals, n)
+    pad_u = plan.u_levels >= n
+    rows_u = np.minimum(plan.u_levels, max(n - 1, 0))
+    u_diag_lm = np.where(pad_u, 1.0, diag[rows_u]).astype(np.float32)
+    return lv, uv, u_diag_lm
+
+
 class PrecondApply:
     """Device-resident application of M^{-1} = (LU)^{-1}.
 
@@ -201,6 +228,19 @@ class PrecondApply:
         """Load the apply's kernels for the given batch sizes (1 = the
         single apply); see :func:`~repro_torch.core.device.warm_apply`."""
         return warm_apply(self, self.n, self.device, batch_sizes)
+
+    def stage_values(self, l_vals, u_vals, u_diag) -> tuple:
+        """New level-major values (:func:`rebind_triangular_values`'s
+        arrays, NumPy or tensors) in the layout the bound sweep reads
+        (:meth:`~repro_torch.kernels.ops.TriSolveWavefront.stage_values`),
+        on this apply's device. Reads no value slot."""
+        return self.sweep.stage_values(l_vals, u_vals, u_diag)
+
+    def set_values(self, staged: tuple) -> None:
+        """Refill the bound sweep's value slots in place with a
+        :meth:`stage_values` result: no buffer moves, so a CUDA graph that
+        captured this apply replays the new values."""
+        self.sweep.load_values(staged)
 
 
 # --------------------------------------------------------------------------
@@ -675,3 +715,57 @@ class ShardedPrecondApply:
         counts left as they were; see
         :func:`~repro_torch.core.device.warm_apply`."""
         return warm_apply(self, self.n, self.group.device, batch_sizes, self.group)
+
+    def set_values(self, lv: torch.Tensor, uv: torch.Tensor, dg: torch.Tensor) -> None:
+        """Refill the sweep's value slots in place with another
+        factorization's extracted blocks (:meth:`ShardedTriangularEngine.extract`
+        of the same plan); see :meth:`~repro_torch.kernels.ops.ShardedSweep.set_values`."""
+        self.sweep.set_values(lv, uv, dg)
+
+
+def make_triangular_solver(pattern: ILUPattern, vals: np.ndarray, device=None) -> PrecondApply:
+    """``solve(b) -> x`` applying (LU)^{-1} by substitution on ``device``
+    (the JAX package's sequential-reference entry point): a
+    :class:`PrecondApply`, the same computation with the plan and the bound
+    sweep cached. ``device=None`` means CUDA."""
+    from .device import resolve_device
+
+    return PrecondApply(pattern, vals, resolve_device(device))
+
+
+def make_jacobi_triangular_solver(pattern: ILUPattern, vals: np.ndarray, sweeps: int = 8,
+                                  device=None):
+    """Approximate triangular solve by Jacobi iteration (x <- D^{-1}(b - R x)),
+    the JAX package's ``make_jacobi_triangular_solver`` in eager PyTorch.
+
+    Converges because triangular Jacobi iteration is nilpotent; ``sweeps``
+    bounds the wavefront depth it can resolve. No wavefront schedule: every
+    sweep is one gather and one :func:`~repro_torch.core.bitmath.masked_lane_sum`
+    over the row-major ELL factors. ``solve(b)`` takes an (n,) array or
+    float32 tensor and returns an (n,) float32 tensor on ``device``
+    (``None`` means CUDA)."""
+    from .bitmath import masked_lane_sum
+    from .device import resolve_device
+
+    dev = resolve_device(device)
+    plan = build_triangular_plan(pattern, vals)
+    n = plan.n
+    l_cols, l_vals, u_cols, u_vals, diag = (
+        torch.as_tensor(x, device=dev)
+        for x in (plan.l_cols, plan.l_vals, plan.u_cols, plan.u_vals, plan.diag))
+
+    def iterate(cols, vals_m, rhs, divide):
+        x = torch.zeros_like(rhs)
+        idx = torch.clamp_max(cols, n).long()
+        for _ in range(sweeps):
+            gathered = torch.cat([x, x.new_zeros(1)])[idx]
+            new = rhs - masked_lane_sum(cols, vals_m, gathered, COL_SENTINEL)
+            x = new / diag if divide else new
+        return x
+
+    def solve(b):
+        b = torch.as_tensor(np.asarray(b, np.float32) if not isinstance(b, torch.Tensor)
+                            else b, dtype=torch.float32).to(dev)
+        return iterate(u_cols, u_vals, iterate(l_cols, l_vals, b, divide=False), divide=True)
+
+    return solve

@@ -67,6 +67,7 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib = None
+_loads = 0  # libraries loaded by this process (see load_count)
 
 
 def nvcc() -> str:
@@ -128,7 +129,7 @@ def build() -> Path:
 
 def load() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library once per process."""
-    global _lib
+    global _lib, _loads
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
@@ -138,4 +139,12 @@ def load() -> ctypes.CDLL:
             lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
             lib.repro_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
+            _loads += 1
     return _lib
+
+
+def load_count() -> int:
+    """Kernel libraries this process has loaded (built or found): 0 before
+    the first launch, 1 after (the serve layer's compile watch counts it)."""
+    with _lock:
+        return _loads

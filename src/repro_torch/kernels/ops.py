@@ -36,7 +36,12 @@ factorization, every superstep and exchange, in one persistent launch of
 ``superstep_factor``'s kernel; the one-superstep ``superstep_factor``
 stays as the per-superstep route). They check their matrix, plan or
 tables when they are made, keep the kernel's entry point bound through
-:class:`_Bound`, and check only what changes on a call. The checked functions ``spmv_ell``,
+:class:`_Bound`, and check only what changes on a call. Three of them —
+:class:`EllOperator`, :class:`TriSolveWavefront` and :class:`ShardedSweep`
+— also have value slots: ``set_values`` refills, in place, the very
+tensors their launch reads (a staged sweep's copy included), so a CUDA
+graph that captured them replays the new values; a serving engine binds a
+new value version that way, capturing nothing. The checked functions ``spmv_ell``,
 ``tri_solve_wavefront`` and ``factor_wavefront`` make one of these per
 call and call it once; they stay the entry points of the tests and of the
 comparisons with the plain versions. Every other wrapper launches through
@@ -135,6 +140,19 @@ def _rhs(name: str, t: torch.Tensor, n: int, device) -> int:
     return nb
 
 
+def _refill(name: str, slot: torch.Tensor, src) -> None:
+    """Copy ``src`` into the value slot ``slot`` in place (its data pointer
+    stays, so a CUDA graph that reads the slot replays the new values).
+    ``src`` must be a float32 tensor of the slot's shape, on any device."""
+    if not isinstance(src, torch.Tensor):
+        raise TypeError(f"{name}: expected a torch.Tensor, got {type(src).__name__}")
+    if src.dtype != slot.dtype:
+        raise TypeError(f"{name}: expected {slot.dtype}, got {src.dtype}")
+    if tuple(src.shape) != tuple(slot.shape):
+        raise ValueError(f"{name}: expected shape {tuple(slot.shape)}, got {tuple(src.shape)}")
+    slot.copy_(src)
+
+
 def spmv_ell(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
              row_block: bool = False) -> torch.Tensor:
     """y = A x for sentinel-padded ELL ``cols``/``vals`` (m, W) and x of
@@ -177,6 +195,14 @@ class EllOperator:
             self._launch = _Bound("spmv_ell_launch", dev)
             self._args = (cols.data_ptr(), vals.data_ptr())
             self._dims = (self.m, self.n, self.w)
+
+    def set_values(self, vals: torch.Tensor) -> None:
+        """Refill A's values in place: ``vals`` (m, W) float32, the same
+        structure's values in this operator's ELL layout. The kernel (and
+        the plain version) read the same tensor, so a CUDA graph that
+        captured this operator replays the new values. A shape mismatch
+        raises."""
+        _refill("spmv_ell set_values", self.vals, vals)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         shape = x.shape if isinstance(x, torch.Tensor) else None
@@ -369,6 +395,10 @@ class TriSolveWavefront:
         self.windows = (sweep_window(l_cols, nl * ml), sweep_window(u_cols, nu * mu))
         self._cuda = _route(dev)
         self.layout = None
+        # the launch's value buffers, refilled by load_values: on the CPU
+        # (and an empty plan) the plan's own tensors; on the card _bind's
+        self._slots = (l_vals, u_vals, u_diag)
+        self._stage = (None, None)  # per sweep: (live lanes, width pad) of a staged copy
         if self._cuda and n:
             self._bind(max_window)
 
@@ -384,7 +414,7 @@ class TriSolveWavefront:
         lib, dev = load(), self.device
         nl, ml, wl, nu, mu, wu = self.shape
         l_cols, l_vals, _, u_cols, u_vals, u_diag, _, _ = self.args
-        cfg, layout, staged = [self.n, nl, ml, nu, mu], [], []
+        cfg, layout, staged, stage = [self.n, nl, ml, nu, mu], [], [], []
         sweeps = ((nl, ml, wl, l_cols, l_vals, None), (nu, mu, wu, u_cols, u_vals, u_diag))
         for (nlev, maxr, w, cols, vals, diag), win in zip(sweeps, self.windows):
             cap = win if max_window is None else min(win, int(max_window))
@@ -403,7 +433,8 @@ class TriSolveWavefront:
                 pad = (0, width - w)
                 cols = torch.nn.functional.pad(torch.where(live, cols & (ring - 1), ring), pad,
                                                value=ring).contiguous()
-                vals = torch.nn.functional.pad(torch.where(live, vals, 0.0), pad).contiguous()
+                vals = self._staged_vals(vals, live, pad)
+            stage.append((live, pad) if covered else None)
             staged.append((cols, vals))
             cfg += list(out)
             layout.append(dict(staging=self._MODES[mode], ring_slots=ring,
@@ -413,10 +444,58 @@ class TriSolveWavefront:
         self.layout = {key: tuple(sw[key] for sw in layout) for key in layout[0]}
         (lc, lv), (uc, uv) = staged
         self._staged = (lc, lv, uc, uv)  # keeps the copies alive
+        self._slots, self._stage = (lv, uv, u_diag), tuple(stage)
         ptrs = (lc, lv, self.args[2], uc, uv, u_diag, self.args[6], self.args[7])
         self._launch = _Bound("tri_solve_wavefront_launch", dev)
         self._plan = (ctypes.c_void_p * 8)(*(t.data_ptr() for t in ptrs))
         self._cfg = (ctypes.c_int * len(cfg))(*cfg)
+
+    @staticmethod
+    def _staged_vals(vals: torch.Tensor, live: torch.Tensor, pad: tuple) -> torch.Tensor:
+        """A covered sweep's values as its launch reads them: masked lanes
+        0, W padded to the layout's width."""
+        return torch.nn.functional.pad(torch.where(live, vals, 0.0), pad).contiguous()
+
+    def stage_values(self, l_vals, u_vals, u_diag) -> tuple:
+        """New values for this plan's structure — ``l_vals`` (nl, ml, WL),
+        ``u_vals`` (nu, mu, WU), ``u_diag`` (nu, mu), float32 arrays or
+        tensors — moved to this object's device and laid out as the launch
+        reads them (a covered sweep's masked lanes 0 and W padded, as
+        :meth:`_bind` stages the plan's values). Reads and writes no slot,
+        so it may run ahead, on another stream; :meth:`load_values` then
+        refills the slots with one copy per tensor. A shape mismatch
+        raises."""
+        nl, ml, wl, nu, mu, wu = self.shape
+        out = []
+        for name, x, shape in (("l_vals", l_vals, (nl, ml, wl)), ("u_vals", u_vals, (nu, mu, wu)),
+                               ("u_diag", u_diag, (nu, mu))):
+            t = torch.as_tensor(x)
+            if t.dtype != _F32:
+                raise TypeError(f"tri_solve_wavefront stage_values {name}: expected {_F32}, "
+                                f"got {t.dtype}")
+            if tuple(t.shape) != shape:
+                raise ValueError(f"tri_solve_wavefront stage_values {name}: expected shape "
+                                 f"{shape}, got {tuple(t.shape)}")
+            out.append(t.to(self.device).contiguous())
+        for i, st in enumerate(self._stage):
+            if st is not None:
+                out[i] = self._staged_vals(out[i], *st)
+        return tuple(out)
+
+    def load_values(self, staged: tuple) -> None:
+        """Refill the value slots the launch reads (on the card the covered
+        sweeps' staged copies, else the plan's tensors) in place from a
+        :meth:`stage_values` result: three copies, no pointer changes, so a
+        CUDA graph that captured this sweep replays the new values."""
+        if len(staged) != 3:
+            raise ValueError("tri_solve_wavefront load_values: expected (l_vals, u_vals, u_diag)")
+        for name, slot, src in zip(("l_vals", "u_vals", "u_diag"), self._slots, staged):
+            _refill(f"tri_solve_wavefront load_values {name}", slot, src)
+
+    def set_values(self, l_vals, u_vals, u_diag) -> None:
+        """:meth:`stage_values`, then :meth:`load_values`: bits equal to a
+        new object made over the same plan with these values."""
+        self.load_values(self.stage_values(l_vals, u_vals, u_diag))
 
     def __call__(self, b: torch.Tensor) -> torch.Tensor:
         if not (isinstance(b, torch.Tensor) and b.dtype == _F32 and b.device == self.device
@@ -581,6 +660,15 @@ class ShardedSweep:
         self._cfg = (ctypes.c_int * len(cfg))(*cfg)
         self._xlen = (t.l.limit + 1, t.u.limit + 1)
         self._launch = _Bound("epoch_sweep_apply_launch", self.device)
+
+    def set_values(self, lv: torch.Tensor, uv: torch.Tensor, dg: torch.Tensor) -> None:
+        """Refill the L values, U values and diagonals in place with another
+        factorization's blocks of the same tables' shapes: the launch (and
+        the plain version) read these tensors, so a CUDA graph that
+        captured this apply replays the new values. A shape mismatch
+        raises."""
+        for name, slot, src in zip(("lv", "uv", "dg"), self.values, (lv, uv, dg)):
+            _refill(f"sharded sweep set_values {name}", slot, src)
 
     def __call__(self, b: torch.Tensor, group, broadcast: str = "gather") -> torch.Tensor:
         if not (isinstance(b, torch.Tensor) and b.ndim == 2):

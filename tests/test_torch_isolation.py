@@ -2,8 +2,9 @@
 
 * A child process imports the port with ``jax`` blocked and runs a tiny
   GMRES and CG solve, a Block-ILU, a distributed solve over two band
-  owners, an RCM-ordered BiCGSTAB solve, a fusion-ordered batch and a
-  warm-up on the CPU; no ``repro`` module may get loaded.
+  owners, an RCM-ordered BiCGSTAB solve, a fusion-ordered batch, a
+  warm-up and a two-tenant round trip of the solve service on the CPU;
+  no ``repro`` module may get loaded.
 * No source file of the port mentions an import of jax or of ``repro``.
 * Without a GPU, the entry points raise unless the caller passes
   ``device="cpu"``; and ``chip_smoke.py`` fails without printing a result.
@@ -57,6 +58,19 @@ assert len(r) == 3 and f.ordering is o
 assert sweep_comm_model(f.pattern, 8, 2)["epochs"] >= 1
 from repro_torch.core.solvers import warm_solve
 assert set(warm_solve(a, k=1, batch_sizes=(1, 2), sharded=False, device="cpu")) == {1, 2}
+import repro_torch.serve, repro_torch.runtime.fault
+from repro_torch.core.sparse import CSRMatrix
+from repro_torch.serve import ServeConfig, SolveService
+svc = SolveService(ServeConfig(device="cpu", buckets=(1, 2), restart=8))
+svc.register_matrix("m0", a)
+svc.register_matrix("m1", CSRMatrix(n=a.n, indptr=a.indptr, indices=a.indices,
+                                    data=(a.data * 2).astype(np.float32)))
+svc.warmup()
+for tenant, mid in (("t0", "m0"), ("t1", "m1"), ("t1", "m0")):
+    svc.submit(tenant, mid, np.ones(a.n, np.float32))
+out = svc.tick()
+assert len(out) == 3 and all(r.ok and r.verdict == "converged" for r in out), out
+assert svc.metrics_snapshot()["compiles"]["after_warmup"] == 0
 bad = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert not bad, bad
 print("ISOLATED")
