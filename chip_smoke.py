@@ -89,9 +89,11 @@ with a non-zero exit; nothing is caught):
     persistent ``superstep_factor`` launch, the group's exchanges the
     plan's; ``epoch_sweep``'s one-epoch form and the one-superstep
     ``superstep_factor`` against their plain versions on every epoch and
-    superstep checked (poisson_2d(64), D = 1, 2, 4); at full size the
-    persistent factorization bitwise equal to the plain per-superstep
-    loop, its time, device time per superstep, bound and chain floor.
+    superstep checked (poisson_2d(64), D = 1, 2, 4); the persistent
+    factorization bitwise equal to the plain per-superstep loop at
+    poisson_2d(128) (its plain time taken there), and at full size to the
+    per-superstep kernel loop, with its time, device time per superstep,
+    bound and chain floor.
     [sharded-sweep]: the whole band-partitioned apply as one persistent
     ``epoch_sweep`` launch (every epoch and in-kernel exchange) against its
     plain version (``ref.sharded_sweep_ref``, exchanges through
@@ -122,6 +124,19 @@ with a non-zero exit; nothing is caught):
     profiled restart; the persistent launches on the fused tables bitwise
     equal to their plain versions (``poisson_2d(128)``; the apply also at
     full size).
+15b. dist-ranks — the band owners as 4 processes (``run_ranks``, gloo
+    ranks all on this card, each exchange staged through pinned host
+    memory; ``DistBandGroup``): the fusion-ordered ``solve_sharded`` for 4
+    restarts (a gloo collective costs ~6 ms there), with ``x`` on every
+    rank bitwise equal to a one-card run of the same call, the same steps,
+    restarts, verdict and group counts, one ``superstep_factor`` launch per
+    superstep (1,243) and one ``epoch_sweep`` launch per run of levels;
+    the natural factorization by the ring (2,811 supersteps) bitwise equal
+    to ``[topilu]``'s factors, two sweep applies and one inverse apply
+    equal to the one-card applies; per rank the factor, solve and
+    collective walls and the bytes staged. 15c. dist-nccl — the same fusion solve over
+    NCCL ranks, one card each, where the machine has two cards or more;
+    otherwise one line says why it did not run.
 16. warm — ``warm_solve`` captures each bucket's GMRES restart as one CUDA
     graph (main path: nb = 1, 4; path E: nb = 1, 4 natural, 1 fused);
     the warmed solves replay it once per restart and equal the cold ones
@@ -156,7 +171,9 @@ with a non-zero exit; nothing is caught):
 ``[time]`` lines give the seconds of each group of phases.
 
 The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``. Without a GPU, or without
+last line is ``{"ok": true, "device": {...}}``. ``python3 chip_smoke.py
+--dist-nccl`` on a machine with two cards or more runs the build and
+[dist-nccl] alone. Without a GPU, or without
 the repository around it, the script exits non-zero and prints no result.
 """
 import json
@@ -214,6 +231,17 @@ PREVIOUS_TRSM_MS = {"trsm_right_upper": (0.1950, 0.1441), "trsm_left_unit_lower"
 PREVIOUS_TILE_MS = {"panel_update": 0.0112, "panel_update_bf16": 0.0116, "tile_lu": 0.1330,
                     "tile_lu_bs256": 0.979}
 DISTRIBUTED_KERNELS = ("epoch_sweep", "superstep_factor")
+# [kernels]: the size at which superstep_factor's persistent launch is held
+# against (and timed beside) the plain per-superstep loop, which took
+# 135-215 s at full size
+PLAIN_LOOP_NX = 128
+# [dist-ranks] / [dist-nccl]: the bound on one run_ranks call (spawn, the
+# ranks' CUDA contexts, the fusion solve and the natural parts), and the
+# restarts of their fusion solve: a host-staged 4-rank gloo all-gather
+# costs 5-7 ms on an H100 host, and the whole solve (12 restarts) makes
+# 3,847 of them; the reference is a one-card run with the same maxiter
+DIST_RANKS_TIMEOUT_S = 600
+DIST_RANKS_MAXITER = 4
 SHARDED_D = 4  # band owners of the distributed path, on one card
 BAND_ROWS = 32  # rows per band (the JAX package's default)
 SRC = Path(__file__).resolve().parent / "src"
@@ -1808,12 +1836,15 @@ def phase_distributed_kernels(dev, fact, nx_small=64):
     form held bitwise against its plain version over every epoch of both
     sweeps at the full-size tables of ``fact`` (single and nb=NB right-hand
     sides), and ``superstep_factor`` over every superstep at
-    poisson_2d(nx_small) for D = 1, 2, 4 and both broadcasts; then
-    superstep_factor's time at full size (epoch_sweep's row is
-    [sharded-sweep]'s, the form the path runs)."""
+    poisson_2d(nx_small) for D = 1, 2, 4 and both broadcasts; the persistent
+    factorization against the plain per-superstep loop at
+    poisson_2d(PLAIN_LOOP_NX) and against the per-superstep kernel loop at
+    full size, and its time there (epoch_sweep's row is [sharded-sweep]'s,
+    the form the path runs)."""
     import numpy as np
     import torch
 
+    from repro_torch.core.api import ilu_sharded
     from repro_torch.core.matgen import poisson_2d
     from repro_torch.core.numeric import make_superstep_factorizer, plan_state_array
     from repro_torch.core.numeric_ref import numeric_ilu_ref
@@ -1863,31 +1894,40 @@ def phase_distributed_kernels(dev, fact, nx_small=64):
                 f"{plan.n_supersteps} supersteps bitwise equal to plain, the factor to "
                 "numeric_ilu_ref")
 
-    # the whole factorization at full size: the persistent launch against
-    # the plain per-superstep loop (ref.superstep_factor_ref per superstep,
-    # each exchange through BandGroup.exchange) on the same state
-    plan, D = fact.plan, fact.n_devices
+    # the whole factorization against the plain per-superstep loop
+    # (ref.superstep_factor_ref per superstep, each exchange through
+    # BandGroup.exchange) on the same state, at poisson_2d(PLAIN_LOOP_NX):
+    # the plain loop takes minutes at full size; there the persistent
+    # launch is held against the per-superstep kernel loop (the rank route)
+    def plain_step(st, *args):
+        st.copy_(ref.superstep_factor_ref(st, *args))
+
+    D = fact.n_devices
+    a_pl = poisson_2d(PLAIN_LOOP_NX)
+    f_pl = ilu_sharded(a_pl, 1, band_rows=BAND_ROWS, group=BandGroup(D, dev))
+    fac_pl = make_superstep_factorizer(f_pl.plan, f_pl.group)
+    st_pl = torch.as_tensor(plan_state_array(f_pl.plan, a_pl), device=dev)
+    got_pl = fac_pl(st_pl.clone())
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want_pl = fac_pl(st_pl.clone(), group=BandGroup(D, dev), step=plain_step)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    require(bits_equal(got_pl, want_pl), "superstep_factor persistent kernel != the plain "
+            f"per-superstep loop at poisson_2d({PLAIN_LOOP_NX})")
+    pl_ms = time_ms(lambda: fac_pl(st_pl.clone()), reps=20)
+    plan = fact.plan
     fac = make_superstep_factorizer(plan, fact.group)
     st0 = torch.as_tensor(plan_state_array(plan, fact.a), device=dev)
     ops.reset_launch_counts()
     got = fac(st0.clone())
     require(ops.launch_counts()["superstep_factor"] == 1,
             "the persistent superstep factorization is not one launch")
-
-    def plain_step(st, *args):
-        st.copy_(ref.superstep_factor_ref(st, *args))
-
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    want = fac(st0.clone(), group=BandGroup(D, dev), step=plain_step)
-    end.record()
-    end.synchronize()
-    plain_ms = start.elapsed_time(end)
-    require(bits_equal(got, want), "superstep_factor persistent kernel != the plain per-superstep "
-            "loop at full size")
     require(bool(torch.isfinite(got).all()), "superstep_factor at full size: non-finite values")
-    per_step = fac(st0.clone(), group=BandGroup(D, dev), step=ops.superstep_factor)
-    require(bits_equal(per_step, want), "the per-superstep kernel loop != the plain loop")
+    want = fac(st0.clone(), group=BandGroup(D, dev), step=ops.superstep_factor)
+    require(bits_equal(got, want), "superstep_factor persistent kernel != the per-superstep "
+            "kernel loop at full size")
     host = factor_tables(plan)
     nbytes, nops = factor_bound(plan, host)
     b_ms, b_by = bound(nbytes, nops)
@@ -1907,12 +1947,15 @@ def phase_distributed_kernels(dev, fact, nx_small=64):
         name="superstep_factor", route="cuda",
         source="src/repro_torch/kernels/csrc/superstep_factor.cu",
         replaces="src/repro/core/numeric_jax.py:122", launches=0,
-        max_abs_err=max_abs_err(got, want),
+        max_abs_err=max_abs_err(got_pl, want_pl),
         ms=time_ms(lambda: fac(st0.clone()), reps=20),
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None, port_only=True,
         note="no TPU kernel: the JAX package runs the superstep body as plain JAX; a whole "
-             "factorization per call (state copy included), the plain version the "
-             "per-superstep loop",
+             "factorization per call (state copy included); plain_ms, max_abs_err and "
+             f"plain_size_ms at poisson_2d({PLAIN_LOOP_NX}), the plain version the per-superstep "
+             "loop; at full size held against the per-superstep kernel loop",
+        plain_size=f"poisson_2d({PLAIN_LOOP_NX})", plain_size_ms=pl_ms,
+        plain_size_supersteps=f_pl.plan.n_supersteps,
         supersteps=n_sup, n_owners=D, chain_steps=n_sup,
         device_ms=device_ms(lambda: fac(st0.clone()), "superstep_factor_persistent_kernel",
                             reps=10),
@@ -1924,12 +1967,16 @@ def phase_distributed_kernels(dev, fact, nx_small=64):
     row["us_per_step"] = row["ms"] * 1e3 / n_sup
     dms = "not measured" if row["device_ms"] is None else f"{row['device_ms']:.4f} ms"
     floor_ms = row["chain_floor_ms"]
+    say(f"[kernels] superstep_factor at poisson_2d({PLAIN_LOOP_NX}) (n={a_pl.n}, "
+        f"{f_pl.plan.n_supersteps} supersteps): the persistent launch bitwise equal to the "
+        f"plain per-superstep loop, {pl_ms:.4f} ms per call against the plain loop's "
+        f"{plain_ms:.1f} ms")
     say(f"[kernels] superstep_factor, one persistent launch per factorization: n={plan.n} "
-        f"D={D}, {n_sup} supersteps, bitwise equal to the plain per-superstep loop and to the "
-        f"per-superstep kernel loop; {row['ms']:.4f} ms per call (device {dms}"
+        f"D={D}, {n_sup} supersteps, bitwise equal to the per-superstep kernel loop; "
+        f"{row['ms']:.4f} ms per call (device {dms}"
         + ("" if row["device_ms"] is None
            else f", {row['device_ms'] * 1e3 / n_sup:.3f} us per superstep")
-        + f"; plain loop {plain_ms:.1f} ms; per-superstep route "
+        + f"; per-superstep route "
         f"{row['per_superstep_route_ms']:.1f} ms; bound {b_ms:.5f} ms by {b_by}; no library "
         f"call); chain floor ({chain} in-band pivots a superstep, a wait and a release) "
         + ("not measured" if floor_ms is None
@@ -2469,6 +2516,225 @@ def phase_distributed_fusion(dev, b, o4, nx=400):
     profile_resolve("distributed-fusion", a, b, dev, solve=solve_sharded, activities=("cuda",),
                     tol=TOL, n_devices=SHARDED_D, band_rows=BAND_ROWS, ordering=o4)
     return counts, res
+
+
+def dist_ranks_body(group, nx, b, fusion_perm, b_nat):
+    """[dist-ranks] / [dist-nccl], on each rank of a DistBandGroup: the
+    fusion-ordered solve_sharded of poisson_2d(nx) (GMRES(30) for
+    DIST_RANKS_MAXITER restarts, TOL; the matrix built here, b from the
+    parent); with ``b_nat`` also the natural factorization with the ring
+    broadcast and, on its factors, one sweep apply per vector of ``b_nat``
+    and one inverse apply of the first. Each part reads the launch counts
+    and the group's counts and walls it made."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.api import ilu_sharded
+    from repro_torch.core.matgen import poisson_2d
+    from repro_torch.core.solvers import solve_sharded
+    from repro_torch.kernels import ops
+
+    dev = group.device
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def start():
+        group.reset_counts()
+        ops.reset_launch_counts()
+        sync()
+        return time.perf_counter()
+
+    def done(t0, **kw):
+        sync()
+        return dict(wall=time.perf_counter() - t0, counts=group.counts(),
+                    launches=ops.launch_counts(), collective_s=group.exchange_seconds,
+                    staged=group.staged_bytes, **kw)
+
+    a = poisson_2d(nx)
+    t0 = start()
+    res, fact = solve_sharded(a, b, k=1, group=group, band_rows=BAND_ROWS, ordering="fusion",
+                              tol=TOL, maxiter=DIST_RANKS_MAXITER)
+    out = dict(rank=group.rank, fusion=done(
+        t0, x=res.x, steps=res.iterations, restarts=len(res.history), verdict=res.verdict,
+        residual=res.residual, factor_s=fact.symbolic_seconds + fact.numeric_seconds,
+        supersteps=fact.plan.n_supersteps, block=tuple(fact.loc_vals.shape),
+        same_perm=bool(np.array_equal(fact.ordering.perm, fusion_perm)),
+        runs=fact.precond().sweep.tables.runs()))
+    if b_nat is None:
+        return out
+    a = poisson_2d(nx)
+    t0 = start()
+    f = ilu_sharded(a, 1, band_rows=BAND_ROWS, group=group, broadcast="ring")
+    out["factor"] = done(t0, supersteps=f.plan.n_supersteps, block=tuple(f.loc_vals.shape),
+                         state_bytes=f.loc_vals.untyped_storage().nbytes(),
+                         per_device=f.per_device_value_bytes(),
+                         replicated=f.plan.replicated_value_bytes())
+    out["factor"]["vals"] = f.values_csr()
+    apply = f.precond()
+    out["applies"] = []
+    for bb in b_nat:
+        t0 = start()
+        y = apply(torch.as_tensor(bb, device=dev))
+        out["applies"].append(done(t0, y=y.cpu().numpy(), runs=apply.sweep.tables.runs()))
+    inv = f.precond(method="inverse")  # the inverse values, computed on each rank
+    t0 = start()
+    y = inv(torch.as_tensor(b_nat[0], device=dev))
+    out["inverse"] = done(t0, y=y.cpu().numpy())
+    return out
+
+
+def fusion_reference(dev, b, ordering, n_owners, nx=400):
+    """The one-card run the ranks' fusion solve is held to: solve_sharded
+    over ``n_owners`` owners of one BandGroup with the same restarts
+    (a new matrix, so a new group whose counts are this call's)."""
+    from repro_torch.core.matgen import poisson_2d
+    from repro_torch.core.solvers import solve_sharded
+
+    res, fact = solve_sharded(poisson_2d(nx), b, k=1, n_devices=n_owners, band_rows=BAND_ROWS,
+                              ordering=ordering, tol=TOL, maxiter=DIST_RANKS_MAXITER, device=dev)
+    return res, fact.group.counts(), fact.plan.n_supersteps
+
+
+def dist_ranks_check(tag, out, ref, ref_nat=None):
+    """Hold each rank's results of :func:`dist_ranks_body` to the one-card
+    runs: the fusion solve to ``ref`` (:func:`fusion_reference`), the
+    natural parts to ``ref_nat``; print the walls."""
+    import numpy as np
+
+    fused, fused_gc, n_sup = ref
+    for o in out:
+        r, fu = o["rank"], o["fusion"]
+        applies = fu["restarts"] * 31  # m = 30 Arnoldi applies and the update's, per restart
+        say(f"[{tag}] rank {r}: fusion solve {fu['verdict']} after {fu['steps']} steps, "
+            f"{fu['restarts']} restarts (maxiter {DIST_RANKS_MAXITER}); wall {fu['wall']:.3f} s "
+            f"= factor {fu['factor_s']:.3f} s + solve {fu['wall'] - fu['factor_s']:.3f} s, of "
+            f"which collectives {fu['collective_s']:.3f} s ({fu['counts']['collectives']} "
+            f"collectives, {fu['counts']['payload_bytes']:,} payload bytes sent, "
+            f"{fu['staged']:,} bytes staged through the host); block {fu['block']}; launches: "
+            f"{fu['launches']['superstep_factor']} superstep_factor, "
+            f"{fu['launches']['epoch_sweep']} epoch_sweep ({fu['runs']} runs per apply), "
+            f"{fu['launches']['spmv_ell']} spmv_ell")
+        require(fu["same_perm"], f"{tag} rank {r}: the fusion ordering for {len(out)} ranks "
+                "differs from the reference's")
+        require(np.array_equal(fu["x"].view(np.int32), fused.x.view(np.int32))
+                and (fu["steps"], fu["restarts"], fu["verdict"])
+                == (fused.iterations, len(fused.history), fused.verdict),
+                f"{tag} rank {r}: x, steps, restarts or verdict != the one-card run's")
+        require(fu["launches"]["superstep_factor"] == fu["supersteps"] == n_sup,
+                f"{tag} rank {r}: {fu['launches']['superstep_factor']} superstep_factor "
+                f"launches, the plan has {n_sup} supersteps")
+        require(fu["launches"]["epoch_sweep"] == applies * fu["runs"],
+                f"{tag} rank {r}: {fu['launches']['epoch_sweep']} epoch_sweep launches for "
+                f"{applies} applies of {fu['runs']} runs")
+        require(fu["counts"] == fused_gc, f"{tag} rank {r}: counts {fu['counts']} != the "
+                f"one-card group's {fused_gc}")
+        if ref_nat is None:
+            continue
+        fa = o["factor"]
+        say(f"[{tag}] rank {r}: natural factorization (ring) {fa['wall']:.3f} s, of which "
+            f"collectives {fa['collective_s']:.3f} s ({fa['counts']['collectives']}); "
+            f"{fa['launches']['superstep_factor']} superstep_factor launches; value state "
+            f"{fa['block']} of {fa['state_bytes']:,} B (replicated: {fa['replicated']:,} B); "
+            "applies "
+            + ", ".join(f"{ap['wall'] * 1e3:.1f} ms ({ap['launches']['epoch_sweep']} "
+                        f"epoch_sweep launches, {ap['counts']['collectives']} collectives in "
+                        f"{ap['collective_s'] * 1e3:.1f} ms)" for ap in o["applies"])
+            + f"; inverse apply {o['inverse']['wall'] * 1e3:.1f} ms")
+        require(np.array_equal(fa["vals"].view(np.int32), ref_nat["vals"].view(np.int32)),
+                f"{tag} rank {r}: natural factors != [topilu]'s")
+        require(fa["launches"]["superstep_factor"] == fa["supersteps"]
+                and fa["counts"] == ref_nat["factor_counts"]
+                and fa["state_bytes"] == fa["per_device"] < fa["replicated"],
+                f"{tag} rank {r}: natural factorization launches, counts or value state wrong")
+        for i, (ap, (y, c)) in enumerate(zip(o["applies"], ref_nat["applies"])):
+            require(np.array_equal(ap["y"].view(np.int32), y.view(np.int32)) and ap["counts"] == c
+                    and ap["launches"]["epoch_sweep"] == ap["runs"],
+                    f"{tag} rank {r}: natural apply {i} != the one-card apply (or its counts)")
+        y, c = ref_nat["inverse"]
+        require(np.array_equal(o["inverse"]["y"].view(np.int32), y.view(np.int32))
+                and o["inverse"]["counts"] == c,
+                f"{tag} rank {r}: inverse apply != the one-card inverse apply")
+
+
+def phase_dist_ranks(dev, b, o4, fact4, nx=400):
+    """[dist-ranks]: the band owners as SHARDED_D processes (gloo ranks, all
+    on this card, each exchange staged through pinned host memory), spawned
+    by run_ranks: the fusion-ordered solve_sharded for DIST_RANKS_MAXITER
+    restarts equal to the one-card run of the same call (x on every rank,
+    steps, restarts, verdict, the group's counts; one superstep_factor
+    launch per superstep); the natural factorization (ring) equal to
+    [topilu]'s factors, two sweep applies and one inverse apply equal to
+    the one-card applies of [topilu]'s factors, with equal counts. Returns
+    rank 0's launch counts of its fusion solve, and the reference."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.top_ilu import BandGroup, topilu_factor_sharded
+    from repro_torch.launch.dist import run_ranks
+
+    ref = fusion_reference(dev, b, o4, SHARDED_D, nx)
+    rng = np.random.default_rng(SEED + 12)
+    b_nat = [rng.standard_normal(fact4.a.n).astype(np.float32) for _ in range(2)]
+    g = BandGroup(SHARDED_D, dev)
+    topilu_factor_sharded(fact4.a, fact4.pattern, band_rows=BAND_ROWS, group=g, broadcast="ring")
+    ref_nat = dict(vals=fact4.values_csr(), factor_counts=g.counts(), applies=[])
+    for bb in b_nat:
+        fact4.group.reset_counts()
+        y = fact4.precond(broadcast="ring")(torch.as_tensor(bb, device=dev)).cpu().numpy()
+        ref_nat["applies"].append((y, fact4.group.counts()))
+    inv = fact4.precond(method="inverse")
+    fact4.group.reset_counts()
+    ref_nat["inverse"] = (inv(torch.as_tensor(b_nat[0], device=dev)).cpu().numpy(),
+                          fact4.group.counts())
+    t0 = time.perf_counter()
+    out = run_ranks(dist_ranks_body, SHARDED_D, "gloo", ["cuda"] * SHARDED_D,
+                    timeout_s=DIST_RANKS_TIMEOUT_S, args=(nx, b, o4.perm, b_nat))
+    wall = time.perf_counter() - t0
+    say(f"[dist-ranks] poisson_2d({nx}) n={fact4.a.n} ILU(1), {SHARDED_D} gloo ranks of "
+        f"{BAND_ROWS}-row bands on one card ({torch.cuda.get_device_name(0)}): {wall:.1f} s "
+        "with the spawn, the ranks' imports, their CUDA contexts and host plans")
+    dist_ranks_check("dist-ranks", out, ref, ref_nat)
+    check_launches("dist-ranks", out[0]["fusion"]["launches"],
+                   ("epoch_sweep", "superstep_factor", "spmv_ell"),
+                   idle=("factor_wavefront", "tri_solve_wavefront", "inverse_chain"))
+    say(f"[dist-ranks] every rank: the fusion solve's x, steps, restarts and verdict bitwise "
+        f"equal to the one-card run with maxiter {DIST_RANKS_MAXITER}, one superstep_factor "
+        "launch per superstep, the one-card group's counts; the natural factors equal to "
+        "[topilu]'s, both sweep applies and the inverse apply equal to the one-card applies, "
+        "with equal counts")
+    return out[0]["fusion"]["launches"], ref
+
+
+def phase_dist_nccl(dev, b, o4, ref, nx=400):
+    """[dist-nccl]: with two cards or more, the fusion solve of [dist-ranks]
+    over NCCL ranks, one card each (D = min(SHARDED_D, cards)), under the
+    same requirements, held to ``ref`` ([dist-ranks]' one-card run) or, where
+    D differs from SHARDED_D, to a one-card run of D owners. With one card
+    it says that it did not run, and why."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.matgen import poisson_2d
+    from repro_torch.core.ordering import fusion_aware_ordering
+    from repro_torch.launch.dist import run_ranks
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        say(f"[dist-nccl] not run: this machine has {cards} card, and NCCL refuses two ranks "
+            "on one card (the gloo ranks of [dist-ranks] share it instead)")
+        return
+    D = min(SHARDED_D, cards)
+    ordering = o4
+    if D != SHARDED_D:
+        ordering = fusion_aware_ordering(poisson_2d(nx), D, band_rows=BAND_ROWS)
+        ref = fusion_reference(dev, b, ordering, D, nx)
+    out = run_ranks(dist_ranks_body, D, "nccl", None, timeout_s=DIST_RANKS_TIMEOUT_S,
+                    args=(nx, b, np.asarray(ordering.perm), None))
+    dist_ranks_check("dist-nccl", out, ref)
+    say(f"[dist-nccl] {D} NCCL ranks, one card each: x, steps, restarts, verdict and counts "
+        "equal to the one-card run")
 
 
 def engines_of(matvec):
@@ -3051,6 +3317,10 @@ def run(oracles):
     o4 = phase_ordering()
     by_path["distributed-fusion"], fused_cold = phase_distributed_fusion(dev, b, o4)
     lap("ordering, distributed-fusion")
+    by_path["dist-ranks"], fused_short = phase_dist_ranks(dev, b, o4, fact4)
+    lap("dist-ranks")
+    phase_dist_nccl(dev, b, o4, fused_short)
+    lap("dist-nccl")
     by_path.update(phase_warm(dev, b, single, multi, dist_cold, fused_cold, o4))
     lap("warm")
     by_path["bicgstab"] = phase_bicgstab(dev)
@@ -3074,8 +3344,38 @@ def run(oracles):
     return 0
 
 
+def run_dist_nccl():
+    """``python3 chip_smoke.py --dist-nccl``, on a machine with two cards or
+    more: the build and [dist-nccl] alone (the NCCL ranks' fusion solve
+    against its one-card run on card 0), then a last line
+    ``{"dist_nccl": {"ok": true, "cards": N}}``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.matgen import poisson_2d
+    from repro_torch.core.ordering import fusion_aware_ordering
+    from repro_torch.kernels import build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    say(smi.stdout.strip() or f"nvidia-smi failed: {smi.stderr.strip()}")
+    cards = torch.cuda.device_count()
+    require(cards >= 2, f"--dist-nccl needs two cards or more, this machine has {cards}")
+    build.build()
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    b = np.random.default_rng(SEED + 1).standard_normal(400 * 400).astype(np.float32)
+    o4 = fusion_aware_ordering(poisson_2d(400), SHARDED_D, band_rows=BAND_ROWS)
+    phase_dist_nccl(dev, b, o4, fusion_reference(dev, b, o4, SHARDED_D))
+    say(f"[time] dist-nccl: {time.perf_counter() - t0:.1f} s")
+    say(json.dumps({"dist_nccl": {"ok": True, "cards": cards}}))
+    return 0
+
+
 def main():
     setup()
+    if sys.argv[1:] == ["--dist-nccl"]:
+        return run_dist_nccl()
     # the sequential inverse oracles of phase 3b are pure Python (about a
     # minute for convection_diffusion_2d(32) at k=2); two worker processes
     # run them, the longest first, while the card works through phases 2-3.

@@ -179,70 +179,92 @@ def audit_values(pattern, vals: np.ndarray,
 
 
 def _sharded_audit_maps(fact):
-    """Host-side index maps for the owner-major audit, cached in the
-    factorization's structure-keyed ``_shared`` store (on its device)."""
+    """Host-side index maps for the owner-major audit of the group's local
+    owners, cached in the factorization's structure-keyed ``_shared`` store
+    (on its device)."""
     maps = fact._shared.get("audit_maps")
     if maps is None:
         import torch
 
         plan = fact.plan
-        gid = plan.rows_device_major(np.arange(plan.n_pad, dtype=np.int64))
-        dlane = plan.rows_device_major(np.asarray(plan.diag_pos, np.int64))
+        own = list(fact.group.local_owners)
+        D, s_loc = plan.n_devices, plan.s_loc
+        gid = plan.rows_device_major(np.arange(plan.n_pad, dtype=np.int64)).reshape(D, s_loc)
+        dlane = plan.rows_device_major(np.asarray(plan.diag_pos, np.int64)).reshape(D, s_loc)
         # owner-major slot p holds one band's R contiguous rows; its global
         # band id recovers from the first row it holds
         slot_band = gid.reshape(-1, plan.band_rows)[:, 0] // plan.band_rows
         dev = fact.loc_vals.device
         maps = fact._shared["audit_maps"] = {
             "gid": gid, "slot_band": slot_band,
-            "gid_t": torch.as_tensor(gid, device=dev),
-            "dlane_t": torch.as_tensor(dlane, device=dev),
-            "valid_t": torch.as_tensor(gid < fact.pattern.n, device=dev),
+            "gid_t": torch.as_tensor(gid[own], device=dev),
+            "dlane_t": torch.as_tensor(dlane[own], device=dev),
+            "valid_t": torch.as_tensor(gid[own] < fact.pattern.n, device=dev),
         }
     return maps
 
 
 def audit_sharded(fact, pivot_tol: Optional[float] = None) -> FactorHealth:
     """Audit a :class:`~repro_torch.core.top_ilu.ShardedILUFactorization` on
-    its device, in place: eager reductions over the ``(D, s_loc, W)`` value
-    tensor, so the factor never gathers to the host; only a few scalars and
-    the O(n_bands) per-band worst-pivot summary (global band order, so a
-    breakdown localizes to its owner and band) come back."""
+    its device, in place: each local owner reduces its own ``(s_loc, W)``
+    block (eager reductions, so the factor never gathers to the host) to a
+    few scalars and its bands' worst pivot ratios; ``group.gather_owners``
+    brings every owner's summary together (over processes one all-gather,
+    a collective every rank reaches), and they combine on the host in
+    owner-major order: counts add, the first non-finite row is the least,
+    the worst pivot is the first least ratio. So the report equals the
+    audit of all owners on one device, on every rank, and every rank takes
+    the same rung of the shift ladder. The per-band summary is in global
+    band order, so a breakdown localizes to its owner and band."""
     import torch
 
     tol = PIVOT_TOL if pivot_tol is None else float(pivot_tol)
     plan = fact.plan
     maps = _sharded_audit_maps(fact)
     n_pad, w = plan.n_pad, plan.width
-    v = fact.loc_vals.reshape(n_pad, w)
+    v = fact.loc_vals  # (L, s_loc, W)
     valid, gid = maps["valid_t"], maps["gid_t"]
+    L = v.shape[0]
 
     finite = torch.isfinite(v)
-    bad_entry = (~finite) & valid[:, None]
-    n_nonfinite = int(bad_entry.sum())
-    bad_row = bad_entry.any(dim=1)
-    first_bad = int(torch.where(bad_row, gid, n_pad).min())
-    piv = torch.gather(v, 1, maps["dlane_t"][:, None])[:, 0]
+    bad_entry = (~finite) & valid[..., None]
+    n_nonfinite = bad_entry.sum(dim=(1, 2))
+    bad_row = bad_entry.any(dim=2)
+    first_bad = torch.where(bad_row, gid, n_pad).amin(dim=1)
+    piv = torch.gather(v, 2, maps["dlane_t"][..., None])[..., 0]
     apiv = piv.abs()
-    rownorm = torch.where(valid[:, None] & finite, v, 0.0).abs().amax(dim=1)
+    rownorm = torch.where(valid[..., None] & finite, v, 0.0).abs().amax(dim=2)
     ratio = apiv / torch.clamp_min(rownorm, NORM_FLOOR)
     ratio_clean = torch.where(torch.isfinite(ratio) & valid, ratio, float("inf"))
-    n_zero = int(((apiv == 0.0) & valid).sum())
-    n_denormal = int(((apiv > 0.0) & (apiv < TINY_PIVOT) & valid).sum())
-    n_small = int((ratio_clean < tol).sum())
-    worst_dm = int(torch.argmin(ratio_clean))
-    band_worst_dm = ratio_clean.reshape(-1, plan.band_rows).amin(dim=1).double().cpu().numpy()
-    band_worst = np.full(plan.n_bands, np.inf, np.float64)
-    band_worst[maps["slot_band"]] = band_worst_dm
-    worst_piv = float(piv[worst_dm])
+    n_zero = ((apiv == 0.0) & valid).sum(dim=1)
+    n_denormal = ((apiv > 0.0) & (apiv < TINY_PIVOT) & valid).sum(dim=1)
+    n_small = (ratio_clean < tol).sum(dim=1)
+    worst_at = torch.argmin(ratio_clean, dim=1, keepdim=True)  # each owner's first least
+    worst_ratio = torch.gather(ratio_clean, 1, worst_at)[:, 0]
+    worst_row = torch.gather(gid, 1, worst_at)[:, 0]
+    worst_piv = torch.gather(piv, 1, worst_at)[:, 0]
+    band_worst = ratio_clean.reshape(L, -1, plan.band_rows).amin(dim=2)
+    # one float64 row per owner: float32 values and counts below 2^53 are exact
+    summary = torch.cat([torch.stack([n_nonfinite, first_bad, n_zero, n_denormal, n_small,
+                                      worst_row]).double().T,
+                         torch.stack([worst_ratio, worst_piv]).double().T,
+                         band_worst.double()], dim=1)
+    rows = fact.group.gather_owners(summary).cpu().numpy()  # (D, 8 + bands per owner)
+    n_nonfinite, first_bad, n_zero, n_denormal, n_small = (
+        int(rows[:, i].sum()) if i != 1 else int(rows[:, i].min()) for i in range(5))
+    owner = int(np.argmin(rows[:, 6]))  # the first owner with the least ratio
+    band_worst_all = np.full(plan.n_bands, np.inf, np.float64)
+    band_worst_all[maps["slot_band"]] = rows[:, 8:].reshape(-1)
+    worst_piv = float(rows[owner, 7])
     ok = (n_nonfinite == 0 and n_zero == 0 and n_denormal == 0 and n_small == 0)
     return FactorHealth(
         ok=ok, n=int(fact.pattern.n), pivot_tol=tol, n_nonfinite=n_nonfinite,
         n_zero_pivots=n_zero, n_denormal_pivots=n_denormal,
-        n_small_pivots=n_small, worst_row=int(maps["gid"][worst_dm]),
+        n_small_pivots=n_small, worst_row=int(rows[owner, 5]),
         worst_pivot=worst_piv if np.isfinite(worst_piv) else float("nan"),
-        worst_ratio=float(ratio_clean[worst_dm]),
+        worst_ratio=float(rows[owner, 6]),
         first_nonfinite_row=-1 if first_bad >= n_pad else first_bad,
-        band_worst_ratio=band_worst)
+        band_worst_ratio=band_worst_all)
 
 
 # --------------------------------------------------------------------------

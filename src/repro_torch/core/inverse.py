@@ -282,22 +282,25 @@ class ShardedInversePrecondApply:
     The inverse values are computed once by the single-device engine on the
     group's device (the bitwise anchor holds for any owner count because the
     values *are* the single-device values), then split into D contiguous
-    row blocks of ``ceil(n/D)`` rows, owner d holding block d. Each apply
-    is two row-blocked SpMVs: every owner reduces its own rows through
-    ``spmv_ell`` (the same lanes in the same order as the single-device
-    chain, hence bitwise equal), and ONE exchange per SpMV reassembles the
-    replicated vector — two exchanges per apply whatever the wavefront
-    depth, each carrying the whole right-hand-side batch.
+    row blocks of ``ceil(n/D)`` rows, owner d holding block d; the group's
+    local owners keep theirs (a rank of a group over processes keeps its
+    block alone, and drops the whole W and Z: ``base`` is then None). Each
+    apply is two row-blocked SpMVs: every owner reduces its own rows
+    through ``spmv_ell`` (the same lanes in the same order as the
+    single-device chain, hence bitwise equal), and ONE exchange per SpMV
+    reassembles the replicated vector — two exchanges per apply whatever
+    the wavefront depth, each carrying the whole right-hand-side batch.
     """
 
     def __init__(self, pattern: ILUPattern, vals: np.ndarray, group):
-        self.base = base = InversePrecondApply(pattern, vals, group.device)
+        base = InversePrecondApply(pattern, vals, group.device)
         self.plan = base.plan
         self.group = group
         self.n = base.n
         self.n_devices = group.n_devices
         self._w = RowBlockELL(base.w_cols, base.w_vals, group)
         self._z = RowBlockELL(base.z_cols, base.z_vals, group)
+        self.base = base if len(group.local_owners) == group.n_devices else None
 
     def batched(self, bs: torch.Tensor) -> torch.Tensor:
         """Apply to an (nb, n) stack; both exchanges carry the whole batch."""

@@ -7,10 +7,11 @@ The port's counterpart of ``repro/core/numeric_jax.py``:
   ``factor_wavefront`` CUDA kernel on a GPU and by its plain PyTorch
   version on the CPU (:func:`repro_torch.kernels.ops.factor_wavefront`);
 * :func:`make_superstep_factorizer` — the banded TOP-ILU executor over a
-  :class:`~repro_torch.core.planner.NumericPlan`: D band owners, on a GPU
-  one persistent ``superstep_factor`` launch per factorization (every
-  superstep and halo exchange inside it), on the CPU one superstep and one
-  halo exchange at a time.
+  :class:`~repro_torch.core.planner.NumericPlan`: D band owners, with all
+  of them on one GPU one persistent ``superstep_factor`` launch per
+  factorization (every superstep and halo exchange inside it); on the CPU,
+  and over processes (one owner per rank), one superstep and one halo
+  exchange at a time.
 
 Both give the values of :func:`repro_torch.core.numeric_ref.numeric_ilu_ref`
 bitwise.
@@ -51,22 +52,27 @@ def _device_major(plan, x):
     return plan.rows_device_major(x).reshape((plan.n_devices, plan.s_loc) + x.shape[1:])
 
 
-def plan_state_array(plan, a=None) -> np.ndarray:
-    """The (D, state_rows, W) initial value state: band-local A values
-    (owner-major), zero halo, zero scratch. ``a=None`` uses the values
-    captured at plan build; a matrix with the same structure re-scatters its
-    current data (the refactorization path)."""
+def plan_state_array(plan, a=None, owners=None) -> np.ndarray:
+    """The (len(owners), state_rows, W) initial value state of the owners
+    ``owners`` (all D when None): band-local A values (owner-major), zero
+    halo, zero scratch. ``a=None`` uses the values captured at plan build;
+    a matrix with the same structure re-scatters its current data (the
+    refactorization path)."""
+    owners = range(plan.n_devices) if owners is None else owners
     vals = plan.a_vals if a is None else plan.scatter_values(a)
-    state = np.zeros((plan.n_devices, plan.state_rows, plan.width), np.float32)
-    state[:, : plan.s_loc] = _device_major(plan, vals)
+    state = np.zeros((len(owners), plan.state_rows, plan.width), np.float32)
+    state[:, : plan.s_loc] = _device_major(plan, vals)[list(owners)]
     return state
 
 
-def plan_device_arrays(plan, keys=None) -> dict:
+def plan_device_arrays(plan, keys=None, owners=None) -> dict:
     """Host-side inputs of the superstep factorizer, each with a leading
     owner axis: every per-row table is permuted owner-major, so owner d's
     block holds exactly the rows it owns. ``keys`` restricts which arrays
-    are built (the value ``state`` is rebuilt per factorization)."""
+    are built (the value ``state`` is rebuilt per factorization). With
+    ``owners``, every owner-major table keeps only those owners, in the
+    local form one launch over them reads
+    (:func:`repro_torch.kernels.ops.owner_tables`)."""
     def dm(x):
         return _device_major(plan, x)
 
@@ -81,28 +87,36 @@ def plan_device_arrays(plan, keys=None) -> dict:
         ingress=lambda: plan.ingress_idx,
     )
     keys = builders.keys() if keys is None else keys
-    return {k: builders[k]() for k in keys}
+    out = {k: builders[k]() for k in keys}
+    if owners is None:
+        return out
+    if "state" in out:
+        out["state"] = out["state"][list(owners)]
+    return ops.owner_tables(out, owners, plan.n_bands, plan.n_devices)
 
 
 def make_superstep_factorizer(plan, group, broadcast: str = "gather"):
-    """``(D, state_rows, W) state -> (D, s_loc, W)`` factored local values,
-    over the D band owners of ``group`` (a
-    :class:`~repro_torch.core.top_ilu.BandGroup` of ``plan.n_devices``).
+    """``(L, state_rows, W) state -> (L, s_loc, W)`` factored local values of
+    the L = len(local_owners) owners of ``group`` that live here (a
+    :class:`~repro_torch.core.top_ilu.BandGroup` of ``plan.n_devices``, all
+    local, or a :class:`~repro_torch.core.dist.DistBandGroup`, one per rank).
 
     The plan's tables are checked and bound once
-    (:class:`repro_torch.kernels.ops.SuperstepFactor`). On a CUDA device a
-    call is ONE persistent ``superstep_factor`` launch: every superstep of
-    every owner, each halo exchange a copy inside the kernel, counted in the
-    group through ``BandGroup.record``. On the CPU, or with ``step=``, it is
-    the per-superstep loop: one ``superstep_factor`` per superstep (in-band
-    pivots from the band being built, the rest from local rows or the halo
-    through ``piv_addr``), then, when some owner consumes another's rows,
-    ONE exchange that ships each owner's (E, W) egress payload — the
-    finalized rows another owner needs — to every owner, which scatters it
-    into its halo through the ingress map (``broadcast="gather"`` is one
-    collective, ``"ring"`` D-1 hops; ``"psum"`` is ``"gather"``). Every
-    exchange is a copy of finished float32 rows, so it cannot change a bit,
-    and the values equal the sequential oracle's.
+    (:class:`repro_torch.kernels.ops.SuperstepFactor`); each rank keeps its
+    owners' slices. With all owners on one CUDA device a call is ONE
+    persistent ``superstep_factor`` launch: every superstep of every owner,
+    each halo exchange a copy inside the kernel, counted in the group
+    through ``BandGroup.record``. On the CPU, over processes, or with
+    ``step=``, it is the per-superstep loop: one ``superstep_factor`` per
+    superstep (in-band pivots from the band being built, the rest from
+    local rows or the halo through ``piv_addr``), then, when some owner
+    consumes another's rows, ONE exchange that ships each owner's (E, W)
+    egress payload — the finalized rows another owner needs — to every
+    owner, which scatters it into its halo through the ingress map
+    (``broadcast="gather"`` is one collective, ``"ring"`` D-1 hops;
+    ``"psum"`` is ``"gather"``). Every exchange is a copy of finished
+    float32 rows, so it cannot change a bit, and the values equal the
+    sequential oracle's.
     """
     from .top_ilu import _broadcast
 
@@ -113,7 +127,8 @@ def make_superstep_factorizer(plan, group, broadcast: str = "gather"):
     bound_group, dev = group, group.device
     kernel = ops.SuperstepFactor(
         *(plan_device_arrays(plan, keys=ops.SuperstepFactor.FIELDS + ("egress", "ingress"))
-          .values()), plan.n_bands, plan.band_rows, plan.halo_size, dev)
+          .values()), plan.n_bands, plan.band_rows, plan.halo_size, dev,
+        owners=group.local_owners)
 
     def factorize(state, step=None, group=None) -> torch.Tensor:
         """``step`` runs one superstep in place (a check may pass a function

@@ -325,6 +325,11 @@ class NumericPlan:
         """float32 value bytes each owner holds during factorization."""
         return self.state_rows * self.width * 4
 
+    def replicated_value_bytes(self) -> int:
+        """What an owner would hold with the values replicated: ``n_pad·W``
+        and the scratch row (the JAX package's pre-sharding engine)."""
+        return (self.n_pad + 1) * self.width * 4
+
     def halo_bytes_per_superstep(self, broadcast: str = "gather") -> int:
         """Wire bytes per owner per superstep of the halo exchange (ring
         model): an all-gather of one (E, W) payload per owner, or E·W per
@@ -333,6 +338,14 @@ class NumericPlan:
         if d <= 1 or self.halo_size == 0:
             return 0
         return (d - 1) * e * w * 4
+
+    def replicated_bytes_per_superstep(self) -> int:
+        """Wire bytes per owner per superstep of an all-gather of whole
+        bands (the replicated design the halo exchange replaced)."""
+        d = self.n_devices
+        if d <= 1:
+            return 0
+        return (d - 1) * self.bands_per_superstep * self.band_rows * self.width * 4
 
     def egress_sizes(self) -> np.ndarray:
         """Exact egress rows per (superstep, owner), before padding to E."""

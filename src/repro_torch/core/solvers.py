@@ -246,16 +246,18 @@ def make_ell_matvec(cols: torch.Tensor, vals: torch.Tensor, n: int) -> Callable:
 
 class RowBlockELL:
     """A sentinel-padded ELL matrix (n, W) split into D contiguous row blocks
-    of ``ceil(n/D)`` rows over the owners of a
-    :class:`~repro_torch.core.top_ilu.BandGroup`, owner d holding block d.
+    of ``ceil(n/D)`` rows over the owners of a band group, owner d holding
+    block d; only the group's local owners' blocks are kept (all D on one
+    device, one per rank of a :class:`~repro_torch.core.dist.DistBandGroup`,
+    which copies its block out so the whole matrix is not retained).
 
-    Calling it on a replicated (n,) or (nb, n) ``x`` has each owner reduce
-    its own rows through ``spmv_ell`` (the same lanes in the same order as
-    the whole matrix's SpMV, so every output entry is bitwise identical to
-    it), then one exchange of the row-block results — a copy — assembles
-    the replicated output; the exchange carries the whole batch. Each row
-    block is an :class:`~repro_torch.kernels.ops.EllOperator`, checked
-    once.
+    Calling it on a replicated (n,) or (nb, n) ``x`` has each local owner
+    reduce its own rows through ``spmv_ell`` (the same lanes in the same
+    order as the whole matrix's SpMV, so every output entry is bitwise
+    identical to it), then one exchange of the row-block results — a copy —
+    assembles the replicated output; the exchange carries the whole batch.
+    Each row block is an :class:`~repro_torch.kernels.ops.EllOperator`,
+    checked once.
     """
 
     def __init__(self, cols: torch.Tensor, vals: torch.Tensor, group):
@@ -265,36 +267,40 @@ class RowBlockELL:
         pad = rows_loc * D - n
         cols = torch.cat([cols, cols.new_full((pad, cols.shape[1]), int(COL_SENTINEL))])
         vals = torch.cat([vals, vals.new_zeros((pad, vals.shape[1]))])
-        self.n, self.group = n, group
-        self._blocks = [ops.EllOperator(c.contiguous(), v.contiguous(), n=n) for c, v in
-                        zip(cols.view(D, rows_loc, -1), vals.view(D, rows_loc, -1))]
+        self.n, self.group, self.rows_loc = n, group, rows_loc
+        self.owners = tuple(group.local_owners)
+        own = len(self.owners) < D  # a rank keeps a copy of its block alone
+        cb, vb = cols.view(D, rows_loc, -1), vals.view(D, rows_loc, -1)
+        self._blocks = [ops.EllOperator(*(t.clone() if own else t.contiguous()
+                                          for t in (cb[d], vb[d])), n=n)
+                        for d in self.owners]
 
     def set_values(self, vals: torch.Tensor) -> None:
-        """Refill every row block's values in place from the whole
+        """Refill every local row block's values in place from the whole
         matrix's (n, W) ELL values (the layout it was made from)."""
         if not isinstance(vals, torch.Tensor) or vals.ndim != 2 or vals.shape[0] != self.n:
             raise ValueError(f"RowBlockELL.set_values: expected an ({self.n}, W) tensor")
-        D, rows_loc = len(self._blocks), self._blocks[0].m
+        D, rows_loc = self.group.n_devices, self.rows_loc
         vals = torch.cat([vals, vals.new_zeros((rows_loc * D - self.n, vals.shape[1]))])
-        for block, v in zip(self._blocks, vals.reshape(D, rows_loc, -1)):
-            block.set_values(v)
+        blocks = vals.reshape(D, rows_loc, -1)
+        for block, d in zip(self._blocks, self.owners):
+            block.set_values(blocks[d])
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         xb = x if x.ndim == 2 else x[None]
-        y = torch.stack([block(xb) for block in self._blocks])  # (D, nb, rows_loc)
+        y = torch.stack([block(xb) for block in self._blocks])  # (L, nb, rows_loc)
         if self.group.n_devices > 1:
-            y = self.group.exchange(y)[0]
+            y = self.group.exchange(y)[0]  # (D, nb, rows_loc)
         y = y.transpose(0, 1).reshape(xb.shape[0], -1)[:, :self.n]
         return y if x.ndim == 2 else y[0]
 
 
 def make_sharded_ell_matvec(a, group) -> Callable:
-    """Row-block sharded ELL SpMV of ``a`` over the D owners of a
-    :class:`~repro_torch.core.top_ilu.BandGroup` (a :class:`RowBlockELL` on
-    the group's device): each owner holds ``ceil(n/D)`` rows of A, ``x`` is
-    replicated (it is O(n) — the factors and the matrix are the memory
-    hogs), and every output entry is bitwise identical to
-    :func:`make_ell_matvec`'s."""
+    """Row-block sharded ELL SpMV of ``a`` over the D owners of a band group
+    (a :class:`RowBlockELL` on the group's device): each owner holds
+    ``ceil(n/D)`` rows of A, ``x`` is replicated (it is O(n) — the factors
+    and the matrix are the memory hogs), and every output entry is bitwise
+    identical to :func:`make_ell_matvec`'s."""
     return RowBlockELL(*csr_to_ell_arrays(a, group.device), group)
 
 
@@ -479,6 +485,11 @@ class WarmRestart:
         took. A CUDA call that cannot be captured raises here."""
         if self.device.type != "cuda" or self.graph is not None:
             return 0.0
+        for group in self._groups():
+            if not getattr(group, "capturable", True):
+                raise RuntimeError(f"a CUDA graph cannot capture the exchanges of a "
+                                   f"{type(group).__name__} (its collectives run on the host); "
+                                   "solve over it without warm_solve")
         t0 = time.perf_counter()
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))

@@ -24,10 +24,13 @@ device:
 On a CUDA device the persistent factorization and the sharded sweep
 exchange inside their launches, as pure copies between the owners' slices
 in the card's memory; elsewhere values cross owners through
-:meth:`BandGroup.exchange`, a pure copy. A backend over several cards
-replaces that method, and the in-kernel exchanges with it (ROADMAP). The
-factorization stays on the device as a :class:`ShardedILUFactorization`,
-whose ``precond()`` and ``solve`` consume the sharded values in place.
+:meth:`BandGroup.exchange`, a pure copy. Over processes
+(:class:`repro_torch.core.dist.DistBandGroup`, one owner per rank) each
+rank holds only its owner's slices, and every exchange is a collective:
+the consumers ask a group for its ``local_owners`` and keep only theirs.
+The factorization stays on the device as a
+:class:`ShardedILUFactorization`, whose ``precond()`` and ``solve``
+consume the sharded values in place.
 """
 from __future__ import annotations
 
@@ -61,26 +64,15 @@ def _broadcast(name: str) -> str:
     return name
 
 
-class BandGroup:
-    """D band owners on one torch device: the port's stand-in for the JAX
-    package's 1-D ``band`` mesh (``repro.core.top_ilu.band_mesh``).
+class GroupCounts:
+    """The exchange counts every band group keeps, through :meth:`record`:
+    ``exchanges``, ``collectives`` (one per ``"gather"``, D-1 hops per
+    ``"ring"``) and ``payload_bytes`` (bytes one owner sends per exchange,
+    summed) — the quantities the plans' comm models predict. A group over
+    processes counts on every rank what the one-device group counts for the
+    same call."""
 
-    Owner ``d``'s data is slice ``d`` of the leading axis of every sharded
-    tensor. Values cross owners through :meth:`exchange`, or, in the
-    factorization and the sharded sweep on a CUDA device, through copies
-    inside one kernel (:class:`~repro_torch.kernels.ops.SuperstepFactor`,
-    :class:`~repro_torch.kernels.ops.ShardedSweep`). Both count through
-    :meth:`record`: ``exchanges``, ``collectives`` (one per ``"gather"``,
-    D-1 hops per ``"ring"``) and ``payload_bytes`` (bytes one owner sends
-    per exchange, summed) — the quantities the plans' comm models predict.
-    """
-
-    def __init__(self, n_devices: int, device=None):
-        if int(n_devices) < 1:
-            raise ValueError(f"a band group needs at least one owner, got {n_devices}")
-        self.n_devices = int(n_devices)
-        self.device = resolve_device(device)
-        self.reset_counts()
+    n_devices: int
 
     def reset_counts(self) -> None:
         self.exchanges = 0
@@ -109,6 +101,36 @@ class BandGroup:
         self.collectives += exchanges * (1 if _broadcast(broadcast) == "gather"
                                          else self.n_devices - 1)
         self.payload_bytes += payload_bytes
+
+
+class BandGroup(GroupCounts):
+    """D band owners on one torch device: the port's stand-in for the JAX
+    package's 1-D ``band`` mesh (``repro.core.top_ilu.band_mesh``).
+
+    Owner ``d``'s data is slice ``d`` of the leading axis of every sharded
+    tensor: all D owners are local (``local_owners`` is ``range(D)``).
+    Values cross owners through :meth:`exchange`, or, in the factorization
+    and the sharded sweep on a CUDA device, through copies inside one kernel
+    (:class:`~repro_torch.kernels.ops.SuperstepFactor`,
+    :class:`~repro_torch.kernels.ops.ShardedSweep`). Both count through
+    :meth:`record`.
+    """
+
+    kind = "card"
+
+    def __init__(self, n_devices: int, device=None):
+        if int(n_devices) < 1:
+            raise ValueError(f"a band group needs at least one owner, got {n_devices}")
+        self.n_devices = int(n_devices)
+        self.local_owners = range(self.n_devices)
+        self.device = resolve_device(device)
+        self.reset_counts()
+
+    def gather_owners(self, local: torch.Tensor) -> torch.Tensor:
+        """Every owner's block of a tensor whose leading axis is the local
+        owners: here they are all local, so ``local`` itself. Not an
+        exchange: nothing is counted (the group over processes all-gathers)."""
+        return local
 
     def exchange(self, payload: torch.Tensor, broadcast: str = "gather") -> torch.Tensor:
         """All-to-all copy of each owner's payload: ``payload`` is (D, E, …),
@@ -152,11 +174,13 @@ def _values_to_csr_order(plan: NumericPlan, pattern: ILUPattern, vals_rm: np.nda
 class ShardedILUFactorization:
     """Device-resident sharded factorization output.
 
-    ``loc_vals`` is a (D, s_loc, W) float32 tensor on ``group.device`` — the
-    factored ELL values in owner-major band order, owner d's block its own
-    rows. The preconditioner apply (:meth:`precond`) and the distributed
-    solve consume it in place; :meth:`values_csr` gathers to the host only
-    when asked (tests, interop), on no solve path.
+    ``loc_vals`` is a (len(local_owners), s_loc, W) float32 tensor on
+    ``group.device`` — the factored ELL values of the group's local owners
+    in owner-major band order, each block its owner's rows (all D owners on
+    one device; one owner per rank over processes). The preconditioner
+    apply (:meth:`precond`) and the distributed solve consume it in place;
+    :meth:`values_csr` gathers to the host only when asked (tests,
+    interop), on no solve path.
     """
 
     a: CSRMatrix
@@ -164,7 +188,7 @@ class ShardedILUFactorization:
     pattern: ILUPattern
     plan: NumericPlan
     group: BandGroup
-    loc_vals: torch.Tensor  # (D, s_loc, W) f32
+    loc_vals: torch.Tensor  # (len(group.local_owners), s_loc, W) f32
     broadcast: str = "gather"
     symbolic_seconds: float = 0.0
     numeric_seconds: float = 0.0
@@ -203,9 +227,39 @@ class ShardedILUFactorization:
         return self.plan.per_device_value_bytes()
 
     def values_csr(self) -> np.ndarray:
-        """Gather the sharded factors to the host as CSR-aligned values."""
-        dm = self.loc_vals.cpu().numpy().reshape(self.plan.n_pad, self.plan.width)
+        """Gather the sharded factors to the host as CSR-aligned values. Over
+        processes it all-gathers the owners' blocks: a collective, so every
+        rank must call it."""
+        dm = (self.group.gather_owners(self.loc_vals).cpu().numpy()
+              .reshape(self.plan.n_pad, self.plan.width))
         return _values_to_csr_order(self.plan, self.pattern, self.plan.rows_from_device_major(dm))
+
+    @classmethod
+    def from_values(cls, a: CSRMatrix, pattern: ILUPattern, vals_csr, band_rows: int = 32,
+                    group=None, broadcast: str = "gather") -> "ShardedILUFactorization":
+        """Adopt CSR-aligned factor values computed elsewhere — the sequential
+        oracle's, or the NumPy ``values_csr()`` of a JAX factorization — as
+        the local owners' blocks of ``group`` (one owner on CUDA when None),
+        laid out as :func:`topilu_factor_sharded` lays out its own output:
+        padding rows the identity, padding lanes zero. The plan comes from
+        the same engine store; the values are not recomputed or audited."""
+        group = group if group is not None else BandGroup(1)
+        vals_csr = np.asarray(vals_csr, np.float32)
+        if vals_csr.shape != (pattern.nnz,):
+            raise ValueError(f"from_values: {vals_csr.shape} values for a pattern of "
+                             f"{pattern.nnz} entries")
+        entry = _topilu_engine(a, pattern, band_rows, group, _broadcast(broadcast))
+        plan = entry["plan"]
+        rm = np.zeros((plan.n_pad, plan.width), np.float32)
+        rm[pattern.n:, 0] = 1.0  # identity padding rows, as the factorization leaves them
+        rowlen = np.diff(pattern.indptr).astype(np.int64)
+        row_of = np.repeat(np.arange(pattern.n, dtype=np.int64), rowlen)
+        rm[row_of, np.arange(pattern.nnz, dtype=np.int64) - pattern.indptr[row_of]] = vals_csr
+        blocks = (plan.rows_device_major(rm)
+                  .reshape(plan.n_devices, plan.s_loc, plan.width)[list(group.local_owners)])
+        return cls(a=a, k=pattern.k, pattern=pattern, plan=plan, group=group,
+                   loc_vals=torch.as_tensor(np.ascontiguousarray(blocks), device=group.device),
+                   broadcast=_broadcast(broadcast), _shared=entry["shared"])
 
     def _tri_plan(self):
         """The structure-keyed sharded triangular plan (built on demand)."""
@@ -294,6 +348,23 @@ def _build_topilu_engine(a, pattern, band_rows, group, broadcast):
     return dict(plan=plan, fn=fac, shared={}, plan_seconds=plan_s)
 
 
+def _topilu_engine(a, pattern, band_rows, group, broadcast):
+    """The engine-store entry of ``a`` for this structure and group, built
+    on first use. The key holds the group's kind and local owners, so a
+    one-device group and a rank of a group over processes never share an
+    entry (their tables differ in the owners they keep)."""
+    key = ("topilu", _pattern_fingerprint(pattern), band_rows, group.n_devices, str(group.device),
+           broadcast, group.kind, tuple(group.local_owners))
+    try:
+        store = a.__dict__.setdefault(ENGINE_CACHE_KEY, {})
+    except AttributeError:  # a container without __dict__: no caching
+        store = {}
+    entry = store.get(key)
+    if entry is None:
+        entry = store[key] = _build_topilu_engine(a, pattern, band_rows, group, broadcast)
+    return entry
+
+
 def topilu_factor_sharded(
     a: CSRMatrix,
     pattern: ILUPattern,
@@ -302,33 +373,28 @@ def topilu_factor_sharded(
     broadcast: str = "gather",
 ) -> ShardedILUFactorization:
     """Parallel numeric factorization over the D band owners of ``group``
-    (one owner on CUDA when None); the output stays sharded on the device.
-    On a CUDA device it is one persistent ``superstep_factor`` launch whose
-    exchanges are in-kernel copies, counted in ``group`` through
-    ``BandGroup.record`` as the plan's one exchange per superstep; on the
-    CPU each superstep's exchange goes through ``group.exchange``.
+    (one owner on CUDA when None); the output stays sharded on the device,
+    each local owner's block. With all D owners on one CUDA device it is
+    one persistent ``superstep_factor`` launch whose exchanges are
+    in-kernel copies, counted in ``group`` through ``BandGroup.record`` as
+    the plan's one exchange per superstep; on the CPU, and over processes
+    (a :class:`~repro_torch.core.dist.DistBandGroup`, whose owners no
+    kernel can reach), each superstep is one launch of the one-superstep
+    kernel (its plain version on the CPU), then one ``group.exchange``.
 
     The plan and the factorizer are memoized on the matrix object under
     :data:`ENGINE_CACHE_KEY`, keyed by the pattern, the band size, the
-    group's owners and device, and the broadcast; they bind no group: every
-    exchange of a call, and of the sweeps of its ``precond()``, goes through
-    that call's ``group``. The *value* state is rebuilt from ``a.data`` on
-    every call, so refactorizing with updated values never reuses stale
-    numbers.
+    group's owners, kind and device, and the broadcast; they bind no group:
+    every exchange of a call, and of the sweeps of its ``precond()``, goes
+    through that call's ``group``. The *value* state is rebuilt from
+    ``a.data`` on every call, so refactorizing with updated values never
+    reuses stale numbers.
     """
     group = group if group is not None else BandGroup(1)
     broadcast = _broadcast(broadcast)
-    key = ("topilu", _pattern_fingerprint(pattern), band_rows, group.n_devices, str(group.device),
-           broadcast)
-    try:
-        store = a.__dict__.setdefault(ENGINE_CACHE_KEY, {})
-    except AttributeError:  # a container without __dict__: no caching
-        store = {}
-    entry = store.get(key)
-    if entry is None:
-        entry = store[key] = _build_topilu_engine(a, pattern, band_rows, group, broadcast)
+    entry = _topilu_engine(a, pattern, band_rows, group, broadcast)
     plan = entry["plan"]
-    state = plan_state_array(plan, a)
+    state = plan_state_array(plan, a, owners=group.local_owners)
     return ShardedILUFactorization(
         a=a, k=pattern.k, pattern=pattern, plan=plan, group=group,
         loc_vals=entry["fn"](state, group=group), broadcast=broadcast, _shared=entry["shared"])

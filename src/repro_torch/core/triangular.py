@@ -501,17 +501,18 @@ def build_sharded_triangular_plan(pattern: ILUPattern, band_rows: int,
 @dataclasses.dataclass
 class SweepSide:
     """One sweep's tables for :class:`~repro_torch.kernels.ops.ShardedSweep`,
-    on one device. ``cols`` is the schedule's owner-local (D, nlev, maxr, W)
-    dependency table; the right-hand side of slot s of owner d is entry
-    ``rhs_idx[d, s]`` of its source (``rhs_len`` and past: +0.0), and
+    on one device, for the L local owners of a group of D (L = D on one
+    device). ``cols`` is the schedule's owner-local (L, nlev, maxr, W)
+    dependency table; the right-hand side of slot s of local owner i is
+    entry ``rhs_idx[i, s]`` of its source (``rhs_len`` and past: +0.0), and
     ``limit`` the scratch address. Exchanges, flattened with per-exchange
     offsets: ``ex_after[l]`` is k + 1 when exchange k follows level l (else
     0); exchange k has E_k = ``ex_off[k+1] - ex_off[k]`` entries per owner,
-    ``eg[D*ex_off[k]:]`` (D, E_k) the senders' local addresses,
-    ``ing[D*D*ex_off[k]:]`` (D recv, D send, E_k) where each receiver files
-    them (pad: ``limit``), ``rep`` (D, E_k) their global slots (pad: the
-    output's scratch slot; U only). ``ex_base`` counts the exchanges of the
-    sweeps before this one."""
+    ``eg[L*ex_off[k]:]`` (L, E_k) the local senders' addresses,
+    ``ing[L*D*ex_off[k]:]`` (L recv, D send, E_k) where each local receiver
+    files them (pad: ``limit``), ``rep`` (D, E_k) every sender's global
+    slots (pad: the output's scratch slot; U only). ``ex_base`` counts the
+    exchanges of the sweeps before this one."""
 
     cols: torch.Tensor
     rhs_idx: torch.Tensor
@@ -527,12 +528,14 @@ class SweepSide:
 
 @dataclasses.dataclass
 class ShardedSweepTables:
-    """The tables of a band-partitioned apply, built once per plan and device:
-    the L and U :class:`SweepSide`, ``out_row`` (D, nu, maxr_u) (the output
-    row of each U slot, ``n`` for a pad), the final assembly's ``fin_src``
-    (D, F) local addresses and ``fin_slots`` (D, F) global slots (pad: the
-    output's scratch slot ``nu_slots``), ``out_perm`` (n,) and the plan's
-    exchanges and payload slots per apply (what ``BandGroup`` counts)."""
+    """The tables of a band-partitioned apply, built once per plan, device
+    and set of local owners ``owners`` (of ``n_owners`` in all): the L and
+    U :class:`SweepSide`, ``out_row`` (L, nu, maxr_u) (the output row of
+    each U slot, ``n`` for a pad), the final assembly's ``fin_src`` (L, F)
+    local addresses and ``fin_slots`` (D, F) every owner's global slots
+    (pad: the output's scratch slot ``nu_slots``), ``out_perm`` (n,) and
+    the plan's exchanges and payload slots per apply (what ``BandGroup``
+    counts)."""
 
     n: int
     n_owners: int
@@ -545,12 +548,26 @@ class ShardedSweepTables:
     out_perm: torch.Tensor
     exchanges: int
     payload_slots: int
+    owners: tuple = ()
+
+    def runs(self) -> int:
+        """The runs of levels one apply sweeps between its exchanges (a run
+        ends in an exchange or at the last level; an empty last run is
+        none): the ``epoch_sweep`` launches of one apply on the rank route."""
+        out = 0
+        for side in (self.l, self.u):
+            ex = side.ex_after.cpu().numpy()
+            out += int(np.count_nonzero(ex)) + int(ex.size > 0 and ex[-1] == 0)
+        return out
 
 
 def _sweep_side(sched: SweepEpochSchedule, rhs_idx, rhs_len: int, ex_base: int, rep_pad: int,
-                device) -> SweepSide:
+                device, owners) -> SweepSide:
     """Flatten one sweep's per-epoch egress/ingress lists (exact payloads,
-    ragged per epoch) into the offsets-and-entries tables the kernel reads."""
+    ragged per epoch) into the offsets-and-entries tables the kernel reads,
+    keeping the local owners ``owners`` (the rows of every sender's global
+    slots ``rep`` stay whole)."""
+    own = list(owners)
     ex_after = np.zeros(sched.n_levels, np.int32)
     off, eg, ing, rep = [0], [], [], []
     for e, (g, i, sl) in enumerate(zip(sched.egress, sched.ingress, sched.egress_slots)):
@@ -558,8 +575,8 @@ def _sweep_side(sched: SweepEpochSchedule, rhs_idx, rhs_len: int, ex_base: int, 
             continue
         ex_after[int(sched.epoch_bounds[e + 1]) - 1] = len(off)
         off.append(off[-1] + g.shape[1])
-        eg.append(g.reshape(-1))
-        ing.append(i.reshape(-1))
+        eg.append(g[own].reshape(-1))
+        ing.append(i[own].reshape(-1))
         rep.append(np.where(sl >= 0, sl, rep_pad).reshape(-1))
 
     def on(x, dtype=torch.int32):
@@ -568,20 +585,24 @@ def _sweep_side(sched: SweepEpochSchedule, rhs_idx, rhs_len: int, ex_base: int, 
     def cat(parts):
         return np.concatenate(parts) if parts else np.zeros(0, np.int64)
 
-    return SweepSide(cols=on(sched.cols_local), rhs_idx=on(rhs_idx), rhs_len=int(rhs_len),
+    return SweepSide(cols=on(sched.cols_local[own]), rhs_idx=on(rhs_idx[own]),
+                     rhs_len=int(rhs_len),
                      limit=int(sched.scratch), ex_after=on(ex_after), ex_off=on(off),
                      eg=on(cat(eg)), ing=on(cat(ing)), rep=on(cat(rep), torch.int64),
                      ex_base=int(ex_base))
 
 
 class ShardedTriangularEngine:
-    """Structure-only machinery of the band-partitioned sweeps, over D band
-    owners on one device.
+    """Structure-only machinery of the band-partitioned sweeps, over the D
+    band owners of a group: all of them on one device (a
+    :class:`~repro_torch.core.top_ilu.BandGroup`), or one per rank (a
+    :class:`~repro_torch.core.dist.DistBandGroup`), each rank keeping only
+    its owner's tables.
 
     Holds the schedule as :class:`ShardedSweepTables` on the device of
-    ``group`` (a :class:`~repro_torch.core.top_ilu.BandGroup`), each table
-    with a leading owner axis, and :meth:`extract` (each owner's local
-    factor ELL block -> its level-major L/U/diag blocks). The
+    ``group``, each table with a leading axis of the group's local owners,
+    and :meth:`extract` (each local owner's factor ELL block -> its
+    level-major L/U/diag blocks). The
     **epoch-fused** L-then-U sweep over owner-local sweep vectors
     ``[local slots | ingress halo | scratch]`` is
     :class:`~repro_torch.kernels.ops.ShardedSweep`: per collective epoch the
@@ -589,11 +610,13 @@ class ShardedTriangularEngine:
     owner reads another's slots downstream, ONE exchange of exactly those
     slots (``"gather"``: one collective; ``"ring"``: D-1 hops); the final
     output assembly ships only the rows no epoch exchange already
-    broadcast. On a CUDA device the whole apply is one persistent launch
-    whose exchanges are copies inside the card; on the CPU each exchange
-    goes through ``BandGroup.exchange``. The engine binds no group: each
-    apply exchanges through the group its caller passes, so one cached
-    engine serves every group of its owner count and device.
+    broadcast. With all owners on one CUDA device the whole apply is one
+    persistent launch whose exchanges are copies inside the card; on the
+    CPU, and over processes, each run of levels between exchanges is one
+    ``epoch_sweep`` (its plain version on the CPU) and each exchange goes
+    through ``group.exchange``. The engine binds no group: each apply
+    exchanges through the group its caller passes, so one cached engine
+    serves every group of its owner count, local owners and device.
 
     The JAX engine defaults to ``use_pallas=False`` and every JAX caller
     keeps it, so the JAX sharded path runs ``epoch_sweep_jnp`` — the Pallas
@@ -611,15 +634,17 @@ class ShardedTriangularEngine:
         self.broadcast = _broadcast(broadcast)
         self.device = dev = group.device
         D = plan.n_devices
+        own = list(group.local_owners)
+        self.owners = tuple(own)
         ls, us = plan.l_sched, plan.u_sched
 
         def i64(x):
             return torch.as_tensor(np.ascontiguousarray(x), dtype=torch.int64, device=dev)
 
-        self._owner = torch.arange(D, device=dev)
-        self._l_src, self._u_src = i64(plan.l_src), i64(plan.u_src)
-        self._l_lane, self._u_lane = i64(plan.l_lane), i64(plan.u_lane)
-        self._u_dlane = i64(plan.u_dlane)
+        self._owner = torch.arange(len(own), device=dev)
+        self._l_src, self._u_src = i64(plan.l_src[own]), i64(plan.u_src[own])
+        self._l_lane, self._u_lane = i64(plan.l_lane[own]), i64(plan.u_lane[own])
+        self._u_dlane = i64(plan.u_dlane[own])
         n, maxr_u = plan.n, plan.maxr_u
         out_row = np.full((D, plan.nu_levels, maxr_u), n, np.int64)
         slot = plan.out_perm.astype(np.int64)
@@ -627,29 +652,30 @@ class ShardedTriangularEngine:
         fin = D > 1 and plan.fin_src.shape[1] > 0
         self.tables = ShardedSweepTables(
             n=n, n_owners=D, nu_slots=plan.nu_slots,
-            l=_sweep_side(ls, plan.l_rhs, n, 0, plan.nu_slots, dev),
+            l=_sweep_side(ls, plan.l_rhs, n, 0, plan.nu_slots, dev, own),
             u=_sweep_side(us, plan.u_rhs_loc, ls.scratch, ls.exchange_count(), plan.nu_slots,
-                          dev),
-            out_row=torch.as_tensor(out_row, dtype=torch.int32, device=dev),
-            fin_src=i64(plan.fin_src),
+                          dev, own),
+            out_row=torch.as_tensor(out_row[own], dtype=torch.int32, device=dev),
+            fin_src=i64(plan.fin_src[own]),
             fin_slots=i64(np.where(plan.fin_slots >= 0, plan.fin_slots, plan.nu_slots)),
             out_perm=i64(plan.out_perm),
             exchanges=ls.exchange_count() + us.exchange_count() + int(fin),
             payload_slots=(ls.exchanged_slot_count() + us.exchanged_slot_count()
-                           + (plan.fin_src.shape[1] if fin else 0)))
+                           + (plan.fin_src.shape[1] if fin else 0)),
+            owners=tuple(own))
 
     def extract(self, loc: torch.Tensor):
-        """(D, s_loc, W) local factor blocks -> level-major (D, nl, maxr_l,
-        WL) L values, (D, nu, maxr_u, WU) U values and (D, nu, maxr_u)
-        diagonals, each owner gathering from its own block only. A zeros
-        lane (W) and a ones lane (W+1) give padded gathers their neutral
-        element."""
+        """(L, s_loc, W) factor blocks of the L local owners -> level-major
+        (L, nl, maxr_l, WL) L values, (L, nu, maxr_u, WU) U values and (L,
+        nu, maxr_u) diagonals, each owner gathering from its own block only.
+        A zeros lane (W) and a ones lane (W+1) give padded gathers their
+        neutral element."""
         p = self.plan
-        D, s_loc, W = p.n_devices, p.s_loc, p.width
-        if tuple(loc.shape) != (D, s_loc, W) or loc.dtype != torch.float32:
-            raise ValueError(f"extract: expected a float32 {(D, s_loc, W)} block, got "
+        L, s_loc, W = len(self.owners), p.s_loc, p.width
+        if tuple(loc.shape) != (L, s_loc, W) or loc.dtype != torch.float32:
+            raise ValueError(f"extract: expected a float32 {(L, s_loc, W)} block, got "
                              f"{loc.dtype} {tuple(loc.shape)}")
-        ext = torch.zeros((D, s_loc + 1, W + 2), dtype=torch.float32, device=loc.device)
+        ext = torch.zeros((L, s_loc + 1, W + 2), dtype=torch.float32, device=loc.device)
         ext[:, :s_loc, :W] = loc
         ext[:, :, W + 1] = 1.0
         d4 = self._owner[:, None, None, None]

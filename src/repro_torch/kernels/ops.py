@@ -605,10 +605,18 @@ class ShardedSweep:
     (nb, n) float32 ``b`` on their device and the group the apply
     exchanges through:
 
-    * on the CPU it runs the plain whole sweep
-      (:func:`repro_torch.kernels.ref.sharded_sweep_ref`): ``epoch_sweep_ref``
-      per epoch, each exchange through ``group.exchange``;
-    * on a CUDA device one cooperative launch, one block per owner, runs
+    * on the CPU, and over processes (tables of fewer than all D owners:
+      a rank of a :class:`~repro_torch.core.dist.DistBandGroup`), the
+      structure of the plain whole sweep
+      (:func:`repro_torch.kernels.ref.sharded_sweep_ref`): each run of
+      levels that ends in an exchange is one call of :func:`epoch_sweep`
+      over the local owners (one launch on the card, its plain version on
+      the CPU), then the exchange through ``group.exchange``. The other
+      owners' slices lie in other processes, which no launch can reach, so
+      the route is chosen by the tables' owners and shows in the counts:
+      ``epoch_sweep.launches`` per apply is ``tables.runs()``;
+    * with all D owners on one CUDA device one cooperative launch, one
+      block per owner, runs
       every epoch; after an epoch each owner publishes a count, and each
       owner pulls what it reads from the others once their counts show the
       epoch done (``epoch_sweep.cu``). The exchanges are copies inside the
@@ -627,8 +635,10 @@ class ShardedSweep:
         _check("sharded sweep uv", uv, _F32, (D, nu, mu, wu), dev)
         _check("sharded sweep dg", dg, _F32, (D, nu, mu), dev)
         self.tables, self.values = tables, (lv, uv, dg)
-        self.device, self.n_owners, self.n = dev, int(D), int(tables.n)
-        self._cuda = _route(dev)
+        self.device, self.n_local, self.n = dev, int(D), int(tables.n)
+        self.n_owners = int(tables.n_owners)
+        # the persistent launch needs every owner's slice in this card's memory
+        self._cuda = _route(dev) and self.n_local == self.n_owners
         if self._cuda and self.n:
             self._bind()
 
@@ -677,8 +687,12 @@ class ShardedSweep:
         if group.n_devices != self.n_owners:
             raise ValueError(f"sweep: a group of {group.n_devices} owners, the plan has "
                              f"{self.n_owners}")
+        if tuple(group.local_owners) != tuple(self.tables.owners):
+            raise ValueError(f"sweep: the group's local owners {tuple(group.local_owners)} are "
+                             f"not the tables' {tuple(self.tables.owners)}")
         if not self._cuda:
-            return ref.sharded_sweep_ref(self.tables, *self.values, b, group, broadcast)
+            return ref.sharded_sweep_ref(self.tables, *self.values, b, group, broadcast,
+                                         levels=epoch_sweep)
         nb = b.shape[0]
         out = torch.empty_like(b)
         if self.n == 0 or nb == 0:
@@ -870,6 +884,40 @@ def _superstep_tables(sched, piv_addr, piv_dlane, piv_dst, n_piv, egress, ingres
                             kept=int(kept.sum())))
 
 
+def owner_tables(tabs: dict, owners, n_bands: int, n_devices: int) -> dict:
+    """The band-superstep tables of the owners ``owners`` alone, in the form
+    one launch over just them reads. ``tabs`` holds any of ``sched`` (n_sup,
+    D, MPD), ``piv_addr``/``piv_dlane``/``piv_dst``/``n_piv`` (D, s_loc,
+    …), ``egress`` (n_sup, D, E) and ``ingress`` (n_sup, D recv, D send, E),
+    as NumPy arrays; each owner axis keeps ``owners``, in their order, and
+    the ingress map keeps its D senders. A band id b (owner b % D, slot
+    b // D) becomes the local id ``(b // D) * L + i``, i the place of its
+    owner among the L owners, and the padding id ``n_bands`` becomes
+    ``(n_bands // D) * L``: the kernel finds a band's owner-local first row
+    as ``(id // L) * R``. Every address is owner-local already. With all D
+    owners in order the tables come back unchanged."""
+    import numpy as np
+
+    own = np.asarray(list(owners), np.int64)
+    D = int(n_devices)
+    out = dict(tabs)
+    for k in ("piv_addr", "piv_dlane", "piv_dst", "n_piv"):
+        if k in tabs:
+            out[k] = np.asarray(tabs[k])[own]
+    for k in ("egress", "ingress"):
+        if k in tabs:
+            out[k] = np.asarray(tabs[k])[:, own]
+    if "sched" in tabs:
+        sched = np.asarray(tabs["sched"])[:, own].astype(np.int64)
+        place = np.full(D, -1, np.int64)
+        place[own] = np.arange(own.size)
+        live = sched < n_bands
+        local = np.where(live, (sched // D) * own.size + place[sched % D],
+                         (n_bands // D) * own.size)
+        out["sched"] = local.astype(np.int32)
+    return out
+
+
 class SuperstepFactor:
     """The band-superstep factorization over D band owners, every superstep
     and every halo exchange, **in place** in a (D, s_loc+H+1, W) value
@@ -897,12 +945,24 @@ class SuperstepFactor:
 
     Both give the bits of ``numeric_ilu_ref``. On the card the D owners'
     blocks must all be resident, and a superstep may hold at most 32 bands
-    of one owner: a plan beyond either is refused when the object is made."""
+    of one owner: a plan beyond either is refused when the object is made.
+
+    ``owners`` (all D when None) are the owners whose slices live here: the
+    tables are checked whole, then only these owners' slices are kept, in
+    the local form of :func:`owner_tables`, and the state is theirs, (L,
+    s_loc+H+1, W). With fewer than D — a rank of a group over processes —
+    the route is the per-superstep loop, whatever the device: the other
+    owners' slices lie in other processes, which no launch can reach, so
+    each superstep is one launch of the one-superstep kernel over the local
+    owners and each exchange a collective of the group. The route is chosen
+    by the owners, never as a fallback, and shows in the counts:
+    ``superstep_factor.launches`` per factorization is 1 with all owners
+    here, and the plan's supersteps otherwise."""
 
     FIELDS = ("sched", "piv_addr", "piv_dlane", "piv_dst", "n_piv")
 
     def __init__(self, sched, piv_addr, piv_dlane, piv_dst, n_piv, egress, ingress,
-                 n_bands: int, band_rows: int, halo_size: int, device):
+                 n_bands: int, band_rows: int, halo_size: int, device, owners=None):
         import numpy as np
 
         dev = torch.device(device)
@@ -914,27 +974,37 @@ class SuperstepFactor:
         self.width = int(np.shape(piv_dst)[3])
         self.n_bands, self.band_rows, self.halo_size = int(n_bands), int(band_rows), int(halo_size)
         self.state_rows = self.s_loc + self.halo_size + 1
+        D = self.n_owners
+        self.owners = tuple(range(D)) if owners is None else tuple(int(d) for d in owners)
+        if (not self.owners or len(set(self.owners)) != len(self.owners)
+                or not all(0 <= d < D for d in self.owners)):
+            raise ValueError(f"superstep tables: owners {self.owners} are not distinct owners "
+                             f"of [0, {D})")
+        L = self.n_local = len(self.owners)
+        self.n_bands_local = (self.s_loc // self.band_rows) * L
+        loc = owner_tables(dict(zip(self.FIELDS + ("egress", "ingress"),
+                                    (sched, piv_addr, piv_dlane, piv_dst, n_piv, egress,
+                                     ingress))), self.owners, self.n_bands, D)
 
         def i32(x):
             return torch.as_tensor(np.ascontiguousarray(x), dtype=_I32, device=dev)
 
-        self.tabs = {k: i32(v) for k, v in zip(self.FIELDS, (sched, piv_addr, piv_dlane,
-                                                             piv_dst, n_piv))}
+        self.tabs = {k: i32(loc[k]) for k in self.FIELDS}
         dev = self.tabs["sched"].device  # "cuda" resolved to its index
         self.device, self._cuda = dev, _route(dev)
-        # the CPU route's exchange: one per superstep when some owner reads
-        # another's rows, of each owner's (E, W) egress payload
-        D, e_max = self.n_owners, int(np.shape(egress)[2])
+        # the per-superstep route's exchange: one per superstep when some
+        # owner reads another's rows, of each owner's (E, W) egress payload
+        e_max = int(np.shape(egress)[2])
         self.exchanges = self.n_supersteps if D > 1 and self.halo_size > 0 else 0
         self.payload_bytes = e_max * self.width * 4  # per owner and exchange
         if self.exchanges:
-            self._eg = torch.as_tensor(np.asarray(egress), dtype=torch.int64, device=dev)
-            # receiver d's flat state row of each (sender, payload row)
-            own = torch.arange(D, device=dev)[None, :, None] * self.state_rows
-            self._ing = (torch.as_tensor(np.asarray(ingress), dtype=torch.int64, device=dev)
-                         .reshape(self.n_supersteps, D, -1) + own).reshape(self.n_supersteps, -1)
-            self._owners = torch.arange(D, device=dev)[:, None]
-        if self._cuda and self.n_supersteps:
+            self._eg = torch.as_tensor(loc["egress"], dtype=torch.int64, device=dev)
+            # local receiver i's flat state row of each (sender, payload row)
+            own = torch.arange(L, device=dev)[None, :, None] * self.state_rows
+            self._ing = (torch.as_tensor(loc["ingress"], dtype=torch.int64, device=dev)
+                         .reshape(self.n_supersteps, L, -1) + own).reshape(self.n_supersteps, -1)
+            self._owners = torch.arange(L, device=dev)[:, None]
+        if self._cuda and self.n_supersteps and L == D:
             self._bind(host, i32)
 
     def _bind(self, host, i32) -> None:
@@ -975,11 +1045,14 @@ class SuperstepFactor:
     def __call__(self, state: torch.Tensor, group, broadcast: str = "gather",
                  step=None) -> torch.Tensor:
         _check("superstep factor state", state, _F32,
-               (self.n_owners, self.state_rows, self.width), self.device)
+               (self.n_local, self.state_rows, self.width), self.device)
         if group.n_devices != self.n_owners:
             raise ValueError(f"factorize: a group of {group.n_devices} owners, the plan has "
                              f"{self.n_owners}")
-        if step is not None or not self._cuda:
+        if tuple(group.local_owners) != self.owners:
+            raise ValueError(f"factorize: the group's local owners {tuple(group.local_owners)} "
+                             f"are not the tables' {self.owners}")
+        if step is not None or not self._cuda or self.n_local < self.n_owners:
             return self.steps(state, group, broadcast, step or superstep_factor)
         if self.n_supersteps:
             flags = torch.empty(self.n_owners, dtype=_I32, device=self.device)
@@ -997,18 +1070,18 @@ class SuperstepFactor:
             group.record(self.exchanges, self.exchanges * self.payload_bytes, broadcast)
 
     def steps(self, state: torch.Tensor, group, broadcast: str, step) -> torch.Tensor:
-        """The per-superstep loop in place: ``step`` runs superstep s (the
-        signature of :func:`superstep_factor`), then one
-        ``group.exchange`` ships each owner's (E, W) egress payload, which
-        every owner files into its halo through the ingress map (padding
-        into its scratch row)."""
+        """The per-superstep loop in place: ``step`` runs superstep s over
+        the local owners (the signature of :func:`superstep_factor`), then
+        one ``group.exchange`` ships each owner's (E, W) egress payload,
+        which every local owner files into its halo through the ingress map
+        (padding into its scratch row)."""
         t, W = self.tabs, self.width
         for s in range(self.n_supersteps):
             step(state, t["sched"], s, t["piv_addr"], t["piv_dlane"], t["piv_dst"], t["n_piv"],
-                 self.n_bands, self.band_rows)
+                 self.n_bands_local, self.band_rows)
             if self.exchanges:
-                payload = state[self._owners, self._eg[s]]  # (D, E, W): finished rows
-                got = group.exchange(payload, broadcast)  # (D recv, D send, E, W)
+                payload = state[self._owners, self._eg[s]]  # (L, E, W): finished rows
+                got = group.exchange(payload, broadcast)  # (L recv, D send, E, W)
                 state.view(-1, W).index_copy_(0, self._ing[s], got.reshape(-1, W))
         return state
 

@@ -126,70 +126,82 @@ def epoch_sweep_ref(x: torch.Tensor, cols, vals, rhs, diag, lo: int, hi: int,
     return x
 
 
-def _sweep_side_ref(x: torch.Tensor, side, vals, diag, rhs, group, broadcast, fold=None):
-    """Run one sweep of :func:`sharded_sweep_ref` in place on ``x`` (D, nb,
-    xlen): the levels up to each exchange through :func:`epoch_sweep_ref`,
-    then the exchange through ``group.exchange``; each receiver writes
-    every payload into its halo at its ingress addresses (pads at the
-    scratch slot). ``fold`` (nb, slots + 1), U only: every payload is also
-    written into the replicated output vector at its global slots."""
-    n_own, nb, xlen = x.shape
+def _epoch_sweep_in_place(x, cols, vals, rhs, diag, lo: int, hi: int, limit: int):
+    """:func:`epoch_sweep_ref` written back into ``x``: the level-range
+    function of the plain whole sweep."""
+    return x.copy_(epoch_sweep_ref(x, cols, vals, rhs, diag, lo, hi, limit))
+
+
+def _sweep_side_ref(x: torch.Tensor, side, vals, diag, rhs, group, broadcast, fold=None,
+                    levels=_epoch_sweep_in_place):
+    """Run one sweep of :func:`sharded_sweep_ref` in place on ``x`` (L, nb,
+    xlen), the vectors of the group's L local owners: each run of levels up
+    to an exchange through ``levels`` (the signature of
+    :func:`epoch_sweep_ref`, writing into ``x``), then the exchange through
+    ``group.exchange``; each local receiver writes every sender's payload
+    into its halo at its ingress addresses (pads at the scratch slot).
+    ``fold`` (nb, slots + 1), U only: every payload is also written into
+    the replicated output vector at its global slots."""
+    n_loc, nb, xlen = x.shape
+    D = group.n_devices
     off = side.ex_off.tolist()
-    rows = torch.arange(n_own, device=x.device)[:, None] * nb + torch.arange(nb, device=x.device)
+    rows = torch.arange(n_loc, device=x.device)[:, None] * nb + torch.arange(nb, device=x.device)
     lo = 0
     for lev, k1 in enumerate(side.ex_after.tolist()):
         if not k1:
             continue
-        x.copy_(epoch_sweep_ref(x, side.cols, vals, rhs, diag, lo, lev + 1, side.limit))
+        levels(x, side.cols, vals, rhs, diag, lo, lev + 1, side.limit)
         lo = lev + 1
         start, stop = off[k1 - 1], off[k1]
         e = stop - start
-        eg = side.eg[n_own * start:n_own * stop].view(n_own, e).long()
-        ing = side.ing[n_own * n_own * start:n_own * n_own * stop].view(n_own, n_own, e).long()
-        payload = torch.gather(x, 2, eg[:, None, :].expand(n_own, nb, e))  # (D, nb, E)
-        got = group.exchange(payload, broadcast)  # (D recv, D send, nb, E)
+        eg = side.eg[n_loc * start:n_loc * stop].view(n_loc, e).long()
+        ing = side.ing[n_loc * D * start:n_loc * D * stop].view(n_loc, D, e).long()
+        payload = torch.gather(x, 2, eg[:, None, :].expand(n_loc, nb, e))  # (L, nb, E)
+        got = group.exchange(payload, broadcast)  # (L recv, D send, nb, E)
         x.view(-1).index_put_((rows[:, None, :, None] * xlen + ing[:, :, None, :],), got)
         if fold is not None:
-            rep = side.rep[n_own * start:n_own * stop].view(n_own, e)
+            rep = side.rep[D * start:D * stop].view(D, e)
             lane = torch.arange(nb, device=x.device)[None, :, None]
             fold.view(-1).index_put_((lane * fold.shape[1] + rep[:, None, :],), got[0])
-    x.copy_(epoch_sweep_ref(x, side.cols, vals, rhs, diag, lo, side.cols.shape[1], side.limit))
+    levels(x, side.cols, vals, rhs, diag, lo, side.cols.shape[1], side.limit)
 
 
 def sharded_sweep_ref(tables, lv, uv, dg, b: torch.Tensor, group,
-                      broadcast: str = "gather") -> torch.Tensor:
+                      broadcast: str = "gather", levels=_epoch_sweep_in_place) -> torch.Tensor:
     """x = (LU)^{-1} b over D band owners: the band-partitioned apply of
     ``repro.core.triangular.ShardedTriangularEngine`` written out, the plain
     version of one persistent ``epoch_sweep`` launch
     (:class:`repro_torch.kernels.ops.ShardedSweep`).
 
-    ``tables`` is a :class:`repro_torch.core.triangular.ShardedSweepTables`;
-    ``lv``/``uv``/``dg`` the extracted L values, U values and diagonals; ``b``
-    (nb, n), replicated. The L sweep reads b through its rhs table (pads
-    read a zero), the U sweep each owner's own L output. Per epoch
-    :func:`epoch_sweep_ref` runs its levels, and an epoch that ends in an
-    exchange ships its payload through ``group.exchange`` (which counts
-    it); the U payloads are folded into the replicated output right away,
-    and a final exchange ships the rows no epoch exchange broadcast. Every
-    exchange is a copy, so the result is the single-device apply's bits.
-    Returns (nb, n)."""
+    ``tables`` is a :class:`repro_torch.core.triangular.ShardedSweepTables`
+    of the group's local owners (all D on one device, one per rank over
+    processes); ``lv``/``uv``/``dg`` their extracted L values, U values and
+    diagonals; ``b`` (nb, n), replicated. The L sweep reads b through its
+    rhs table (pads read a zero), the U sweep each owner's own L output.
+    Each run of levels that ends in an exchange goes through ``levels``
+    (:func:`epoch_sweep_ref` here; the rank route passes the
+    ``ops.epoch_sweep`` wrapper, one launch per run), then its payload
+    ships through ``group.exchange`` (which counts it); the U payloads are
+    folded into the replicated output right away, and a final exchange
+    ships the rows no epoch exchange broadcast. Every exchange is a copy,
+    so the result is the single-device apply's bits. Returns (nb, n)."""
     t = tables
-    n_own, nb = t.n_owners, b.shape[0]
+    n_loc, nb = t.l.cols.shape[0], b.shape[0]
     dev = b.device
     b_ext = torch.cat([b, b.new_zeros((nb, 1))], dim=1)
-    l_rhs = b_ext[:, t.l.rhs_idx.long()].transpose(0, 1).contiguous()  # (D, nb, nl, maxr_l)
-    x_l = torch.zeros((n_own, nb, t.l.limit + 1), dtype=torch.float32, device=dev)
-    _sweep_side_ref(x_l, t.l, lv, None, l_rhs, group, broadcast)
+    l_rhs = b_ext[:, t.l.rhs_idx.long()].transpose(0, 1).contiguous()  # (L, nb, nl, maxr_l)
+    x_l = torch.zeros((n_loc, nb, t.l.limit + 1), dtype=torch.float32, device=dev)
+    _sweep_side_ref(x_l, t.l, lv, None, l_rhs, group, broadcast, levels=levels)
     u_idx = t.u.rhs_idx.long()
-    u_rhs = torch.gather(x_l, 2, u_idx.reshape(n_own, 1, -1).expand(n_own, nb, u_idx[0].numel()))
-    x_u = torch.zeros((n_own, nb, t.u.limit + 1), dtype=torch.float32, device=dev)
+    u_rhs = torch.gather(x_l, 2, u_idx.reshape(n_loc, 1, -1).expand(n_loc, nb, u_idx[0].numel()))
+    x_u = torch.zeros((n_loc, nb, t.u.limit + 1), dtype=torch.float32, device=dev)
     x_rep = torch.zeros((nb, t.nu_slots + 1), dtype=torch.float32, device=dev)
-    _sweep_side_ref(x_u, t.u, uv, dg, u_rhs.view((n_own, nb) + tuple(u_idx.shape[1:])), group,
-                    broadcast, fold=x_rep)
+    _sweep_side_ref(x_u, t.u, uv, dg, u_rhs.view((n_loc, nb) + tuple(u_idx.shape[1:])), group,
+                    broadcast, fold=x_rep, levels=levels)
     f = t.fin_src.shape[1]
     if f:  # F == 0: every output row was already broadcast
-        payload = torch.gather(x_u, 2, t.fin_src[:, None, :].expand(n_own, nb, f))
-        allf = group.exchange(payload, broadcast)[0] if n_own > 1 else payload
+        payload = torch.gather(x_u, 2, t.fin_src[:, None, :].expand(n_loc, nb, f))
+        allf = group.exchange(payload, broadcast)[0] if t.n_owners > 1 else payload
         lane = torch.arange(nb, device=dev)[None, :, None]
         x_rep.view(-1).index_put_((lane * x_rep.shape[1] + t.fin_slots[:, None, :],), allf)
     return x_rep[:, t.out_perm]

@@ -1,0 +1,167 @@
+"""Run a function on D spawned ranks, one band owner each.
+
+    results = run_ranks(fn, world=4, backend="gloo", devices=["cpu"] * 4,
+                        init_file="/tmp/x/store", timeout_s=300, args=(a_arg,))
+
+Every rank is a process started with the ``spawn`` method. It joins the
+process group through a file store (``init_method="file://…"``: a new file
+per run, so parallel runs never compete for a TCP port), makes a
+:class:`~repro_torch.core.dist.DistBandGroup` on its device and returns
+``fn(group, *args)``, which must be picklable, as must ``fn`` (a module
+level function, imported anew by each rank). ``run_ranks`` returns the
+results in rank order and raises when a rank raises, dies or outlives
+``timeout_s``: it never hangs, and it stops every process it started.
+
+When the ranks use CUDA the kernels are built once in the calling process
+first, so the ranks find the library instead of racing D ``nvcc`` builds.
+
+The rank bodies of the port's own drivers live here too:
+:func:`solve_rank` (``python -m repro_torch.launch.solve --ranks N``).
+"""
+from __future__ import annotations
+
+import datetime
+import multiprocessing
+import os
+import queue
+import shutil
+import tempfile
+import time
+import traceback
+
+import torch
+
+
+def rank_devices(world: int, backend: str, devices=None) -> list:
+    """One torch device per rank. ``None``: NCCL ranks take ``cuda:r``
+    (one card each), gloo ranks all take ``cuda`` (several ranks on one
+    card, staged through the host). NCCL refuses two ranks on one card and
+    CPU tensors: such a list raises."""
+    if backend not in ("gloo", "nccl"):
+        raise ValueError(f"backend must be 'gloo' or 'nccl', got {backend!r}")
+    if devices is None:
+        devices = [f"cuda:{r}" for r in range(world)] if backend == "nccl" else ["cuda"] * world
+    devices = [torch.device(d) for d in devices]
+    if len(devices) != world:
+        raise ValueError(f"{len(devices)} devices for {world} ranks")
+    if backend == "nccl":
+        if any(d.type != "cuda" for d in devices):
+            raise ValueError("NCCL ranks need CUDA devices; use gloo for the CPU")
+        cards = [torch.device("cuda", d.index or 0) for d in devices]
+        if len(set(cards)) != len(cards):
+            raise ValueError("NCCL refuses two ranks on one card: give each rank its own "
+                             "cuda:<i>, or use gloo")
+    return devices
+
+
+def _rank_main(rank, world, backend, device, init_file, timeout_s, fn, args, results):
+    import torch.distributed as dist
+
+    from repro_torch.core.dist import DistBandGroup
+
+    try:
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev.index or 0)
+        dist.init_process_group(backend, init_method=f"file://{init_file}", world_size=world,
+                                rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
+        try:
+            out = fn(DistBandGroup(device=dev, backend=backend), *args)
+        finally:
+            dist.destroy_process_group()
+        results.put((rank, True, out))
+    except BaseException:  # reported to the parent, which raises it
+        results.put((rank, False, traceback.format_exc()))
+        raise SystemExit(1)
+
+
+def run_ranks(fn, world: int, backend: str = "gloo", devices=None, init_file=None,
+              timeout_s: float = 600.0, args=()) -> list:
+    """``[fn(group_r, *args) for each rank r]``, each in its own process
+    (see the module docstring). ``init_file`` is the file store's path (a
+    new file in a temporary directory when None; an existing file raises);
+    ``timeout_s`` bounds the whole run and each rank's collectives."""
+    devices = rank_devices(world, backend, devices)
+    if any(d.type == "cuda" for d in devices):
+        from repro_torch.kernels import build
+
+        build.build()
+    own_dir = None
+    if init_file is None:
+        own_dir = tempfile.mkdtemp(prefix="repro_ranks_")
+        init_file = os.path.join(own_dir, "store")
+    elif os.path.exists(init_file):
+        raise ValueError(f"run_ranks: the file store {init_file} exists; give each run a new one")
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_rank_main, daemon=True,
+                         args=(r, world, backend, str(devices[r]), str(init_file), timeout_s, fn,
+                               tuple(args), results))
+             for r in range(world)]
+    got, started = {}, []
+    try:
+        for p in procs:
+            p.start()
+            started.append(p)
+        deadline = time.monotonic() + timeout_s
+        while len(got) < world:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise TimeoutError(f"run_ranks: {world - len(got)} of {world} ranks not done "
+                                   f"after {timeout_s} s")
+            try:
+                rank, ok, out = results.get(timeout=min(left, 0.5))
+            except queue.Empty:
+                dead = [r for r, p in enumerate(procs) if r not in got and p.exitcode is not None]
+                if dead:
+                    try:  # a rank that failed reports before it exits
+                        rank, ok, out = results.get(timeout=2.0)
+                    except queue.Empty:
+                        raise RuntimeError(f"run_ranks: rank {dead[0]} exited with code "
+                                           f"{procs[dead[0]].exitcode} and no result") from None
+                else:
+                    continue
+            if not ok:
+                raise RuntimeError(f"run_ranks: rank {rank} of {world} failed:\n{out}")
+            got[rank] = out
+        for p in procs:
+            p.join(timeout=30)
+    finally:
+        for p in started:
+            if p.is_alive():
+                p.terminate()
+        for p in started:
+            p.join(timeout=5)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=5)
+        results.close()
+        results.join_thread()
+        if own_dir is not None:
+            shutil.rmtree(own_dir, ignore_errors=True)
+    return [got[r] for r in range(world)]
+
+
+def solve_rank(group, n, density, k, method, broadcast, band_rows, ordering, seed):
+    """The rank body of ``python -m repro_torch.launch.solve --ranks N``:
+    the CLI's ``matgen`` system, rebuilt on the rank from the seed, solved
+    by ``solve_sharded`` over ``group``. Returns what the CLI prints, and
+    the group's counts."""
+    import numpy as np
+
+    from repro_torch.core.matgen import matgen
+    from repro_torch.core.solvers import solve_sharded
+
+    a = matgen(n, density=density, seed=seed)
+    b = np.random.default_rng(seed + 1).standard_normal(n).astype(np.float32)
+    t0 = time.perf_counter()
+    res, fact = solve_sharded(a, b, k=k, group=group, band_rows=band_rows, broadcast=broadcast,
+                              method=method, ordering=ordering)
+    if group.device.type == "cuda":
+        torch.cuda.synchronize(group.device)
+    return dict(rank=group.rank, x=res.x, iterations=res.iterations, residual=res.residual,
+                converged=res.converged, verdict=res.verdict, seconds=time.perf_counter() - t0,
+                nnz=a.nnz, fill=fact.nnz, symbolic=fact.symbolic_seconds,
+                numeric=fact.numeric_seconds, supersteps=fact.plan.n_supersteps,
+                counts=group.counts(), exchange_seconds=group.exchange_seconds,
+                staged_bytes=group.staged_bytes)

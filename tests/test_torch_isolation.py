@@ -3,8 +3,9 @@
 * A child process imports the port with ``jax`` blocked and runs a tiny
   GMRES and CG solve, a Block-ILU, a distributed solve over two band
   owners, an RCM-ordered BiCGSTAB solve, a fusion-ordered batch, a
-  warm-up and a two-tenant round trip of the solve service on the CPU;
-  no ``repro`` module may get loaded.
+  warm-up, a two-tenant round trip of the solve service and a solve over
+  two gloo ranks (``repro_torch.launch.dist``) on the CPU; no ``repro``
+  module may get loaded.
 * No source file of the port mentions an import of jax or of ``repro``.
 * Without a GPU, the entry points raise unless the caller passes
   ``device="cpu"``; and ``chip_smoke.py`` fails without printing a result.
@@ -71,6 +72,12 @@ for tenant, mid in (("t0", "m0"), ("t1", "m1"), ("t1", "m0")):
 out = svc.tick()
 assert len(out) == 3 and all(r.ok and r.verdict == "converged" for r in out), out
 assert svc.metrics_snapshot()["compiles"]["after_warmup"] == 0
+import repro_torch.core.dist, repro_torch.launch.dist
+from repro_torch.launch.dist import run_ranks, solve_rank
+out = run_ranks(solve_rank, 2, "gloo", ["cpu"] * 2, timeout_s=120,
+                args=(40, 0.1, 1, "gmres", "gather", 8, "natural", 0))
+assert all(o["verdict"] == "converged" for o in out), out
+assert np.array_equal(out[0]["x"].view(np.int32), out[1]["x"].view(np.int32))
 bad = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert not bad, bad
 print("ISOLATED")
