@@ -167,6 +167,24 @@ with a non-zero exit; nothing is caught):
     owners of ``poisson_2d(400)``, buckets 1 and 4): 5 requests and a
     value update, every response bitwise equal to the solo
     ``solve_sharded`` on its value version, nothing built after warm-up.
+21. llm-serve — the model scaffolding's serving path (``repro_torch.models``,
+    ``repro_torch.train.step``; plain PyTorch, no kernel of this repo).
+    smollm-135m at its published size, weights drawn from a seeded
+    generator on the card: in float32 with 16-token chunks, 4 requests of
+    32 seeded prompt tokens fed one per step through ``make_serve_step``,
+    then 32 greedy tokens, held teacher-forced against one ``forward``
+    over the 64 tokens (max log-softmax error <= 1e-3, between the
+    sound float32 readings and a bf16 decode's, inside
+    test_decode_consistency's 0.05; argmax equal wherever the forward's
+    top-2 gap exceeds twice that error); in the config's own bf16 the
+    same tokens, timed (ms per decode step, tokens/s, one profiled
+    step's launches and device-busy share) and
+    held to finite logits and tokens in [0, vocab_real), and the bf16
+    prefill at B = 4, S = 2048. qwen1.5-0.5b, starcoder2-15b,
+    stablelm-12b and llava-next-mistral-7b at full width and 2 layers
+    under the same float32 parity (llava also prefilled with its vision
+    embeddings merged); the reduced smollm and starcoder2 on the card
+    and on the CPU with the same weights, logits within 1e-4·max|logits|.
 
 ``[time]`` lines give the seconds of each group of phases.
 
@@ -264,6 +282,24 @@ BICGSTAB_FALLBACK_TOL = 1e-4  # [bicgstab]'s gate where float32 stalls above TOL
 SERVE_BUCKETS = (1, 2, 4, 8)  # [serve]'s buckets (nb = 8, n = 160,000: a 159 MB basis)
 SERVE_TOLS = (1e-4, 1e-5)
 SERVE_REQUESTS = 48  # [serve]: 24 before the value update of p1, 16 while it runs, 8 after
+# [llm-serve]: the model scaffolding's serving path. smollm-135m at its
+# published size, then the other dense / vlm configs at full width and
+# LLM_WIDE_LAYERS layers; LLM_B requests of LLM_PROMPT seeded prompt tokens
+# fed one per step, then LLM_GEN greedy tokens, in a cache of LLM_CACHE
+# slots; the float32 runs use chunks of LLM_CHUNK so that the forward walks
+# several; the bf16 prefill runs at LLM_PREFILL_S with the config's chunks
+LLM_ARCH = "smollm-135m"
+LLM_WIDE = ("qwen1.5-0.5b", "starcoder2-15b", "stablelm-12b", "llava-next-mistral-7b")
+LLM_WIDE_LAYERS = 2
+LLM_B, LLM_PROMPT, LLM_GEN, LLM_CACHE = 4, 32, 32, 128
+LLM_CHUNK = 16
+LLM_PREFILL_S = 2048
+LLM_LSM_BOUND = 0.05  # tests/test_decode_consistency.py's bound on decode against forward
+# The float32 gate: sound float32 runs on an H100 read 3.1e-06 to 3.3e-05 and
+# the bf16 decode 4.6e-02, under LLM_LSM_BOUND; so a gate that tells float32
+# from a decode gone to bf16 lies between the two.
+LLM_F32_GATE = 1e-3
+LLM_CPU_REL = 1e-4  # card against CPU: logits within LLM_CPU_REL * max|logits|
 
 
 def require(cond, what):
@@ -3256,6 +3292,200 @@ def phase_serve_sharded(dev, nx=400):
     return counts
 
 
+def llm_decode(cfg, model, feed, gen, timed=False):
+    """Serve ``feed.shape[0]`` requests through make_serve_step: the tokens of
+    ``feed`` (B, P) one per step, then ``gen`` greedy tokens. Returns the
+    tokens fed (B, P + gen), the logits of every step as float32 (B, P +
+    gen, V) and, if ``timed``, the host ms of each step (each ends in a
+    synchronize)."""
+    import torch
+
+    from repro_torch.models import model as M
+    from repro_torch.train.step import make_serve_step
+
+    serve = make_serve_step(cfg)
+    B, P = feed.shape
+    cache = M.init_cache(cfg, B, LLM_CACHE, device=feed.device)
+    fed, logits, ms = [], [], []
+    tok = feed[:, :1]
+    for t in range(P + gen):
+        if t < P:
+            tok = feed[:, t:t + 1]
+        fed.append(tok)
+        t0 = time.perf_counter()
+        tok, out, cache = serve(model, cache, tok)
+        if timed:
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        logits.append(out[:, 0].float())
+    return torch.cat(fed, 1), torch.stack(logits, 1), ms
+
+
+def llm_parity(cfg, dec, full):
+    """Teacher-forced parity of decode logits against the forward's on the
+    same tokens: the max log-softmax error over vocab_real, and the
+    positions where the forward's top-2 gap exceeds twice that error, at
+    each of which the two argmaxes must agree. Returns (error, positions
+    checked, argmax disagreements there)."""
+    import torch
+
+    V = cfg.vocab_real
+    d, f = dec[..., :V].double(), full[..., :V].double()
+    err = float((torch.log_softmax(d, -1) - torch.log_softmax(f, -1)).abs().max())
+    top2 = torch.topk(f, 2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > 2 * err
+    bad = int(((d.argmax(-1) != f.argmax(-1)) & sure).sum())
+    return err, int(sure.sum()), bad
+
+
+def llm_f32_parity(tag, cfg, model, prompt):
+    """[llm-serve] float32 parity: LLM_GEN greedy tokens after ``prompt``,
+    held against one forward over every token fed, teacher-forced. Returns
+    the tokens fed and the forward's logits."""
+    import torch
+
+    from repro_torch.models import model as M
+
+    fed, dec, _ = llm_decode(cfg, model, prompt, LLM_GEN)
+    with torch.no_grad():
+        full = M.forward(cfg, model, {"tokens": fed}).float()
+    require(bool(torch.isfinite(dec).all() and torch.isfinite(full).all()),
+            f"[llm-serve] {tag}: non-finite logits")
+    err, checked, bad = llm_parity(cfg, dec, full)
+    say(f"[llm-serve] {tag} float32, q_chunk = kv_chunk = {cfg.q_chunk}: {fed.shape[0]} requests"
+        f" x ({prompt.shape[1]} prompt + {LLM_GEN} greedy) steps; decode against forward "
+        f"(teacher-forced): max log-softmax error {err:.3e} (gate {LLM_F32_GATE}; "
+        f"test_decode_consistency's bound {LLM_LSM_BOUND}), argmax equal"
+        f" at {checked - bad} of the {checked} positions (of {fed.numel()}) whose top-2 gap "
+        f"exceeds 2x the error")
+    require(err <= min(LLM_F32_GATE, LLM_LSM_BOUND),
+            f"[llm-serve] {tag}: log-softmax error {err:.3e}")
+    require(bad == 0, f"[llm-serve] {tag}: {bad} argmax disagreements past the top-2 gap")
+    return fed, full
+
+
+def phase_llm_serve(dev):
+    """[llm-serve]: the model scaffolding's serving path (repro_torch.models,
+    repro_torch.train.step) on the card."""
+    import copy
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.train.step import make_prefill_step, make_serve_step
+
+    require(not torch.backends.cuda.matmul.allow_tf32, "[llm-serve] float32 checks need TF32 off")
+    arch = LLM_ARCH
+    f32 = dict(param_dtype=torch.float32, act_dtype=torch.float32, q_chunk=LLM_CHUNK,
+               kv_chunk=LLM_CHUNK)
+    ops.reset_launch_counts()
+    # (a) the full-size config in float32
+    cfg = dataclasses.replace(get_config(arch), **f32)
+    g = torch.Generator(device=dev).manual_seed(SEED + 40)
+    t0 = time.perf_counter()
+    model = M.Transformer(cfg, generator=g, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    say(f"[llm-serve] {arch}: {cfg.n_layers} layers, d = {cfg.d_model}, {cfg.n_heads}:"
+        f"{cfg.n_kv_heads} heads of {cfg.head_dim}, vocab {cfg.vocab_real} (padded {cfg.vocab})"
+        f", {n_params} parameters ({cfg.param_count()['total']} by param_count), drawn on the "
+        f"card in {time.perf_counter() - t0:.2f} s")
+    rng = torch.Generator(device=dev).manual_seed(SEED + 41)
+    prompt = torch.randint(0, cfg.vocab_real, (LLM_B, LLM_PROMPT), generator=rng, device=dev,
+                           dtype=torch.int32)
+    fed, full32 = llm_f32_parity(arch, cfg, model, prompt)
+    del model
+    # (b) the config's own bf16, the same weights rounded, the same tokens
+    cfg16 = get_config(arch)
+    model = M.Transformer(cfg16, generator=torch.Generator(device=dev).manual_seed(SEED + 40),
+                          device=dev)
+    llm_decode(cfg16, model, fed[:, :4], 0)  # warm: cuBLAS handles, the allocator
+    _, dec16, ms = llm_decode(cfg16, model, fed, 0, timed=True)
+    toks = dec16[..., :cfg16.vocab_real].argmax(-1)
+    require(bool(torch.isfinite(dec16).all()), f"[llm-serve] {arch} bf16: non-finite logits")
+    require(int(toks.min()) >= 0 and int(toks.max()) < cfg16.vocab_real,
+            f"[llm-serve] {arch} bf16: a token outside [0, vocab_real)")
+    err16, checked16, bad16 = llm_parity(cfg16, dec16, full32)
+    step_ms = statistics.median(ms[1:])
+    serve = make_serve_step(cfg16)
+    cache = M.init_cache(cfg16, LLM_B, LLM_CACHE, device=dev)
+    tok = fed[:, :1]
+    tok, _, cache = serve(model, cache, tok)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        serve(model, cache, tok)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = kernel_events(prof)
+    kernels = [e for e in events if not e[0].startswith(("Memcpy", "Memset"))]
+    busy = sum(us for _, us in events) / 1e6
+    cache_mb = sum(t.numel() * t.element_size() for t in cache["kv"].values()) / 1e6
+    weights_mb = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e6
+    say(f"[llm-serve] {arch} bf16 (weights {weights_mb:.1f} MB, cache of {LLM_CACHE} slots "
+        f"{cache_mb:.1f} MB): {LLM_B} requests x {fed.shape[1]} steps, {step_ms:.3f} ms per "
+        f"decode step (median of {len(ms) - 1} after a warm one; min {min(ms[1:]):.3f}, max "
+        f"{max(ms[1:]):.3f}), {LLM_B * 1e3 / step_ms:.1f} tokens/s; parity against the float32"
+        f" teacher-forced logits (not gated): max log-softmax error {err16:.3e}, argmax "
+        f"disagreements {bad16} of {checked16} sure positions")
+    say(f"[profile llm-serve] one bf16 decode step under torch.profiler: wall {wall * 1e3:.3f} "
+        f"ms, {len(kernels)} kernel launches ({len(events)} device events), device busy "
+        f"{busy * 1e3:.3f} ms ({100 * busy / wall:.1f}% of wall)")
+    prefill = make_prefill_step(cfg16)
+    ptoks = torch.randint(0, cfg16.vocab_real, (LLM_B, LLM_PREFILL_S), generator=rng, device=dev,
+                          dtype=torch.int32)
+    last = prefill(model, {"tokens": ptoks})
+    require(bool(torch.isfinite(last).all()) and last.shape == (LLM_B, cfg16.vocab),
+            f"[llm-serve] {arch} bf16 prefill malformed")
+    pre_ms = time_ms(lambda: prefill(model, {"tokens": ptoks}), reps=3)
+    say(f"[llm-serve] {arch} bf16 prefill (make_prefill_step) B = {LLM_B}, S = {LLM_PREFILL_S}, "
+        f"chunks {cfg16.q_chunk}: {pre_ms:.2f} ms ({LLM_B * LLM_PREFILL_S * 1e3 / pre_ms:.0f} "
+        "tokens/s)")
+    del model, cache, full32, dec16
+    # the other dense / vlm configs: full width, LLM_WIDE_LAYERS layers, float32
+    for name in LLM_WIDE:
+        c = dataclasses.replace(get_config(name), n_layers=LLM_WIDE_LAYERS, **f32)
+        m = M.Transformer(c, generator=torch.Generator(device=dev).manual_seed(SEED + 42),
+                          device=dev)
+        p = torch.randint(0, c.vocab_real, (LLM_B, LLM_PROMPT), generator=rng, device=dev,
+                          dtype=torch.int32)
+        llm_f32_parity(f"{name} ({c.n_layers} layers, d = {c.d_model})", c, m, p)
+        if c.family == "vlm":
+            ve = torch.randn((LLM_B, c.vision_patches, c.d_model), generator=rng, device=dev)
+            lg = make_prefill_step(c)(m, {"tokens": p.repeat(1, c.vision_patches // LLM_PROMPT
+                                                           + 1), "vision_embeds": ve * 0.02})
+            require(bool(torch.isfinite(lg).all()), f"[llm-serve] {name}: vision merge "
+                    "gave non-finite logits")
+            say(f"[llm-serve] {name}: prefill with {c.vision_patches} vision embeddings merged:"
+                " finite logits")
+        del m
+    torch.cuda.empty_cache()
+    # card against CPU: the reduced configs, the same weights on both
+    for name in (arch, "starcoder2-15b"):
+        c = get_config(name).reduced()
+        cpu = M.Transformer(c, generator=torch.Generator().manual_seed(SEED + 43), device="cpu")
+        card = copy.deepcopy(cpu).to(dev)
+        toks = torch.randint(0, c.vocab_real, (2, 40), generator=torch.Generator().manual_seed(
+            SEED + 44), dtype=torch.int32)
+        with torch.no_grad():
+            want = M.forward(c, cpu, {"tokens": toks})
+            got = M.forward(c, card, {"tokens": toks.to(dev)}).cpu()
+        _, want_dec, _ = llm_decode(c, cpu, toks[:, :8], 0)
+        _, got_dec, _ = llm_decode(c, card, toks[:, :8].to(dev), 0)
+        e_fwd = float((got - want).abs().max() / want.abs().max())
+        e_dec = float((got_dec.cpu() - want_dec).abs().max() / want_dec.abs().max())
+        say(f"[llm-serve] card against CPU, {name} reduced: forward max|diff| / max|logits| "
+            f"{e_fwd:.2e}, 8 decode steps {e_dec:.2e} (bound {LLM_CPU_REL})")
+        require(e_fwd <= LLM_CPU_REL and e_dec <= LLM_CPU_REL,
+                f"[llm-serve] card against CPU, {name}: {e_fwd:.2e} / {e_dec:.2e}")
+    counts, _ = warm_counts()
+    check_launches("llm-serve", counts, (), idle=tuple(counts))
+    return counts
+
+
 def run(oracles):
     import torch
 
@@ -3330,6 +3560,8 @@ def run(oracles):
     lap("serve")
     by_path["serve-sharded"] = phase_serve_sharded(dev)
     lap("serve-sharded")
+    by_path["llm-serve"] = phase_llm_serve(dev)
+    lap("llm-serve")
 
     for name, r in rows.items():
         path = ("main-inverse" if name == "inverse_chain"

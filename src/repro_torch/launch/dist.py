@@ -10,7 +10,10 @@ per run, so parallel runs never compete for a TCP port), makes a
 ``fn(group, *args)``, which must be picklable, as must ``fn`` (a module
 level function, imported anew by each rank). ``run_ranks`` returns the
 results in rank order and raises when a rank raises, dies or outlives
-``timeout_s``: it never hangs, and it stops every process it started.
+``timeout_s``: it never hangs, and it stops every process it started. When
+ranks fail, the one ``RuntimeError`` carries every failed rank's traceback
+in rank order, so the rank whose own code raised is always in it, beside
+the ranks whose collectives broke when it died.
 
 When the ranks use CUDA the kernels are built once in the calling process
 first, so the ranks find the library instead of racing D ``nvcc`` builds.
@@ -30,6 +33,10 @@ import time
 import traceback
 
 import torch
+
+#: after the first failure, how long run_ranks waits for the other ranks'
+#: reports before it stops them
+FAILURE_GRACE_S = 5.0
 
 
 def rank_devices(world: int, backend: str, devices=None) -> list:
@@ -75,6 +82,26 @@ def _rank_main(rank, world, backend, device, init_file, timeout_s, fn, args, res
         raise SystemExit(1)
 
 
+def _next_report(procs, results, got, failed, wait_s):
+    """The next ``(rank, ok, out)`` from the ranks' queue, or None after
+    ``wait_s``. A rank that exited without a report (after a further 2 s
+    for one in flight) is entered in ``failed`` with its exit code."""
+    try:
+        return results.get(timeout=wait_s)
+    except queue.Empty:
+        pass
+    dead = [r for r, p in enumerate(procs)
+            if r not in got and r not in failed and p.exitcode is not None]
+    if not dead:
+        return None
+    try:  # a rank that failed reports before it exits
+        return results.get(timeout=2.0)
+    except queue.Empty:
+        for r in dead:
+            failed[r] = f"exited with code {procs[r].exitcode} and no result"
+    return None
+
+
 def run_ranks(fn, world: int, backend: str = "gloo", devices=None, init_file=None,
               timeout_s: float = 600.0, args=()) -> list:
     """``[fn(group_r, *args) for each rank r]``, each in its own process
@@ -98,32 +125,34 @@ def run_ranks(fn, world: int, backend: str = "gloo", devices=None, init_file=Non
                          args=(r, world, backend, str(devices[r]), str(init_file), timeout_s, fn,
                                tuple(args), results))
              for r in range(world)]
-    got, started = {}, []
+    got, failed, started = {}, {}, []
     try:
         for p in procs:
             p.start()
             started.append(p)
         deadline = time.monotonic() + timeout_s
-        while len(got) < world:
+        while len(got) < world and not failed:
             left = deadline - time.monotonic()
             if left <= 0:
                 raise TimeoutError(f"run_ranks: {world - len(got)} of {world} ranks not done "
                                    f"after {timeout_s} s")
-            try:
-                rank, ok, out = results.get(timeout=min(left, 0.5))
-            except queue.Empty:
-                dead = [r for r, p in enumerate(procs) if r not in got and p.exitcode is not None]
-                if dead:
-                    try:  # a rank that failed reports before it exits
-                        rank, ok, out = results.get(timeout=2.0)
-                    except queue.Empty:
-                        raise RuntimeError(f"run_ranks: rank {dead[0]} exited with code "
-                                           f"{procs[dead[0]].exitcode} and no result") from None
-                else:
-                    continue
-            if not ok:
-                raise RuntimeError(f"run_ranks: rank {rank} of {world} failed:\n{out}")
-            got[rank] = out
+            report = _next_report(procs, results, got, failed, min(left, 0.5))
+            if report is not None:
+                rank, ok, out = report
+                (got if ok else failed)[rank] = out
+        if failed:
+            # the first failure read is often a victim: a rank whose
+            # collective broke when the failing rank died. Read on until
+            # every rank has reported or exited, for a few seconds at most.
+            grace = time.monotonic() + FAILURE_GRACE_S
+            while len(got) + len(failed) < world and time.monotonic() < grace:
+                report = _next_report(procs, results, got, failed, 0.2)
+                if report is not None:
+                    rank, ok, out = report
+                    (got if ok else failed)[rank] = out
+            raise RuntimeError(f"run_ranks: rank {', '.join(map(str, sorted(failed)))} of "
+                               f"{world} failed:\n" + "\n".join(f"--- rank {r} ---\n{failed[r]}"
+                                                               for r in sorted(failed)))
         for p in procs:
             p.join(timeout=30)
     finally:

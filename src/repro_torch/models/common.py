@@ -1,0 +1,93 @@
+"""Shared model building blocks: norms, RoPE, init, activations.
+
+The port's copy of ``repro.models.common``'s arithmetic. Every function
+keeps the JAX version's casts: the norms and the rope compute in float32
+and cast back to the activation dtype, and the norms multiply by their
+scale after the cast back. The JAX package's sharding helpers
+(``logical_mesh``, ``maybe_shard``, ``mesh_axis_size``) are not ported: the
+port serves on one card, and the layers call nothing in their place.
+
+The ``*_init`` helpers draw from an explicit ``torch.Generator`` on the
+device the tensor is made on (``generator=None`` only for the ``meta``
+device, which draws nothing).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+
+# --------------------------------------------------------------------------
+# norms
+# --------------------------------------------------------------------------
+def rms_norm(x, scale, eps=1e-6):
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps)).to(dt) * scale
+
+
+def layer_norm(x, scale, bias, eps=1e-5):
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return y.to(dt) * scale + bias
+
+
+# --------------------------------------------------------------------------
+# RoPE
+# --------------------------------------------------------------------------
+def rope_angles(positions, dim, theta=10000.0):
+    """positions (...,) -> cos, sin of shape (..., dim//2), float32."""
+    exps = torch.arange(0, dim, 2, dtype=torch.float32, device=positions.device) / dim
+    inv = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32, device=positions.device), exps)
+    ang = positions[..., None].float() * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """x (..., S, H, D); cos/sin (..., S, D/2), rotate-half convention. The
+    rotation runs in float32 (x promotes against the float32 angles) and
+    the result is cast back to x's dtype."""
+    d2 = x.shape[-1] // 2
+    x1, x2 = x[..., :d2], x[..., d2:]
+    c = cos[..., :, None, :]
+    s = sin[..., :, None, :]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# init
+# --------------------------------------------------------------------------
+def _normal(shape, generator, device):
+    return torch.randn(tuple(shape), generator=generator, dtype=torch.float32, device=device)
+
+
+def dense_init(generator, shape, dtype, device, scale: Optional[float] = None):
+    fan_in = shape[0] if len(shape) >= 2 else shape[-1]
+    std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    return (_normal(shape, generator, device) * std).to(dtype)
+
+
+def embed_init(generator, shape, dtype, device):
+    return (_normal(shape, generator, device) * 0.02).to(dtype)
+
+
+# --------------------------------------------------------------------------
+# activations
+# --------------------------------------------------------------------------
+def gelu(x):
+    """The tanh form, as ``jax.nn.gelu(x, approximate=True)``."""
+    return F.gelu(x, approximate="tanh")
+
+
+def swiglu(x, w_gate, w_up, w_down):
+    """SwiGLU MLP: (silu(x@Wg) * (x@Wu)) @ Wd."""
+    g = F.silu(x @ w_gate)
+    u = x @ w_up
+    return (g * u) @ w_down

@@ -4,9 +4,12 @@
   GMRES and CG solve, a Block-ILU, a distributed solve over two band
   owners, an RCM-ordered BiCGSTAB solve, a fusion-ordered batch, a
   warm-up, a two-tenant round trip of the solve service and a solve over
-  two gloo ranks (``repro_torch.launch.dist``) on the CPU; no ``repro``
-  module may get loaded.
-* No source file of the port mentions an import of jax or of ``repro``.
+  two gloo ranks (``repro_torch.launch.dist``) and three greedy decode
+  steps of a reduced smollm-135m (``repro_torch.models``,
+  ``repro_torch.train.step``) on the CPU; no ``repro`` module may get
+  loaded.
+* No source file of the port (its examples included) mentions an import
+  of jax or of ``repro``.
 * Without a GPU, the entry points raise unless the caller passes
   ``device="cpu"``; and ``chip_smoke.py`` fails without printing a result.
 """
@@ -78,6 +81,20 @@ out = run_ranks(solve_rank, 2, "gloo", ["cpu"] * 2, timeout_s=120,
                 args=(40, 0.1, 1, "gmres", "gather", 8, "natural", 0))
 assert all(o["verdict"] == "converged" for o in out), out
 assert np.array_equal(out[0]["x"].view(np.int32), out[1]["x"].view(np.int32))
+import torch
+import repro_torch.models.model, repro_torch.configs, repro_torch.train.step
+from repro_torch.configs import get_config
+from repro_torch.models import model as LM
+from repro_torch.train.step import make_serve_step
+cfg = get_config("smollm-135m").reduced()
+lm = LM.Transformer(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+cache = LM.init_cache(cfg, 2, 8, device="cpu")
+serve = make_serve_step(cfg)
+tok = torch.zeros((2, 1), dtype=torch.int32)
+for _ in range(3):
+    tok, logits, cache = serve(lm, cache, tok)
+assert logits.shape == (2, 1, cfg.vocab) and cache["kv"]["len"].eq(3).all()
+assert bool(torch.isfinite(logits).all()) and int(tok.max()) < cfg.vocab_real
 bad = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert not bad, bad
 print("ISOLATED")
@@ -100,8 +117,12 @@ def test_port_imports_and_solves_without_jax_or_repro():
 
 def test_no_source_file_imports_jax_or_repro():
     pat = re.compile(r"import jax|from jax|from repro\.|import repro\b(?!_torch)")
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted(PORT.rglob("*.py")) + sorted((ROOT / "examples").glob("*_torch.py"))
+             + [ROOT / "chip_smoke.py"])
     assert len(files) > 10
+    scanned = {f.relative_to(PORT).parts[0] for f in files if PORT in f.parents}
+    assert {"configs", "models", "train", "core", "kernels", "serve"} <= scanned
+    assert ROOT / "examples" / "serve_decode_torch.py" in files
     for f in files:
         for no, line in enumerate(f.read_text().splitlines(), 1):
             assert not pat.search(line), f"{f.relative_to(ROOT)}:{no}: {line.strip()}"
@@ -147,6 +168,23 @@ def test_distributed_entry_points_raise_without_gpu(monkeypatch):
             call()
     r, f = solve_sharded(a, b, k=1, n_devices=2, band_rows=4, device="cpu")
     assert r.converged and f.device.type == "cpu"
+
+
+def test_model_entry_points_raise_without_gpu(monkeypatch):
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("smollm-135m").reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        M.Transformer(cfg, generator=torch.Generator())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        M.init_cache(cfg, 1, 4)
+    assert M.Transformer(cfg, generator=torch.Generator(), device="cpu").device.type == "cpu"
+    out = subprocess.run([sys.executable, str(ROOT / "examples" / "serve_decode_torch.py"),
+                          "--tokens", "2"], env={**_child_env(), "CUDA_VISIBLE_DEVICES": ""},
+                         cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0 and "device='cpu'" in out.stderr, out.stderr[-2000:]
 
 
 def _no_result(out):
