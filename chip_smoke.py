@@ -126,15 +126,16 @@ with a non-zero exit; nothing is caught):
     full size).
 15b. dist-ranks — the band owners as 4 processes (``run_ranks``, gloo
     ranks all on this card, each exchange staged through pinned host
-    memory; ``DistBandGroup``): the fusion-ordered ``solve_sharded`` for 4
+    memory; ``DistBandGroup``) on ``poisson_2d(128)`` (cut from 400 to make
+    room for [llm-train]): the fusion-ordered ``solve_sharded`` for 2
     restarts (a gloo collective costs ~6 ms there), with ``x`` on every
     rank bitwise equal to a one-card run of the same call, the same steps,
     restarts, verdict and group counts, one ``superstep_factor`` launch per
-    superstep (1,243) and one ``epoch_sweep`` launch per run of levels;
-    the natural factorization by the ring (2,811 supersteps) bitwise equal
-    to ``[topilu]``'s factors, two sweep applies and one inverse apply
-    equal to the one-card applies; per rank the factor, solve and
-    collective walls and the bytes staged. 15c. dist-nccl — the same fusion solve over
+    superstep (127) and one ``epoch_sweep`` launch per run of levels;
+    the natural factorization by the ring (258 supersteps) bitwise equal
+    to the one-card factorization over 4 owners, one sweep apply and one
+    inverse apply equal to the one-card applies; per rank the factor,
+    solve and collective walls and the bytes staged. 15c. dist-nccl — the same fusion solve over
     NCCL ranks, one card each, where the machine has two cards or more;
     otherwise one line says why it did not run.
 16. warm — ``warm_solve`` captures each bucket's GMRES restart as one CUDA
@@ -164,7 +165,8 @@ with a non-zero exit; nothing is caught):
     value-slot copies per batch and their device time, one profiled
     batch's device-busy share.
 20. serve-sharded — the same service over ``ShardedServeEngine`` (4 band
-    owners of ``poisson_2d(400)``, buckets 1 and 4): 5 requests and a
+    owners of ``poisson_2d(200)``, cut from 400 to make room for
+    [llm-train]; buckets 1 and 4): 5 requests and a
     value update, every response bitwise equal to the solo
     ``solve_sharded`` on its value version, nothing built after warm-up.
 21. llm-serve — the model scaffolding's serving path (``repro_torch.models``,
@@ -185,6 +187,33 @@ with a non-zero exit; nothing is caught):
     under the same float32 parity (llava also prefilled with its vision
     embeddings merged); the reduced smollm and starcoder2 on the card
     and on the CPU with the same weights, logits within 1e-4·max|logits|.
+22. llm-train — the model scaffolding's training path (``loss_fn``, the
+    backward with remat, AdamW, ``make_train_step``, the checkpoints, the
+    data pipeline, ``train.loop.train``, the GPipe pipeline over ranks;
+    plain PyTorch, no kernel of this repo). (a) smollm-135m at full width
+    cut to 2 layers, float32 (TF32 off): one train step on the card and on
+    the CPU from the same weights and batch, loss within 1e-5 relative,
+    grad_norm and every entry of the gradient (taken before the update)
+    within 1e-4·max|·| of its leaf, every updated parameter leaf within
+    1e-4·max|·| (at most 200 entries in all may exceed that, each within
+    twice the learning rate: AdamW divides by |g| + eps). (b) smollm-135m at its
+    published size in its own bf16, remat "dots", through
+    ``train.loop.train``: B = 8 sequences of 2,048 tokens from
+    ``SyntheticLM``, one warm-up step and 20 timed (warm-up 5, lr 3e-3);
+    ms per step, tokens/s, peak memory, and one profiled step's launches
+    and device-busy share; every loss finite and the last five's mean
+    below the first five's. (c) the loop's ``AsyncCheckpointer`` saves at
+    steps 10, 20 and 21: the step-21 checkpoint restored into a fresh
+    model and optimizer state on the card equals the live state bitwise,
+    and the loop resumed from step 10 runs steps 10 and 11 within 1e-3
+    relative of the uninterrupted losses (the card's embedding backward
+    adds with atomics). (d) the 30 layers as a 2-stage GPipe pipeline
+    over 2 gloo ranks sharing the card (15 layers each, payloads staged
+    through pinned host memory), B = 8, S = 256, 4 microbatches, float32:
+    the output and every layer's gradient within 1e-4·max|·| of the
+    sequential stack on the card; each rank's first call (one layer on a
+    small input) is timed apart, so that the sequential and pipelined
+    walls are warm.
 
 ``[time]`` lines give the seconds of each group of phases.
 
@@ -195,7 +224,9 @@ last line is ``{"ok": true, "device": {...}}``. ``python3 chip_smoke.py
 the repository around it, the script exits non-zero and prints no result.
 """
 import json
+import math
 import multiprocessing
+import os
 import statistics
 import subprocess
 import sys
@@ -256,10 +287,15 @@ PLAIN_LOOP_NX = 128
 # [dist-ranks] / [dist-nccl]: the bound on one run_ranks call (spawn, the
 # ranks' CUDA contexts, the fusion solve and the natural parts), and the
 # restarts of their fusion solve: a host-staged 4-rank gloo all-gather
-# costs 5-7 ms on an H100 host, and the whole solve (12 restarts) makes
-# 3,847 of them; the reference is a one-card run with the same maxiter
+# costs 5-7 ms on an H100 host, and the whole solve of poisson_2d(400) (12
+# restarts) makes 3,847 of them; the reference is a one-card run with the
+# same maxiter. The size, the restarts and the applies were cut (from 400,
+# 4 and 2) to make room for [llm-train]: poisson_2d(128) has 127 fusion and
+# 258 natural supersteps against 1,243 and 2,811
 DIST_RANKS_TIMEOUT_S = 600
-DIST_RANKS_MAXITER = 4
+DIST_RANKS_NX = 128
+DIST_RANKS_MAXITER = 2
+DIST_RANKS_APPLIES = 1  # natural sweep applies over the ranks
 SHARDED_D = 4  # band owners of the distributed path, on one card
 BAND_ROWS = 32  # rows per band (the JAX package's default)
 SRC = Path(__file__).resolve().parent / "src"
@@ -282,6 +318,7 @@ BICGSTAB_FALLBACK_TOL = 1e-4  # [bicgstab]'s gate where float32 stalls above TOL
 SERVE_BUCKETS = (1, 2, 4, 8)  # [serve]'s buckets (nb = 8, n = 160,000: a 159 MB basis)
 SERVE_TOLS = (1e-4, 1e-5)
 SERVE_REQUESTS = 48  # [serve]: 24 before the value update of p1, 16 while it runs, 8 after
+SERVE_SHARDED_NX = 200  # [serve-sharded]'s poisson_2d, cut from 400 to make room for [llm-train]
 # [llm-serve]: the model scaffolding's serving path. smollm-135m at its
 # published size, then the other dense / vlm configs at full width and
 # LLM_WIDE_LAYERS layers; LLM_B requests of LLM_PROMPT seeded prompt tokens
@@ -300,6 +337,20 @@ LLM_LSM_BOUND = 0.05  # tests/test_decode_consistency.py's bound on decode again
 # from a decode gone to bf16 lies between the two.
 LLM_F32_GATE = 1e-3
 LLM_CPU_REL = 1e-4  # card against CPU: logits within LLM_CPU_REL * max|logits|
+# [llm-train]: (a) float32 card against CPU at full width and LLM_TRAIN_F32_LAYERS
+# layers, a batch of LLM_TRAIN_F32_B x LLM_TRAIN_F32_S; (b) the published size in
+# bf16, LLM_TRAIN_B sequences of LLM_TRAIN_S tokens (SmolLM's pretraining
+# context), LLM_TRAIN_STEPS steps (the first a warm-up), checkpoints every
+# LLM_TRAIN_SAVE steps; (d) the pipeline over LLM_PIPE_RANKS ranks on the card
+LLM_TRAIN_F32_LAYERS, LLM_TRAIN_F32_B, LLM_TRAIN_F32_S = 2, 1, 128
+LLM_TRAIN_B, LLM_TRAIN_S, LLM_TRAIN_STEPS, LLM_TRAIN_SAVE = 8, 2048, 21, 10
+LLM_TRAIN_LR, LLM_TRAIN_WARMUP = 3e-3, 5
+LLM_TRAIN_LOSS_REL = 1e-5  # (a): loss within this relative
+LLM_TRAIN_REL = 1e-4  # (a): grad_norm and parameters within this * max|.| per leaf
+LLM_TRAIN_OUTLIERS = 200  # (a): parameter entries in all that may exceed it (AdamW)
+LLM_RESUME_REL = 1e-3  # (c): resumed losses within this relative
+LLM_PIPE_RANKS, LLM_PIPE_B, LLM_PIPE_S, LLM_PIPE_MB = 2, 8, 256, 4
+LLM_PIPE_REL = 1e-4  # (d): output and gradients within this * max|.| per tensor
 
 
 def require(cond, what):
@@ -2679,7 +2730,7 @@ def dist_ranks_check(tag, out, ref, ref_nat=None):
                         f"{ap['collective_s'] * 1e3:.1f} ms)" for ap in o["applies"])
             + f"; inverse apply {o['inverse']['wall'] * 1e3:.1f} ms")
         require(np.array_equal(fa["vals"].view(np.int32), ref_nat["vals"].view(np.int32)),
-                f"{tag} rank {r}: natural factors != [topilu]'s")
+                f"{tag} rank {r}: natural factors != the one-card factors")
         require(fa["launches"]["superstep_factor"] == fa["supersteps"]
                 and fa["counts"] == ref_nat["factor_counts"]
                 and fa["state_bytes"] == fa["per_device"] < fa["replicated"],
@@ -2694,41 +2745,50 @@ def dist_ranks_check(tag, out, ref, ref_nat=None):
                 f"{tag} rank {r}: inverse apply != the one-card inverse apply")
 
 
-def phase_dist_ranks(dev, b, o4, fact4, nx=400):
+def phase_dist_ranks(dev, nx=None):
     """[dist-ranks]: the band owners as SHARDED_D processes (gloo ranks, all
     on this card, each exchange staged through pinned host memory), spawned
-    by run_ranks: the fusion-ordered solve_sharded for DIST_RANKS_MAXITER
-    restarts equal to the one-card run of the same call (x on every rank,
-    steps, restarts, verdict, the group's counts; one superstep_factor
-    launch per superstep); the natural factorization (ring) equal to
-    [topilu]'s factors, two sweep applies and one inverse apply equal to
-    the one-card applies of [topilu]'s factors, with equal counts. Returns
-    rank 0's launch counts of its fusion solve, and the reference."""
+    by run_ranks, on poisson_2d(DIST_RANKS_NX): the fusion-ordered
+    solve_sharded for DIST_RANKS_MAXITER restarts equal to the one-card run
+    of the same call (x on every rank, steps, restarts, verdict, the group's
+    counts; one superstep_factor launch per superstep); the natural
+    factorization (ring) equal to the one-card factorization over
+    SHARDED_D owners of one BandGroup, DIST_RANKS_APPLIES sweep applies and
+    one inverse apply equal to the one-card applies, with equal counts.
+    Returns rank 0's launch counts of its fusion solve, and (b, the fusion
+    ordering, the reference, nx) for [dist-nccl]."""
     import numpy as np
     import torch
 
-    from repro_torch.core.top_ilu import BandGroup, topilu_factor_sharded
+    from repro_torch.core.api import ilu_sharded
+    from repro_torch.core.matgen import poisson_2d
+    from repro_torch.core.ordering import fusion_aware_ordering
+    from repro_torch.core.top_ilu import BandGroup
     from repro_torch.launch.dist import run_ranks
 
-    ref = fusion_reference(dev, b, o4, SHARDED_D, nx)
+    nx = nx or DIST_RANKS_NX
+    a = poisson_2d(nx)
     rng = np.random.default_rng(SEED + 12)
-    b_nat = [rng.standard_normal(fact4.a.n).astype(np.float32) for _ in range(2)]
+    b = rng.standard_normal(a.n).astype(np.float32)
+    o = fusion_aware_ordering(a, SHARDED_D, band_rows=BAND_ROWS)
+    ref = fusion_reference(dev, b, o, SHARDED_D, nx)
+    b_nat = [rng.standard_normal(a.n).astype(np.float32) for _ in range(DIST_RANKS_APPLIES)]
     g = BandGroup(SHARDED_D, dev)
-    topilu_factor_sharded(fact4.a, fact4.pattern, band_rows=BAND_ROWS, group=g, broadcast="ring")
-    ref_nat = dict(vals=fact4.values_csr(), factor_counts=g.counts(), applies=[])
+    f = ilu_sharded(a, 1, band_rows=BAND_ROWS, group=g, broadcast="ring")
+    ref_nat = dict(vals=f.values_csr(), factor_counts=g.counts(), applies=[])
+    apply = f.precond()
     for bb in b_nat:
-        fact4.group.reset_counts()
-        y = fact4.precond(broadcast="ring")(torch.as_tensor(bb, device=dev)).cpu().numpy()
-        ref_nat["applies"].append((y, fact4.group.counts()))
-    inv = fact4.precond(method="inverse")
-    fact4.group.reset_counts()
-    ref_nat["inverse"] = (inv(torch.as_tensor(b_nat[0], device=dev)).cpu().numpy(),
-                          fact4.group.counts())
+        g.reset_counts()
+        y = apply(torch.as_tensor(bb, device=dev)).cpu().numpy()
+        ref_nat["applies"].append((y, g.counts()))
+    inv = f.precond(method="inverse")
+    g.reset_counts()
+    ref_nat["inverse"] = (inv(torch.as_tensor(b_nat[0], device=dev)).cpu().numpy(), g.counts())
     t0 = time.perf_counter()
     out = run_ranks(dist_ranks_body, SHARDED_D, "gloo", ["cuda"] * SHARDED_D,
-                    timeout_s=DIST_RANKS_TIMEOUT_S, args=(nx, b, o4.perm, b_nat))
+                    timeout_s=DIST_RANKS_TIMEOUT_S, args=(nx, b, o.perm, b_nat))
     wall = time.perf_counter() - t0
-    say(f"[dist-ranks] poisson_2d({nx}) n={fact4.a.n} ILU(1), {SHARDED_D} gloo ranks of "
+    say(f"[dist-ranks] poisson_2d({nx}) n={a.n} ILU(1), {SHARDED_D} gloo ranks of "
         f"{BAND_ROWS}-row bands on one card ({torch.cuda.get_device_name(0)}): {wall:.1f} s "
         "with the spawn, the ranks' imports, their CUDA contexts and host plans")
     dist_ranks_check("dist-ranks", out, ref, ref_nat)
@@ -2737,10 +2797,10 @@ def phase_dist_ranks(dev, b, o4, fact4, nx=400):
                    idle=("factor_wavefront", "tri_solve_wavefront", "inverse_chain"))
     say(f"[dist-ranks] every rank: the fusion solve's x, steps, restarts and verdict bitwise "
         f"equal to the one-card run with maxiter {DIST_RANKS_MAXITER}, one superstep_factor "
-        "launch per superstep, the one-card group's counts; the natural factors equal to "
-        "[topilu]'s, both sweep applies and the inverse apply equal to the one-card applies, "
-        "with equal counts")
-    return out[0]["fusion"]["launches"], ref
+        "launch per superstep, the one-card group's counts; the natural factors (ring), "
+        f"{DIST_RANKS_APPLIES} sweep apply(ies) and the inverse apply equal to the one-card "
+        f"ones over {SHARDED_D} owners, with equal counts")
+    return out[0]["fusion"]["launches"], (b, o, ref, nx)
 
 
 def phase_dist_nccl(dev, b, o4, ref, nx=400):
@@ -3227,7 +3287,7 @@ def phase_serve(dev, nx=400, nx_cd=128):
     return counts
 
 
-def phase_serve_sharded(dev, nx=400):
+def phase_serve_sharded(dev, nx=SERVE_SHARDED_NX):
     """[serve-sharded]: a SolveService over ShardedServeEngine, SHARDED_D
     band owners of BAND_ROWS-row bands on poisson_2d(nx), buckets (1, 4),
     warmed; 3 requests, a value update (x0.8, joined), 2 requests. Every
@@ -3351,6 +3411,8 @@ def llm_f32_parity(tag, cfg, model, prompt):
         full = M.forward(cfg, model, {"tokens": fed}).float()
     require(bool(torch.isfinite(dec).all() and torch.isfinite(full).all()),
             f"[llm-serve] {tag}: non-finite logits")
+    require(dec.grad_fn is None and full.grad_fn is None and not dec.requires_grad,
+            f"[llm-serve] {tag}: serving built an autograd graph")
     err, checked, bad = llm_parity(cfg, dec, full)
     say(f"[llm-serve] {tag} float32, q_chunk = kv_chunk = {cfg.q_chunk}: {fed.shape[0]} requests"
         f" x ({prompt.shape[1]} prompt + {LLM_GEN} greedy) steps; decode against forward "
@@ -3486,6 +3548,303 @@ def phase_llm_serve(dev):
     return counts
 
 
+def leaf_errors(got, want):
+    """Per leaf of two JAX-layout trees (``convert.keyed_leaves``): (key,
+    max|diff|, max|want|, entries beyond LLM_TRAIN_REL·max|want|, size)."""
+    from repro_torch.models.convert import keyed_leaves
+
+    out = []
+    for (key, a), (_, b) in zip(keyed_leaves(got), keyed_leaves(want)):
+        a, b = a.detach().float().cpu(), b.detach().float().cpu()
+        err, scale = (a - b).abs(), float(b.abs().max())
+        out.append((key, float(err.max()), scale, int((err > LLM_TRAIN_REL * scale).sum()),
+                    err.numel()))
+    return out
+
+
+def train_grads(cfg, model, batch):
+    """The JAX-layout gradient of loss_fn at ``model``'s parameters, as the
+    train step takes it (one microbatch)."""
+    import torch
+
+    from repro_torch.models import model as M
+    from repro_torch.models.convert import flatten, param_tree, tree_to_jax, unflatten
+    from repro_torch.train.step import batch_to
+
+    params = param_tree(M.trainable(model))
+    with torch.enable_grad():
+        loss = M.loss_fn(cfg, model, batch_to(batch, model.device))
+        grads = torch.autograd.grad(loss, flatten(params))
+    return tree_to_jax(unflatten(params, grads))
+
+
+def llm_train_f32(dev, arch):
+    """[llm-train] (a): the gradient and one float32 train step on the card
+    and on the CPU, from the same weights and batch. The gradients agree per
+    leaf within LLM_TRAIN_REL·max|g|, every entry; the updated parameters
+    within LLM_TRAIN_REL·max|p| but for at most LLM_TRAIN_OUTLIERS entries in
+    all, each within 2·lr (AdamW moves an entry whose gradient is near eps by
+    up to lr on tiny gradient differences)."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import model as M
+    from repro_torch.models.convert import param_tree, tree_to_jax
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_step
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=LLM_TRAIN_F32_LAYERS,
+                              param_dtype=torch.float32, act_dtype=torch.float32)
+    opt = adamw.AdamWConfig(lr=LLM_TRAIN_LR, warmup_steps=LLM_TRAIN_WARMUP, total_steps=100)
+    cpu = M.Transformer(cfg, generator=torch.Generator().manual_seed(SEED + 50), device="cpu")
+    card = copy.deepcopy(cpu).to(dev)
+    batch = SyntheticLM(cfg.vocab_real, LLM_TRAIN_F32_S, LLM_TRAIN_F32_B).batch_at(0)
+    out = {}
+    for name, model in (("cpu", cpu), ("card", card)):
+        grads = train_grads(cfg, model, batch)
+        state = adamw.init(param_tree(model))
+        t0 = time.perf_counter()
+        model, state, m = make_train_step(cfg, opt)(model, state, batch)
+        loss, gnorm, lr = float(m["loss"]), float(m["grad_norm"]), float(m["lr"])
+        out[name] = (loss, gnorm, lr, grads, tree_to_jax(param_tree(model)),
+                     time.perf_counter() - t0)
+    (l0, g0, lr0, d0, p0, s0), (l1, g1, lr1, d1, p1, s1) = out["cpu"], out["card"]
+    g_errs, p_errs = leaf_errors(d1, d0), leaf_errors(p1, p0)
+    g_worst = max(g_errs, key=lambda e: e[1] / e[2])
+    p_worst = max(p_errs, key=lambda e: e[1] / e[2])
+    g_beyond, p_beyond = sum(e[3] for e in g_errs), sum(e[3] for e in p_errs)
+    p_cap = max(e[1] for e in p_errs)
+    size = sum(e[4] for e in p_errs)
+    say(f"[llm-train] (a) {arch} float32, d = {cfg.d_model}, {cfg.n_layers} layers, remat "
+        f"{cfg.remat}, B = {LLM_TRAIN_F32_B}, S = {LLM_TRAIN_F32_S}: one train step on the card "
+        f"({s1:.2f} s) and the CPU ({s0:.2f} s): loss {l1:.7f} / {l0:.7f} (rel "
+        f"{abs(l1 - l0) / abs(l0):.2e}, bound {LLM_TRAIN_LOSS_REL}), grad_norm {g1:.6f} / {g0:.6f}"
+        f" (rel {abs(g1 - g0) / g0:.2e}), lr {lr1:.3e}")
+    say(f"[llm-train] (a) gradients before the update: worst leaf {g_worst[0]} max|diff| "
+        f"{g_worst[1]:.3e} = {g_worst[1] / g_worst[2]:.2e} x max|g|; {g_beyond} of {size} "
+        f"entries beyond {LLM_TRAIN_REL} x max|g| of their leaf (bound 0)")
+    say(f"[llm-train] (a) updated parameters: worst leaf {p_worst[0]} max|diff| {p_worst[1]:.3e} "
+        f"= {p_worst[1] / p_worst[2]:.2e} x max|p|; {p_beyond} of {size} entries beyond "
+        f"{LLM_TRAIN_REL} x max|p| of their leaf (bound {LLM_TRAIN_OUTLIERS} in all), "
+        f"max|diff| {p_cap:.3e} (bound 2 x lr = {2 * lr0:.3e})")
+    require(abs(l1 - l0) <= LLM_TRAIN_LOSS_REL * abs(l0), "[llm-train] (a) loss, card != CPU")
+    require(abs(g1 - g0) <= LLM_TRAIN_REL * g0, "[llm-train] (a) grad_norm, card != CPU")
+    require(g_beyond == 0, "[llm-train] (a) gradients, card != CPU: "
+            + ", ".join(f"{k} {n} entries" for k, _, _, n, _ in g_errs if n))
+    require(p_beyond <= LLM_TRAIN_OUTLIERS and p_cap <= 2 * lr0,
+            f"[llm-train] (a) parameters, card != CPU: {p_beyond} entries beyond the bound, "
+            f"max|diff| {p_cap:.3e}")
+
+
+def llm_pipe_body(group, arch, seed):
+    """[llm-train] (d), on each rank: the rank's stage of the full-size
+    float32 stack (weights drawn from ``seed`` on the card, as every rank
+    and the sequential run draw them), the pipelined forward and the
+    gradients of sum(y²); and the sequential stack on the same card. A
+    first forward and backward of one layer on a small input, timed on its
+    own, pays the process's one-time costs (the CUDA libraries' set-up, the
+    checkpoint's first imports) so that the timed runs are warm. Returns the
+    worst relative errors and the walls."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import stack_forward
+    from repro_torch.train.pipeline import make_pipelined_forward, stage_slice
+
+    dev = group.device
+    cfg = dataclasses.replace(get_config(arch), param_dtype=torch.float32,
+                              act_dtype=torch.float32)
+    model = M.trainable(M.Transformer(
+        cfg, generator=torch.Generator(device=dev).manual_seed(seed), device=dev))
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    x = torch.randn((LLM_PIPE_B, LLM_PIPE_S, cfg.d_model), generator=g, device=dev) * 0.1
+    positions = torch.arange(LLM_PIPE_S, device=dev)
+    sl = stage_slice(cfg.n_layers, group)
+    stage = model.layers[sl]
+    pipe = make_pipelined_forward(cfg, group, LLM_PIPE_MB)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    t0 = time.perf_counter()
+    xw = x[:1, :16].clone().requires_grad_(True)
+    yw = stack_forward(cfg, model.layers[:1], xw, positions[:16])
+    torch.autograd.grad((yw ** 2).sum(), [xw] + list(model.layers[0].parameters()))
+    sync()
+    first_s = time.perf_counter() - t0
+    out = {}
+    for name, run in (("seq", lambda xx: stack_forward(cfg, model.layers, xx, positions)),
+                      ("pipe_cold", lambda xx: pipe(stage, xx, positions)),
+                      ("pipe", lambda xx: pipe(stage, xx, positions))):
+        xx = x.clone().requires_grad_(True)
+        sync()
+        pipe.link.seconds = 0.0
+        t0 = time.perf_counter()
+        y = run(xx)
+        sync()
+        t1 = time.perf_counter()
+        grads = torch.autograd.grad((y ** 2).sum(), [xx] + list(stage.parameters()))
+        sync()
+        out[name] = (y.detach(), grads, t1 - t0, time.perf_counter() - t1, pipe.link.seconds)
+    ys, gs = out["seq"][:2]
+    y_err = max(float((out[k][0] - ys).abs().max() / ys.abs().max()) for k in ("pipe_cold",
+                                                                               "pipe"))
+    g_err = max(float((a - b).abs().max() / b.abs().max())
+                for k in ("pipe_cold", "pipe") for a, b in zip(out[k][1], gs))
+    return dict(rank=group.rank, layers=(sl.start, sl.stop), y_err=y_err, g_err=g_err,
+                first_s=first_s, walls={k: v[2:] for k, v in out.items()}, n_grads=len(gs))
+
+
+def phase_llm_train(dev):
+    """[llm-train]: the model scaffolding's training path on the card."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.checkpoint.ckpt import latest_step, restore
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.launch.dist import run_ranks
+    from repro_torch.models import model as M
+    from repro_torch.models.convert import flatten, param_tree
+    from repro_torch.optim import adamw
+    from repro_torch.train.loop import train
+    from repro_torch.train.pipeline import pipeline_bubble_fraction
+    from repro_torch.train.step import make_train_step
+
+    require(not torch.backends.cuda.matmul.allow_tf32, "[llm-train] float32 checks need TF32 off")
+    arch = LLM_ARCH
+    ops.reset_launch_counts()
+    llm_train_f32(dev, arch)
+    # (b) the published size in bf16 through the training loop, checkpoints every 10
+    cfg = get_config(arch)
+    opt = adamw.AdamWConfig(lr=LLM_TRAIN_LR, warmup_steps=LLM_TRAIN_WARMUP,
+                            total_steps=LLM_TRAIN_STEPS)
+    ckpt = tempfile.mkdtemp(prefix="llm_train_")
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = train(cfg, n_steps=LLM_TRAIN_STEPS, opt_cfg=opt, ckpt_dir=ckpt,
+                    save_every=LLM_TRAIN_SAVE, seed=SEED, log_every=LLM_TRAIN_SAVE,
+                    seq_len=LLM_TRAIN_S, global_batch=LLM_TRAIN_B, device=dev)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        losses = res.losses
+        first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+        ms = [t * 1e3 for t in res.step_seconds[1:]]
+        step_ms = statistics.median(ms)
+        tokens = LLM_TRAIN_B * LLM_TRAIN_S
+        say(f"[llm-train] (b) {arch} at its published size ({cfg.n_layers} layers, d = "
+            f"{cfg.d_model}, {cfg.n_heads}:{cfg.n_kv_heads} heads of {cfg.head_dim}, vocab "
+            f"{cfg.vocab_real}, tied head), bf16, remat {cfg.remat}, train.loop.train: "
+            f"{LLM_TRAIN_STEPS} steps of B = {LLM_TRAIN_B} x S = {LLM_TRAIN_S} in {wall:.1f} s; "
+            f"{step_ms:.1f} ms per step (median of {len(ms)} after the warm-up step of "
+            f"{res.step_seconds[0] * 1e3:.1f} ms; min {min(ms):.1f}, max {max(ms):.1f}), "
+            f"{tokens * 1e3 / step_ms:.0f} tokens/s; peak memory allocated {peak:.2f} GiB")
+        say(f"[llm-train] (b) losses {' '.join(f'{v:.4f}' for v in losses)}; first-five mean "
+            f"{first:.4f}, last-five mean {last:.4f}")
+        require(all(math.isfinite(v) for v in losses), "[llm-train] (b) a loss is not finite")
+        require(last < first, f"[llm-train] (b) the loss did not fall: {first:.4f} -> {last:.4f}")
+        # (c) the step-21 checkpoint restored into a fresh model equals the live state
+        saved = sorted(d for d in os.listdir(ckpt) if d.startswith("step_"))
+        require(latest_step(ckpt) == LLM_TRAIN_STEPS, f"[llm-train] (c) checkpoints {saved}")
+        fresh = M.Transformer(cfg, generator=torch.Generator(device=dev).manual_seed(SEED + 51),
+                              device=dev)
+        live = (param_tree(res.model), res.opt_state)
+        like = (param_tree(fresh), adamw.init(param_tree(fresh)))
+        t0 = time.perf_counter()
+        got, _ = restore(ckpt, LLM_TRAIN_STEPS, like, device=dev)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        pairs = list(zip(flatten(got), flatten(live)))
+        bad = [i for i, (a, b) in enumerate(pairs)
+               if a.dtype != b.dtype or a.device != b.device
+               or not torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
+                                  b.view(torch.int16) if b.dtype == torch.bfloat16 else b)]
+        nbytes = sum(a.numel() * a.element_size() for a, _ in pairs)
+        del got, fresh, like
+        # ... and the loop resumed from step 10 runs steps 10 and 11 as the first run did
+        resume = tempfile.mkdtemp(prefix="llm_resume_")
+        step_dir = f"step_{LLM_TRAIN_SAVE:08d}"
+        shutil.copytree(os.path.join(ckpt, step_dir), os.path.join(resume, step_dir))
+        res2 = train(cfg, n_steps=LLM_TRAIN_SAVE + 2, opt_cfg=opt, ckpt_dir=resume,
+                     save_every=10 ** 9, seed=SEED + 52, log_every=0, seq_len=LLM_TRAIN_S,
+                     global_batch=LLM_TRAIN_B, device=dev)
+        shutil.rmtree(resume, ignore_errors=True)
+        want = losses[LLM_TRAIN_SAVE:LLM_TRAIN_SAVE + 2]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(res2.losses, want))
+        say(f"[llm-train] (c) checkpoints {', '.join(saved)} (AsyncCheckpointer, atomic); step "
+            f"{LLM_TRAIN_STEPS} restored into a fresh model and optimizer state on the card in "
+            f"{t_restore:.2f} s: {len(pairs) - len(bad)} of {len(pairs)} leaves "
+            f"({nbytes / 1e6:.1f} MB) bitwise equal to the live state; resumed from step "
+            f"{res2.restored_from}: losses {' '.join(f'{v:.6f}' for v in res2.losses)} against "
+            f"{' '.join(f'{v:.6f}' for v in want)} (max rel {rel:.2e}, bound {LLM_RESUME_REL})")
+        require(not bad, f"[llm-train] (c) leaves {bad[:5]} differ after restore")
+        require(res2.restored_from == LLM_TRAIN_SAVE and len(res2.losses) == 2,
+                "[llm-train] (c) the resumed loop did not start from the checkpoint")
+        require(rel <= LLM_RESUME_REL, f"[llm-train] (c) resumed losses off by {rel:.2e}")
+        del res2
+        # one profiled step of the full-size model
+        step = make_train_step(cfg, opt)
+        batch = SyntheticLM(cfg.vocab_real, LLM_TRAIN_S, LLM_TRAIN_B).batch_at(LLM_TRAIN_STEPS)
+        model, state = res.model, res.opt_state
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model, state, m = step(model, state, batch)
+            float(m["loss"])
+            torch.cuda.synchronize()
+            pwall = time.perf_counter() - t0
+        events = kernel_events(prof)
+        kernels = [e for e in events if not e[0].startswith(("Memcpy", "Memset"))]
+        busy = sum(us for _, us in events) / 1e6
+        top = {}
+        for name, us in kernels:
+            key = name.split("<")[0].split("(")[0][:60]
+            top[key] = top.get(key, 0.0) + us
+        heavy = sorted(top.items(), key=lambda kv: -kv[1])[:5]
+        say(f"[profile llm-train] one bf16 train step under torch.profiler: wall "
+            f"{pwall * 1e3:.1f} ms, {len(kernels)} kernel launches ({len(events)} device events)"
+            f", device busy {busy * 1e3:.1f} ms ({100 * busy / pwall:.1f}% of wall); heaviest "
+            f"kernels (ms): " + "; ".join(f"{k} {v / 1e3:.1f}" for k, v in heavy))
+        del res, model, state
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    # (d) the GPipe pipeline over ranks sharing the card
+    t0 = time.perf_counter()
+    outs = run_ranks(llm_pipe_body, LLM_PIPE_RANKS, "gloo", ["cuda"] * LLM_PIPE_RANKS,
+                     timeout_s=600, args=(arch, SEED + 53))
+    y_err = max(o["y_err"] for o in outs)
+    g_err = max(o["g_err"] for o in outs)
+    say(f"[llm-train] (d) {arch} float32, {cfg.n_layers} layers as a {LLM_PIPE_RANKS}-stage "
+        f"GPipe pipeline over gloo ranks sharing the card (stages {[o['layers'] for o in outs]}"
+        f"), B = {LLM_PIPE_B}, S = {LLM_PIPE_S}, {LLM_PIPE_MB} microbatches (bubble fraction "
+        f"{pipeline_bubble_fraction(LLM_PIPE_RANKS, LLM_PIPE_MB):.2f}): output max|diff| = "
+        f"{y_err:.2e} x max|y|, gradients (x and every layer's parameters, "
+        f"{sum(o['n_grads'] for o in outs)} tensors) {g_err:.2e} x max|g| of the sequential "
+        f"stack on the card (bound {LLM_PIPE_REL}); {time.perf_counter() - t0:.1f} s with the "
+        "ranks' start")
+    for o in outs:
+        say(f"[llm-train] (d) rank {o['rank']}: first call (one layer, B = 1, S = 16) "
+            f"{o['first_s']:.3f} s; forward / backward / in messages (s): "
+            + "; ".join(f"{k} {f:.3f} / {b:.3f} / {m:.3f}" for k, (f, b, m) in o["walls"].items()))
+    require(y_err <= LLM_PIPE_REL and g_err <= LLM_PIPE_REL,
+            f"[llm-train] (d) pipeline off the sequential stack: {y_err:.2e} / {g_err:.2e}")
+    counts, _ = warm_counts()
+    check_launches("llm-train", counts, (), idle=tuple(counts))
+    return counts
+
+
 def run(oracles):
     import torch
 
@@ -3547,9 +3906,9 @@ def run(oracles):
     o4 = phase_ordering()
     by_path["distributed-fusion"], fused_cold = phase_distributed_fusion(dev, b, o4)
     lap("ordering, distributed-fusion")
-    by_path["dist-ranks"], fused_short = phase_dist_ranks(dev, b, o4, fact4)
+    by_path["dist-ranks"], nccl_args = phase_dist_ranks(dev)
     lap("dist-ranks")
-    phase_dist_nccl(dev, b, o4, fused_short)
+    phase_dist_nccl(dev, *nccl_args)
     lap("dist-nccl")
     by_path.update(phase_warm(dev, b, single, multi, dist_cold, fused_cold, o4))
     lap("warm")
@@ -3562,6 +3921,8 @@ def run(oracles):
     lap("serve-sharded")
     by_path["llm-serve"] = phase_llm_serve(dev)
     lap("llm-serve")
+    by_path["llm-train"] = phase_llm_train(dev)
+    lap("llm-train")
 
     for name, r in rows.items():
         path = ("main-inverse" if name == "inverse_chain"

@@ -1,0 +1,2 @@
+"""Atomic, asynchronous checkpoints in the JAX package's on-disk layout
+(``ckpt``)."""

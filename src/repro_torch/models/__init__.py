@@ -1,3 +1,4 @@
-"""The model scaffolding's serving path: dense decoders (and the vlm merge),
-prefill and KV-cache decode, in plain PyTorch. See ``model`` for the
-facade and ``convert`` for adopting the JAX package's parameters."""
+"""The model scaffolding: dense decoders (and the vlm merge), their
+forward, loss, remat and KV-cache decode, in plain PyTorch. See ``model``
+for the facade and ``convert`` for the JAX package's parameter tree, both
+ways."""

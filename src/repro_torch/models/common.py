@@ -1,4 +1,4 @@
-"""Shared model building blocks: norms, RoPE, init, activations.
+"""Shared model building blocks: norms, RoPE, init, activations, the loss.
 
 The port's copy of ``repro.models.common``'s arithmetic. Every function
 keeps the JAX version's casts: the norms and the rope compute in float32
@@ -91,3 +91,24 @@ def swiglu(x, w_gate, w_up, w_down):
     g = F.silu(x @ w_gate)
     u = x @ w_up
     return (g * u) @ w_down
+
+
+# --------------------------------------------------------------------------
+# loss
+# --------------------------------------------------------------------------
+def cross_entropy_loss(logits, labels, vocab_real: int, ignore_id: int = -100):
+    """Token-mean cross-entropy in float32. Logits over the padded vocab
+    (columns >= ``vocab_real``) are masked to -1e30 (not -inf); positions
+    whose label is ``ignore_id`` are dropped, and the mean is over the
+    valid positions (at least one)."""
+    v = logits.shape[-1]
+    logits = logits.float()
+    if vocab_real < v:
+        pad_mask = torch.arange(v, device=logits.device) >= vocab_real
+        logits = torch.where(pad_mask, -1e30, logits)
+    valid = labels != ignore_id
+    labels_c = torch.where(valid, labels, 0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels_c[..., None])[..., 0]
+    nll = (logz - gold) * valid
+    return nll.sum() / torch.clamp(valid.sum(), min=1)

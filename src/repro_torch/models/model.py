@@ -1,17 +1,19 @@
-"""Model facade: the dense decoders' prefill and KV-cache decode.
+"""Model facade: the dense decoders' forward, loss and KV-cache decode.
 
     model  = Transformer(cfg, generator=g)              # on the card
-    logits = forward(cfg, model, batch)                 # prefill
+    logits = forward(cfg, model, batch)                 # train / prefill
+    loss   = loss_fn(cfg, model, batch)
     cache  = init_cache(cfg, batch_size, cache_len)
     logits, cache = decode_step(cfg, model, cache, tokens)
 
-The port's copy of the serving half of ``repro.models.model``:
+The port's copy of ``repro.models.model`` for the dense and vlm families:
 ``init_params`` becomes :class:`Transformer`'s constructor, on the card
 unless ``device="cpu"`` is passed. ``batch`` is a dict: tokens (B,S) int
-[+ vision_embeds (B, vision_patches, d) for the vlm family, merged over
-the first positions as the JAX stub's anyres merge]. The families moe,
-hybrid, audio and ssm raise ``NotImplementedError`` (ROADMAP Queue A item
-13c); training (``loss_fn``) is item 13b.
+[+ labels (B,S) for the loss, vision_embeds (B, vision_patches, d) for the
+vlm family, merged over the first positions as the JAX stub's anyres
+merge]. The families moe, hybrid, audio and ssm raise
+``NotImplementedError`` (ROADMAP Queue A item 13c), so the MoE auxiliary
+loss of the JAX ``loss_fn`` is never reached here.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ import torch
 from torch import nn
 
 from ..core.device import resolve_device
-from .common import dense_init, embed_init
+from .common import cross_entropy_loss, dense_init, embed_init
 from .transformer import (
     DecoderLayer,
     apply_norm,
@@ -71,7 +73,10 @@ class Transformer(nn.Module):
     drawn from ``generator`` (a ``torch.Generator`` on ``device``), or
     taken from ``params``, a tree shaped as :func:`init_params` makes it
     (see ``convert.params_from_jax``); one of the two must be given.
-    Serving takes no gradient: no parameter requires one."""
+    The parameters are made with ``requires_grad=False``, so a forward
+    outside ``torch.no_grad`` builds no graph; whatever takes a gradient
+    (``train.step.make_train_step``, ``train.pipeline``) switches them on
+    through :func:`trainable`."""
 
     def __init__(self, cfg, generator=None, device=None, params=None):
         super().__init__()
@@ -104,6 +109,13 @@ class Transformer(nn.Module):
         return forward(self.cfg, self, batch)
 
 
+def trainable(module: nn.Module) -> nn.Module:
+    """``module`` (a :class:`Transformer` or some of its layers) with every
+    parameter's ``requires_grad`` on, as a gradient needs them; the one
+    place that switches them on. Returns ``module``."""
+    return module.requires_grad_(True)
+
+
 # --------------------------------------------------------------------------
 # embedding / head
 # --------------------------------------------------------------------------
@@ -121,7 +133,7 @@ def _head(cfg, p, x):
 # forward (prefill)
 # --------------------------------------------------------------------------
 def forward(cfg, p, batch):
-    """Logits (B, S, vocab) of a full sequence."""
+    """Logits (B, S, vocab) of a full sequence, in the activation dtype."""
     check_ported(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -134,6 +146,17 @@ def forward(cfg, p, batch):
     x = stack_forward(cfg, p.layers, x, positions)
     x = apply_norm(cfg, p.final_norm, x)
     return _head(cfg, p, x)
+
+
+def loss_fn(cfg, p, batch):
+    """Token-mean cross-entropy of ``forward`` against ``batch["labels"]``;
+    the vlm family takes no loss on its ``vision_patches`` positions."""
+    logits = forward(cfg, p, batch)
+    labels = batch["labels"]
+    if cfg.family == "vlm":
+        labels = labels.clone()
+        labels[:, :cfg.vision_patches] = -100  # no loss on image positions
+    return cross_entropy_loss(logits, labels, cfg.vocab_real)
 
 
 # --------------------------------------------------------------------------

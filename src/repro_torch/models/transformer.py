@@ -4,8 +4,13 @@ The port's copy of the dense path of ``repro.models.transformer``. A layer
 is a :class:`DecoderLayer` module holding the JAX layer's parameter groups
 (``attn_norm``, ``attn``, ``mlp_norm``, ``mlp``) as ``ParameterDict``s
 under the JAX keys, so ``lp["attn"]["wq"]`` reads as it does there. The
-stack is an ``nn.ModuleList`` walked by a loop in place of ``lax.scan``;
-serving takes no gradient, so there is no remat.
+stack is an ``nn.ModuleList`` walked by a loop in place of ``lax.scan``.
+When a gradient is being taken, each layer runs under the config's remat
+policy (``_maybe_remat``): ``"full"`` recomputes the whole layer in the
+backward pass, ``"dots"`` saves the weight products (``aten.mm``) and
+recomputes the rest, attention's batched products (``aten.bmm``)
+included, as JAX's ``checkpoint_dots_with_no_batch_dims`` does; ``"none"``
+saves everything.
 
 Decode caches are stacked on a leading L axis as in the JAX package, and
 each layer's decode writes its K/V slot and its length in place.
@@ -15,8 +20,12 @@ cross-attention) raise ``NotImplementedError`` (ROADMAP Queue A item 13c).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .attention import gqa_attention, gqa_decode, init_gqa
 from .common import layer_norm, rms_norm
@@ -87,10 +96,33 @@ def layer_forward(cfg, lp, x, positions):
     return x + mlp(lp["mlp"], apply_norm(cfg, lp["mlp_norm"], x), cfg)
 
 
+def _save_dots(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy: keep the weight products (x @ W is one
+    ``aten.mm`` on the flattened tokens), recompute everything else."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(cfg, fn, lp, x):
+    """``fn`` wrapped in the config's remat policy when a gradient is being
+    taken through this layer, else ``fn`` itself."""
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"remat must be 'none', 'full' or 'dots', got {cfg.remat!r}")
+    if cfg.remat == "none" or not torch.is_grad_enabled() or not (
+            x.requires_grad or any(p.requires_grad for p in lp.parameters())):
+        return fn
+    if cfg.remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    return functools.partial(checkpoint, fn, use_reentrant=False, context_fn=functools.partial(
+        create_selective_checkpoint_contexts, _save_dots))
+
+
 def stack_forward(cfg, layers, x, positions):
-    """Run the layer stack (an ``nn.ModuleList`` of :class:`DecoderLayer`)."""
+    """Run the layer stack (an ``nn.ModuleList`` of :class:`DecoderLayer`),
+    each layer under the config's remat policy."""
     for lp in layers:
-        x = layer_forward(cfg, lp, x, positions)
+        x = _maybe_remat(cfg, functools.partial(layer_forward, cfg), lp, x)(lp, x, positions)
     return x
 
 

@@ -1,2 +1,3 @@
-"""Step factories of the port: the serving steps (training is ROADMAP
-Queue A item 13b)."""
+"""The training and serving steps of the port (``step``), the training
+loop (``loop``) and the GPipe pipeline over the ranks of a process group
+(``pipeline``)."""

@@ -6,11 +6,14 @@
   warm-up, a two-tenant round trip of the solve service and a solve over
   two gloo ranks (``repro_torch.launch.dist``) and three greedy decode
   steps of a reduced smollm-135m (``repro_torch.models``,
-  ``repro_torch.train.step``) on the CPU; no ``repro`` module may get
+  ``repro_torch.train.step``), a train step of it (two microbatches,
+  compressed gradients) and a checkpoint round trip, and imports the
+  pipeline and the training CLI, on the CPU; no ``repro`` module may get
   loaded.
 * No source file of the port (its examples included) mentions an import
   of jax or of ``repro``.
-* Without a GPU, the entry points raise unless the caller passes
+* Without a GPU, the entry points (the training loop, its CLI, example
+  and ``restore`` included) raise unless the caller passes
   ``device="cpu"``; and ``chip_smoke.py`` fails without printing a result.
 """
 import os
@@ -95,6 +98,22 @@ for _ in range(3):
     tok, logits, cache = serve(lm, cache, tok)
 assert logits.shape == (2, 1, cfg.vocab) and cache["kv"]["len"].eq(3).all()
 assert bool(torch.isfinite(logits).all()) and int(tok.max()) < cfg.vocab_real
+import tempfile
+import repro_torch.train.pipeline, repro_torch.launch.train, repro_torch.train.loop
+from repro_torch.checkpoint.ckpt import restore, save
+from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.models.convert import flatten, param_tree
+from repro_torch.optim import adamw
+from repro_torch.train.step import make_train_step
+state = adamw.init(param_tree(lm))
+step = make_train_step(cfg, adamw.AdamWConfig(lr=1e-3, warmup_steps=1), microbatches=2,
+                       compress_grads=True)
+lm, state, m = step(lm, state, SyntheticLM(cfg.vocab_real, 8, 2).batch_at(0))
+assert int(state["count"]) == 1 and bool(torch.isfinite(m["loss"]))
+with tempfile.TemporaryDirectory() as d:
+    save(d, 1, (param_tree(lm), state))
+    got, _ = restore(d, 1, (param_tree(lm), state), device="cpu")
+    assert all(torch.equal(a, b) for a, b in zip(flatten(got), flatten((param_tree(lm), state))))
 bad = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert not bad, bad
 print("ISOLATED")
@@ -121,8 +140,10 @@ def test_no_source_file_imports_jax_or_repro():
              + [ROOT / "chip_smoke.py"])
     assert len(files) > 10
     scanned = {f.relative_to(PORT).parts[0] for f in files if PORT in f.parents}
-    assert {"configs", "models", "train", "core", "kernels", "serve"} <= scanned
+    assert {"configs", "models", "train", "core", "kernels", "serve", "optim", "data",
+            "checkpoint"} <= scanned
     assert ROOT / "examples" / "serve_decode_torch.py" in files
+    assert ROOT / "examples" / "train_smollm_torch.py" in files
     for f in files:
         for no, line in enumerate(f.read_text().splitlines(), 1):
             assert not pat.search(line), f"{f.relative_to(ROOT)}:{no}: {line.strip()}"
@@ -183,6 +204,29 @@ def test_model_entry_points_raise_without_gpu(monkeypatch):
     assert M.Transformer(cfg, generator=torch.Generator(), device="cpu").device.type == "cpu"
     out = subprocess.run([sys.executable, str(ROOT / "examples" / "serve_decode_torch.py"),
                           "--tokens", "2"], env={**_child_env(), "CUDA_VISIBLE_DEVICES": ""},
+                         cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0 and "device='cpu'" in out.stderr, out.stderr[-2000:]
+
+
+def test_training_entry_points_raise_without_gpu(monkeypatch, tmp_path):
+    from repro_torch.checkpoint.ckpt import restore, save
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as cli
+    from repro_torch.train.loop import train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("smollm-135m").reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train(cfg, n_steps=1, seq_len=8, global_batch=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["--arch", "smollm-135m", "--reduced", "--steps", "1"])
+    save(str(tmp_path), 1, {"w": torch.ones(2)})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        restore(str(tmp_path), 1, {"w": torch.ones(2)})
+    res = train(cfg, n_steps=1, seq_len=8, global_batch=2, log_every=0, device="cpu")
+    assert res.steps == 1 and res.model.device.type == "cpu"
+    out = subprocess.run([sys.executable, str(ROOT / "examples" / "train_smollm_torch.py"),
+                          "--steps", "1"], env={**_child_env(), "CUDA_VISIBLE_DEVICES": ""},
                          cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert out.returncode != 0 and "device='cpu'" in out.stderr, out.stderr[-2000:]
 
