@@ -332,9 +332,10 @@ LLM_B, LLM_PROMPT, LLM_GEN, LLM_CACHE = 4, 32, 32, 128
 LLM_CHUNK = 16
 LLM_PREFILL_S = 2048
 LLM_LSM_BOUND = 0.05  # tests/test_decode_consistency.py's bound on decode against forward
-# The float32 gate: sound float32 runs on an H100 read 3.1e-06 to 3.3e-05 and
-# the bf16 decode 4.6e-02, under LLM_LSM_BOUND; so a gate that tells float32
-# from a decode gone to bf16 lies between the two.
+# The float32 gate: sound float32 runs of all ten configs on an H100 read
+# 1.9e-06 to 8.3e-05, their bf16 decodes 1.8e-02 (whisper-tiny) to 4.1e+00
+# (the MoE configs, where bf16 flips a router near-tie); so a gate that tells
+# float32 from a decode gone to bf16 lies between the two.
 LLM_F32_GATE = 1e-3
 LLM_CPU_REL = 1e-4  # card against CPU: logits within LLM_CPU_REL * max|logits|
 # [llm-train]: (a) float32 card against CPU at full width and LLM_TRAIN_F32_LAYERS
@@ -351,6 +352,20 @@ LLM_TRAIN_OUTLIERS = 200  # (a): parameter entries in all that may exceed it (Ad
 LLM_RESUME_REL = 1e-3  # (c): resumed losses within this relative
 LLM_PIPE_RANKS, LLM_PIPE_B, LLM_PIPE_S, LLM_PIPE_MB = 2, 8, 256, 4
 LLM_PIPE_REL = 1e-4  # (d): output and gradients within this * max|.| per tensor
+# [llm-families]: the serving path of the other four families. deepseek-v2-lite-16b
+# at its published size in bf16 (its float32 parity at full width and
+# LLM_FAMILY_F32_LAYERS layers: the 27 layers in float32 would need ~65 GB);
+# qwen2-moe-a2.7b at full width and LLM_WIDE_LAYERS layers; hymba-1.5b,
+# xlstm-125m and whisper-tiny at their published sizes (whisper's cache filled
+# by precompute_cross_kv from LLM_B x encoder_seq seeded frames). The float32
+# parity runs give every expert full capacity (capacity factor = the routed
+# experts, as tests/test_decode_consistency.py does), since dropping depends on
+# how many tokens are routed together; the bf16 runs keep the config's 1.25.
+LLM_FAMILY_ARCH = "deepseek-v2-lite-16b"
+LLM_FAMILY_F32_LAYERS = 2
+LLM_FAMILY_OTHERS = (("qwen2-moe-a2.7b", LLM_WIDE_LAYERS), ("hymba-1.5b", None),
+                     ("xlstm-125m", None), ("whisper-tiny", None))
+LLM_RECURRENT_PREFILL_S = 512  # hymba's and xLSTM's prefill: their time scans are step loops
 
 
 def require(cond, what):
@@ -423,6 +438,23 @@ def kernel_events(prof):
 
     return [(e.name().removeprefix("void "), e.duration_ns() / 1e3)  # templates: "void f<T>(...)"
             for e in prof.profiler.kineto_results.events() if e.device_type() == DeviceType.CUDA]
+
+
+def profile_launches(fn):
+    """(wall ms, kernel launches, device-busy ms) of one call of ``fn`` under
+    torch.profiler (Memcpy / Memset events are not launches)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = kernel_events(prof)
+    kernels = [e for e in events if not e[0].startswith(("Memcpy", "Memset"))]
+    return wall * 1e3, len(kernels), sum(us for _, us in events) / 1e3
 
 
 def device_ms(fn, kernel, reps=5, attempts=3, per_call=1):
@@ -3352,12 +3384,13 @@ def phase_serve_sharded(dev, nx=SERVE_SHARDED_NX):
     return counts
 
 
-def llm_decode(cfg, model, feed, gen, timed=False):
+def llm_decode(cfg, model, feed, gen, timed=False, frames=None):
     """Serve ``feed.shape[0]`` requests through make_serve_step: the tokens of
-    ``feed`` (B, P) one per step, then ``gen`` greedy tokens. Returns the
-    tokens fed (B, P + gen), the logits of every step as float32 (B, P +
-    gen, V) and, if ``timed``, the host ms of each step (each ends in a
-    synchronize)."""
+    ``feed`` (B, P) one per step, then ``gen`` greedy tokens (whisper: the
+    cache's cross K/V filled from ``frames`` by precompute_cross_kv first).
+    Returns the tokens fed (B, P + gen), the logits of every step as float32
+    (B, P + gen, V) and, if ``timed``, the host ms of each step (each ends in
+    a synchronize)."""
     import torch
 
     from repro_torch.models import model as M
@@ -3366,6 +3399,8 @@ def llm_decode(cfg, model, feed, gen, timed=False):
     serve = make_serve_step(cfg)
     B, P = feed.shape
     cache = M.init_cache(cfg, B, LLM_CACHE, device=feed.device)
+    if frames is not None:
+        cache = M.precompute_cross_kv(cfg, model, cache, frames)
     fed, logits, ms = [], [], []
     tok = feed[:, :1]
     for t in range(P + gen):
@@ -3398,47 +3433,176 @@ def llm_parity(cfg, dec, full):
     return err, int(sure.sum()), bad
 
 
-def llm_f32_parity(tag, cfg, model, prompt):
+def llm_f32_parity(tag, cfg, model, prompt, phase="llm-serve", frames=None):
     """[llm-serve] float32 parity: LLM_GEN greedy tokens after ``prompt``,
-    held against one forward over every token fed, teacher-forced. Returns
-    the tokens fed and the forward's logits."""
+    held against one forward over every token fed, teacher-forced (whisper:
+    the forward's encoder and the decode's cross K/V from ``frames``).
+    Returns the tokens fed and the forward's logits."""
     import torch
 
     from repro_torch.models import model as M
 
-    fed, dec, _ = llm_decode(cfg, model, prompt, LLM_GEN)
+    fed, dec, _ = llm_decode(cfg, model, prompt, LLM_GEN, frames=frames)
+    batch = {"tokens": fed} if frames is None else {"tokens": fed, "frames": frames}
     with torch.no_grad():
-        full = M.forward(cfg, model, {"tokens": fed}).float()
+        full = M.forward(cfg, model, batch).float()
     require(bool(torch.isfinite(dec).all() and torch.isfinite(full).all()),
-            f"[llm-serve] {tag}: non-finite logits")
+            f"[{phase}] {tag}: non-finite logits")
     require(dec.grad_fn is None and full.grad_fn is None and not dec.requires_grad,
-            f"[llm-serve] {tag}: serving built an autograd graph")
+            f"[{phase}] {tag}: serving built an autograd graph")
     err, checked, bad = llm_parity(cfg, dec, full)
-    say(f"[llm-serve] {tag} float32, q_chunk = kv_chunk = {cfg.q_chunk}: {fed.shape[0]} requests"
+    say(f"[{phase}] {tag} float32, q_chunk = kv_chunk = {cfg.q_chunk}: {fed.shape[0]} requests"
         f" x ({prompt.shape[1]} prompt + {LLM_GEN} greedy) steps; decode against forward "
         f"(teacher-forced): max log-softmax error {err:.3e} (gate {LLM_F32_GATE}; "
         f"test_decode_consistency's bound {LLM_LSM_BOUND}), argmax equal"
         f" at {checked - bad} of the {checked} positions (of {fed.numel()}) whose top-2 gap "
         f"exceeds 2x the error")
     require(err <= min(LLM_F32_GATE, LLM_LSM_BOUND),
-            f"[llm-serve] {tag}: log-softmax error {err:.3e}")
-    require(bad == 0, f"[llm-serve] {tag}: {bad} argmax disagreements past the top-2 gap")
+            f"[{phase}] {tag}: log-softmax error {err:.3e}")
+    require(bad == 0, f"[{phase}] {tag}: {bad} argmax disagreements past the top-2 gap")
     return fed, full
+
+
+def nbytes(tree):
+    """Bytes of the tensors in a nested dict / list / tuple (a cache)."""
+    if isinstance(tree, dict):
+        return sum(nbytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(nbytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def llm_bf16(phase, dev, name, cfg, seed, fed, prefill_s, rng, frames=None):
+    """bf16 serving of ``cfg``, drawn on the card from ``seed`` (the float32
+    run's weights rounded where the seed is the same): the tokens of ``fed``
+    (B, P) fed one per step after a warm run, ms per decode step, one
+    profiled step, and a prefill of ``prefill_s`` seeded tokens (timed, then
+    profiled once); whisper's cache filled from ``frames`` first. Returns the
+    model, the decode's float32 logits (B, P, V) and the parameter count."""
+    import torch
+
+    from repro_torch.models import model as M
+    from repro_torch.train.step import make_prefill_step, make_serve_step
+
+    t0 = time.perf_counter()
+    model = M.Transformer(cfg, generator=torch.Generator(device=dev).manual_seed(seed),
+                          device=dev)
+    torch.cuda.synchronize()
+    drawn = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    enc = ""
+    if frames is not None:
+        frames = frames.to(cfg.act_dtype)
+        enc_ms = time_ms(lambda: M.precompute_cross_kv(
+            cfg, model, M.init_cache(cfg, LLM_B, LLM_CACHE, device=dev), frames), reps=3)
+        enc = (f"; precompute_cross_kv (encoder over {frames.shape[1]} frames + every layer's "
+               f"cross K/V) {enc_ms:.2f} ms")
+    llm_decode(cfg, model, fed[:, :4], 0, frames=frames)  # warm: cuBLAS handles, the allocator
+    _, dec, ms = llm_decode(cfg, model, fed, 0, timed=True, frames=frames)
+    toks = dec[..., :cfg.vocab_real].argmax(-1)
+    require(bool(torch.isfinite(dec).all()), f"[{phase}] {name} bf16: non-finite logits")
+    require(int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_real,
+            f"[{phase}] {name} bf16: a token outside [0, vocab_real)")
+    step_ms = statistics.median(ms[1:])
+    serve = make_serve_step(cfg)
+    cache = M.init_cache(cfg, LLM_B, LLM_CACHE, device=dev)
+    if frames is not None:
+        cache = M.precompute_cross_kv(cfg, model, cache, frames)
+    tok, _, cache = serve(model, cache, fed[:, :1])
+    wall, launches, busy = profile_launches(lambda: serve(model, cache, tok))
+    weights_mb = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e6
+    say(f"[{phase}] {name} bf16 ({cfg.n_layers} layers, {n_params} parameters, weights "
+        f"{weights_mb:.1f} MB, cache of {LLM_CACHE} slots {nbytes(cache) / 1e6:.1f} MB, drawn on "
+        f"the card in {drawn:.2f} s): {LLM_B} requests x {fed.shape[1]} steps, {step_ms:.3f} ms "
+        f"per decode step (median of {len(ms) - 1} after a warm one; min {min(ms[1:]):.3f}, max "
+        f"{max(ms[1:]):.3f}), {LLM_B * 1e3 / step_ms:.1f} tokens/s{enc}")
+    say(f"[profile {phase}] {name} one bf16 decode step under torch.profiler: wall {wall:.3f} "
+        f"ms, {launches} kernel launches, device busy {busy:.3f} ms ({100 * busy / wall:.1f}% "
+        "of wall)")
+    del cache
+    if prefill_s:
+        prefill = make_prefill_step(cfg)
+        batch = {"tokens": torch.randint(0, cfg.vocab_real, (LLM_B, prefill_s), generator=rng,
+                                         device=dev, dtype=torch.int32)}
+        if frames is not None:
+            batch["frames"] = frames
+        last = prefill(model, batch)
+        require(bool(torch.isfinite(last).all()) and last.shape == (LLM_B, cfg.vocab),
+                f"[{phase}] {name} bf16 prefill malformed")
+        pre_ms = time_ms(lambda: prefill(model, batch), reps=2)
+        pwall, plaunch, pbusy = profile_launches(lambda: prefill(model, batch))
+        say(f"[{phase}] {name} bf16 prefill (make_prefill_step) B = {LLM_B}, S = {prefill_s}, "
+            f"chunks {cfg.q_chunk}: {pre_ms:.2f} ms ({LLM_B * prefill_s * 1e3 / pre_ms:.0f} "
+            f"tokens/s); profiled once: {plaunch} kernel launches, device busy {pbusy:.2f} ms "
+            f"of {pwall:.2f} ({100 * pbusy / pwall:.1f}%)")
+    return model, dec, n_params
+
+
+def llm_bf16_parity(phase, tag, cfg, dec, full32):
+    """Print (not gated) the teacher-forced parity of a bf16 decode's logits
+    ``dec`` against the float32 forward's ``full32`` on the same tokens and
+    the same weights rounded: the reading above LLM_F32_GATE, as the float32
+    decode's is the one below it. Also the median over positions of each
+    position's max error: a router near-tie that bf16 flips moves one
+    position by O(1) and sets the max alone."""
+    import torch
+
+    err, checked, bad = llm_parity(cfg, dec, full32)
+    V = cfg.vocab_real
+    per_pos = (torch.log_softmax(dec[..., :V].double(), -1)
+               - torch.log_softmax(full32[..., :V].double(), -1)).abs().amax(-1)
+    say(f"[{phase}] {tag} bf16 decode against the float32 teacher-forced logits (not gated): "
+        f"max log-softmax error {err:.3e} (median over positions {float(per_pos.median()):.3e}),"
+        f" argmax disagreements {bad} of {checked} sure positions")
+
+
+def llm_card_vs_cpu(phase, dev, names, seed):
+    """Card against CPU: each config of ``names`` reduced, the same weights
+    on both (drawn on the CPU from ``seed`` + its index); the forward over 2 x
+    40 seeded tokens (whisper: with 2 x encoder_seq seeded frames) and 8
+    decode steps within LLM_CPU_REL of max|logits|."""
+    import copy
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    for k, name in enumerate(names):
+        c = get_config(name).reduced()
+        cpu = M.Transformer(c, generator=torch.Generator().manual_seed(seed + k), device="cpu")
+        card = copy.deepcopy(cpu).to(dev)
+        g = torch.Generator().manual_seed(seed + 10 + k)
+        toks = torch.randint(0, c.vocab_real, (2, 40), generator=g, dtype=torch.int32)
+        batch = {"tokens": toks}
+        if c.family == "audio":
+            batch["frames"] = torch.randn((2, c.encoder_seq, c.d_model), generator=g) * 0.02
+        frames = batch.get("frames")
+        with torch.no_grad():
+            want = M.forward(c, cpu, batch)
+            got = M.forward(c, card, {k2: v.to(dev) for k2, v in batch.items()}).cpu()
+        _, want_dec, _ = llm_decode(c, cpu, toks[:, :8], 0, frames=frames)
+        _, got_dec, _ = llm_decode(c, card, toks[:, :8].to(dev), 0,
+                                   frames=None if frames is None else frames.to(dev))
+        e_fwd = float((got - want).abs().max() / want.abs().max())
+        e_dec = float((got_dec.cpu() - want_dec).abs().max() / want_dec.abs().max())
+        say(f"[{phase}] card against CPU, {name} reduced: forward max|diff| / max|logits| "
+            f"{e_fwd:.2e}, 8 decode steps {e_dec:.2e} (bound {LLM_CPU_REL})")
+        require(e_fwd <= LLM_CPU_REL and e_dec <= LLM_CPU_REL,
+                f"[{phase}] card against CPU, {name}: {e_fwd:.2e} / {e_dec:.2e}")
 
 
 def phase_llm_serve(dev):
     """[llm-serve]: the model scaffolding's serving path (repro_torch.models,
     repro_torch.train.step) on the card."""
-    import copy
     import dataclasses
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
-    from repro_torch.train.step import make_prefill_step, make_serve_step
+    from repro_torch.train.step import make_prefill_step
 
     require(not torch.backends.cuda.matmul.allow_tf32, "[llm-serve] float32 checks need TF32 off")
     arch = LLM_ARCH
@@ -3462,51 +3626,9 @@ def phase_llm_serve(dev):
     del model
     # (b) the config's own bf16, the same weights rounded, the same tokens
     cfg16 = get_config(arch)
-    model = M.Transformer(cfg16, generator=torch.Generator(device=dev).manual_seed(SEED + 40),
-                          device=dev)
-    llm_decode(cfg16, model, fed[:, :4], 0)  # warm: cuBLAS handles, the allocator
-    _, dec16, ms = llm_decode(cfg16, model, fed, 0, timed=True)
-    toks = dec16[..., :cfg16.vocab_real].argmax(-1)
-    require(bool(torch.isfinite(dec16).all()), f"[llm-serve] {arch} bf16: non-finite logits")
-    require(int(toks.min()) >= 0 and int(toks.max()) < cfg16.vocab_real,
-            f"[llm-serve] {arch} bf16: a token outside [0, vocab_real)")
-    err16, checked16, bad16 = llm_parity(cfg16, dec16, full32)
-    step_ms = statistics.median(ms[1:])
-    serve = make_serve_step(cfg16)
-    cache = M.init_cache(cfg16, LLM_B, LLM_CACHE, device=dev)
-    tok = fed[:, :1]
-    tok, _, cache = serve(model, cache, tok)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        serve(model, cache, tok)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = kernel_events(prof)
-    kernels = [e for e in events if not e[0].startswith(("Memcpy", "Memset"))]
-    busy = sum(us for _, us in events) / 1e6
-    cache_mb = sum(t.numel() * t.element_size() for t in cache["kv"].values()) / 1e6
-    weights_mb = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e6
-    say(f"[llm-serve] {arch} bf16 (weights {weights_mb:.1f} MB, cache of {LLM_CACHE} slots "
-        f"{cache_mb:.1f} MB): {LLM_B} requests x {fed.shape[1]} steps, {step_ms:.3f} ms per "
-        f"decode step (median of {len(ms) - 1} after a warm one; min {min(ms[1:]):.3f}, max "
-        f"{max(ms[1:]):.3f}), {LLM_B * 1e3 / step_ms:.1f} tokens/s; parity against the float32"
-        f" teacher-forced logits (not gated): max log-softmax error {err16:.3e}, argmax "
-        f"disagreements {bad16} of {checked16} sure positions")
-    say(f"[profile llm-serve] one bf16 decode step under torch.profiler: wall {wall * 1e3:.3f} "
-        f"ms, {len(kernels)} kernel launches ({len(events)} device events), device busy "
-        f"{busy * 1e3:.3f} ms ({100 * busy / wall:.1f}% of wall)")
-    prefill = make_prefill_step(cfg16)
-    ptoks = torch.randint(0, cfg16.vocab_real, (LLM_B, LLM_PREFILL_S), generator=rng, device=dev,
-                          dtype=torch.int32)
-    last = prefill(model, {"tokens": ptoks})
-    require(bool(torch.isfinite(last).all()) and last.shape == (LLM_B, cfg16.vocab),
-            f"[llm-serve] {arch} bf16 prefill malformed")
-    pre_ms = time_ms(lambda: prefill(model, {"tokens": ptoks}), reps=3)
-    say(f"[llm-serve] {arch} bf16 prefill (make_prefill_step) B = {LLM_B}, S = {LLM_PREFILL_S}, "
-        f"chunks {cfg16.q_chunk}: {pre_ms:.2f} ms ({LLM_B * LLM_PREFILL_S * 1e3 / pre_ms:.0f} "
-        "tokens/s)")
-    del model, cache, full32, dec16
+    model, dec16, _ = llm_bf16("llm-serve", dev, arch, cfg16, SEED + 40, fed, LLM_PREFILL_S, rng)
+    llm_bf16_parity("llm-serve", arch, cfg16, dec16, full32)
+    del model, full32, dec16
     # the other dense / vlm configs: full width, LLM_WIDE_LAYERS layers, float32
     for name in LLM_WIDE:
         c = dataclasses.replace(get_config(name), n_layers=LLM_WIDE_LAYERS, **f32)
@@ -3525,26 +3647,99 @@ def phase_llm_serve(dev):
                 " finite logits")
         del m
     torch.cuda.empty_cache()
-    # card against CPU: the reduced configs, the same weights on both
-    for name in (arch, "starcoder2-15b"):
-        c = get_config(name).reduced()
-        cpu = M.Transformer(c, generator=torch.Generator().manual_seed(SEED + 43), device="cpu")
-        card = copy.deepcopy(cpu).to(dev)
-        toks = torch.randint(0, c.vocab_real, (2, 40), generator=torch.Generator().manual_seed(
-            SEED + 44), dtype=torch.int32)
-        with torch.no_grad():
-            want = M.forward(c, cpu, {"tokens": toks})
-            got = M.forward(c, card, {"tokens": toks.to(dev)}).cpu()
-        _, want_dec, _ = llm_decode(c, cpu, toks[:, :8], 0)
-        _, got_dec, _ = llm_decode(c, card, toks[:, :8].to(dev), 0)
-        e_fwd = float((got - want).abs().max() / want.abs().max())
-        e_dec = float((got_dec.cpu() - want_dec).abs().max() / want_dec.abs().max())
-        say(f"[llm-serve] card against CPU, {name} reduced: forward max|diff| / max|logits| "
-            f"{e_fwd:.2e}, 8 decode steps {e_dec:.2e} (bound {LLM_CPU_REL})")
-        require(e_fwd <= LLM_CPU_REL and e_dec <= LLM_CPU_REL,
-                f"[llm-serve] card against CPU, {name}: {e_fwd:.2e} / {e_dec:.2e}")
+    llm_card_vs_cpu("llm-serve", dev, (arch, "starcoder2-15b"), SEED + 43)
     counts, _ = warm_counts()
     check_launches("llm-serve", counts, (), idle=tuple(counts))
+    return counts
+
+
+def phase_llm_families(dev):
+    """[llm-families]: the serving path of the MoE + MLA, hybrid SSM, xLSTM
+    and encoder-decoder families (repro_torch.models, repro_torch.train.step)
+    on the card."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+
+    require(not torch.backends.cuda.matmul.allow_tf32,
+            "[llm-families] float32 checks need TF32 off")
+    ops.reset_launch_counts()
+    rng = torch.Generator(device=dev).manual_seed(SEED + 60)
+
+    def full_capacity(c):
+        return dataclasses.replace(c, moe_capacity_factor=float(c.n_routed_experts)) \
+            if c.n_routed_experts else c
+
+    def f32(c, chunks=True):
+        chunk = dict(q_chunk=LLM_CHUNK, kv_chunk=LLM_CHUNK) if chunks else {}
+        return dataclasses.replace(full_capacity(c), param_dtype=torch.float32,
+                                   act_dtype=torch.float32, **chunk)
+
+    def frames_for(c):
+        if c.family != "audio":
+            return None
+        return torch.randn((LLM_B, c.encoder_seq, c.d_model), generator=rng, device=dev) * 0.02
+
+    def f32_parity(tag, c, seed, frames=None):
+        m = M.Transformer(c, generator=torch.Generator(device=dev).manual_seed(seed), device=dev)
+        p = torch.randint(0, c.vocab_real, (LLM_B, LLM_PROMPT), generator=rng, device=dev,
+                          dtype=torch.int32)
+        fed, full32 = llm_f32_parity(tag, c, m, p, phase="llm-families", frames=frames)
+        del m
+        torch.cuda.empty_cache()
+        return fed, full32
+
+    # (a) deepseek-v2-lite-16b: float32 parity at full width and few layers (and the
+    # bf16 decode of those layers against it), then the published 27 layers in bf16
+    arch = LLM_FAMILY_ARCH
+    cfg = get_config(arch)
+    few = dataclasses.replace(cfg, n_layers=LLM_FAMILY_F32_LAYERS)
+    fed, full32 = f32_parity(f"{arch} ({few.n_layers} layers, d = {few.d_model}, "
+                             f"{few.n_routed_experts} routed + {few.n_shared_experts} shared "
+                             f"experts, top-{few.moe_top_k}, MLA r = {few.mla_kv_lora})",
+                             f32(few), SEED + 61)
+    c16 = full_capacity(few)
+    m = M.Transformer(c16, generator=torch.Generator(device=dev).manual_seed(SEED + 61),
+                      device=dev)
+    _, dec, _ = llm_decode(c16, m, fed, 0)
+    llm_bf16_parity("llm-families", f"{arch} ({few.n_layers} layers)", c16, dec, full32)
+    del m, dec, full32
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, _, n = llm_bf16("llm-families", dev, arch, cfg, SEED + 61, fed, LLM_PREFILL_S, rng)
+    del model
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    say(f"[llm-families] {arch} at its published size: {n} parameters "
+        f"({cfg.param_count()['total']} by param_count), peak memory allocated {peak:.2f} GiB")
+    # (b) the other configs: float32 parity, then bf16 ms per step and the bf16
+    # decode's parity against the float32 forward (at the float32 run's capacity)
+    for k, (name, layers) in enumerate(LLM_FAMILY_OTHERS):
+        base = get_config(name)
+        if layers:
+            base = dataclasses.replace(base, n_layers=layers)
+        frames = frames_for(base)
+        fed, full32 = f32_parity(f"{name} ({base.n_layers} layers, d = {base.d_model})",
+                                 f32(base, chunks=base.family != "audio"),  # whisper: its own
+                                 SEED + 62 + k, frames=frames)
+        prefill_s = LLM_RECURRENT_PREFILL_S if base.family in ("hybrid", "ssm") else None
+        model, dec, _ = llm_bf16("llm-families", dev, name, base, SEED + 62 + k, fed, prefill_s,
+                                 rng, frames=frames)
+        if base.n_routed_experts:
+            c16 = full_capacity(base)
+            _, dec, _ = llm_decode(c16, model, fed, 0)
+        llm_bf16_parity("llm-families", name, base, dec, full32)
+        del model, dec, full32
+        torch.cuda.empty_cache()
+    # (c) card against CPU: each reduced config, the same weights on both
+    llm_card_vs_cpu("llm-families", dev, (arch,) + tuple(n for n, _ in LLM_FAMILY_OTHERS),
+                    SEED + 70)
+    counts, _ = warm_counts()
+    check_launches("llm-families", counts, (), idle=tuple(counts))
     return counts
 
 
@@ -3923,6 +4118,8 @@ def run(oracles):
     lap("llm-serve")
     by_path["llm-train"] = phase_llm_train(dev)
     lap("llm-train")
+    by_path["llm-families"] = phase_llm_families(dev)
+    lap("llm-families")
 
     for name, r in rows.items():
         path = ("main-inverse" if name == "inverse_chain"

@@ -159,7 +159,7 @@ def make_pipelined_forward(cfg, group, n_microbatches: int):
     """Returns ``fn(stage_layers, x, positions) -> y``, run by every rank of
     ``group`` together: the layer stack as a P-stage GPipe pipeline over
     the group's ranks, ``stage_layers`` this rank's ``L/P`` layers (an
-    ``nn.ModuleList`` of ``DecoderLayer``; :func:`stage_slice` says which),
+    ``nn.ModuleList`` of ``ParamTree``; :func:`stage_slice` says which),
     ``x`` (B, S, d) on the group's device, the same on every rank, with B
     divisible by ``n_microbatches``. ``y`` is the whole stack's output, on
     every rank. The stage's parameters are made trainable

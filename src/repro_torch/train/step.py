@@ -14,10 +14,12 @@ optionally compresses it (``ef_compress_tree``), and applies
 
 ``make_serve_step`` returns one greedy decode step:
 
-    serve_step(model, cache, tokens) -> (next_tokens, logits, cache)
+    serve_step(model, cache, tokens, frames=None) -> (next_tokens, logits, cache)
 
+(``frames`` for an audio config whose cache holds no cross K/V).
 ``make_prefill_step`` returns the forward pass that keeps the last
-position's logits. Both run without autograd.
+position's logits (``frames`` ride in the batch). Both run without
+autograd.
 """
 from __future__ import annotations
 
@@ -74,9 +76,9 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, microbatches: int = 1,
 
 
 def make_serve_step(cfg):
-    def serve_step(model, cache, tokens):
+    def serve_step(model, cache, tokens, frames=None):
         with torch.no_grad():
-            logits, cache = M.decode_step(cfg, model, cache, tokens)
+            logits, cache = M.decode_step(cfg, model, cache, tokens, frames=frames)
             next_tok = torch.argmax(logits[..., :cfg.vocab_real], dim=-1).to(torch.int32)
         return next_tok, logits, cache
 

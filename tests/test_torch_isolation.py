@@ -6,7 +6,9 @@
   warm-up, a two-tenant round trip of the solve service and a solve over
   two gloo ranks (``repro_torch.launch.dist``) and three greedy decode
   steps of a reduced smollm-135m (``repro_torch.models``,
-  ``repro_torch.train.step``), a train step of it (two microbatches,
+  ``repro_torch.train.step``), one decode step each of a reduced
+  deepseek-v2-lite (MoE, MLA) and whisper-tiny (after
+  ``precompute_cross_kv``), a train step of it (two microbatches,
   compressed gradients) and a checkpoint round trip, and imports the
   pipeline and the training CLI, on the CPU; no ``repro`` module may get
   loaded.
@@ -98,6 +100,17 @@ for _ in range(3):
     tok, logits, cache = serve(lm, cache, tok)
 assert logits.shape == (2, 1, cfg.vocab) and cache["kv"]["len"].eq(3).all()
 assert bool(torch.isfinite(logits).all()) and int(tok.max()) < cfg.vocab_real
+import repro_torch.models.ffn, repro_torch.models.ssm, repro_torch.models.xlstm
+for arch in ("deepseek-v2-lite-16b", "whisper-tiny"):
+    fcfg = get_config(arch).reduced()
+    fm = LM.Transformer(fcfg, generator=torch.Generator().manual_seed(1), device="cpu")
+    fcache = LM.init_cache(fcfg, 2, 8, device="cpu")
+    if fcfg.family == "audio":
+        frames = torch.randn((2, fcfg.encoder_seq, fcfg.d_model), generator=torch.Generator())
+        fcache = LM.precompute_cross_kv(fcfg, fm, fcache, frames * 0.02)
+    ftok = torch.zeros((2, 1), dtype=torch.int32)
+    ftok, flogits, fcache = make_serve_step(fcfg)(fm, fcache, ftok)
+    assert flogits.shape == (2, 1, fcfg.vocab) and bool(torch.isfinite(flogits).all()), arch
 import tempfile
 import repro_torch.train.pipeline, repro_torch.launch.train, repro_torch.train.loop
 from repro_torch.checkpoint.ckpt import restore, save

@@ -1,6 +1,6 @@
 """The port's model scaffolding (``repro_torch.models``) against the JAX package.
 
-For each dense or vlm config, reduced and in float32, the JAX parameters
+For each config, reduced and in float32, the JAX parameters
 are carried over by ``params_from_jax`` (with the biases and the norms'
 scales drawn at random, so that those paths count) and the port's
 ``forward`` is held to ``repro.models.model.forward``: logits within
@@ -8,8 +8,9 @@ scales drawn at random, so that those paths count) and the port's
 config's published head layout (smollm's 9:3, starcoder2's 48:4,
 stablelm's heads of 160) on the reduced width and depth. Also: the
 configs and their parameter counts equal the JAX package's, a bf16 tree
-crosses over bit for bit, the families not yet ported raise, and (on a
-GPU) the card's logits equal the CPU's within the same bound.
+crosses over bit for bit, and (on a GPU) the card's logits equal the
+CPU's within the same bound. Every config of ``repro_torch.configs`` is
+served; whisper's batches carry seeded frame embeddings.
 
 JAX is imported inside the helpers, so the ``cuda`` test runs where JAX is
 not installed.
@@ -26,11 +27,10 @@ from repro_torch.models import model as M
 from repro_torch.models.convert import params_from_jax, tensor_from_numpy
 from repro_torch.train.step import make_prefill_step
 
-SERVED = ["smollm-135m", "qwen1.5-0.5b", "starcoder2-15b", "stablelm-12b",
-          "llava-next-mistral-7b"]
-NOT_PORTED = {"deepseek-v2-lite-16b": "moe", "qwen2-moe-a2.7b": "moe", "hymba-1.5b": "hybrid",
-              "whisper-tiny": "audio", "xlstm-125m": "ssm"}
+SERVED = list(ARCHS)
 REL = 1e-4  # logits within REL·max|logits|
+ONES = ("norm", "kv_norm", "d_skip")  # 1-D leaves that init_params sets to ones
+ZEROS = ("dt_bias",)  # and to zeros
 
 
 def head_layout(arch):
@@ -58,8 +58,10 @@ def jax_params(arch, seed=0, **changes):
     def draw(path, s):
         name = str(path[-1].key)
         z = rng.standard_normal(s.shape)
-        if name in ("scale", "bias", "bq", "bk", "bv"):
-            a = (1.0 if name == "scale" else 0.0) + 0.1 * z
+        if name in ("scale", "bias", "bq", "bk", "bv") + ONES + ZEROS:
+            a = (1.0 if name in ("scale",) + ONES else 0.0) + 0.1 * z
+        elif name == "a_log":  # the SSM's log decay rates, log 1..N per channel
+            a = np.log(np.arange(1, s.shape[-1] + 1)) + 0.1 * z
         else:
             a = z * (0.02 if name == "embed" else 1.0 / np.sqrt(s.shape[-2]))
         return a.astype(s.dtype)
@@ -71,12 +73,20 @@ def port_config(arch, **changes):
     return dataclasses.replace(get_config(arch).reduced(), **changes)
 
 
+def frames_of(cfg, B, seed):
+    """Seeded stand-ins for whisper's precomputed frame embeddings."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, cfg.encoder_seq, cfg.d_model)) * 0.02).astype(np.float32)
+
+
 def batch_of(cfg, B, S, seed, vision=True):
     rng = np.random.default_rng(seed)
     batch = {"tokens": rng.integers(0, cfg.vocab_real, (B, S)).astype(np.int32)}
     if cfg.family == "vlm" and vision:
         batch["vision_embeds"] = (rng.standard_normal((B, cfg.vision_patches, cfg.d_model))
                                   * 0.02).astype(np.float32)
+    if cfg.family == "audio":
+        batch["frames"] = frames_of(cfg, B, seed + 1000)
     return batch
 
 
@@ -208,17 +218,6 @@ def test_model_needs_a_generator_or_params():
         M.Transformer(cfg, device="cpu")
 
 
-@pytest.mark.parametrize("arch", sorted(NOT_PORTED))
-def test_families_not_ported_raise(arch):
-    cfg = get_config(arch).reduced()
-    assert cfg.family == NOT_PORTED[arch]
-    for call in (lambda: M.Transformer(cfg, device="cpu"),
-                 lambda: M.init_cache(cfg, 2, 8, device="cpu"),
-                 lambda: M.init_params(cfg, torch.Generator(), "cpu")):
-        with pytest.raises(NotImplementedError, match="13c"):
-            call()
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["smollm-135m", "starcoder2-15b"])
 def test_card_logits_equal_cpu(arch):
@@ -232,3 +231,82 @@ def test_card_logits_equal_cpu(arch):
     want = port_forward(cfg, cpu, batch)
     got = port_forward(cfg, card, batch)
     assert np.abs(got - want).max() <= REL * np.abs(want).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "qwen2-moe-a2.7b", "hymba-1.5b",
+                                  "whisper-tiny", "xlstm-125m"])
+def test_card_equals_cpu_for_the_other_families(arch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a GPU")
+    from repro_torch.train.step import make_serve_step
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = port_config(arch)
+    cpu = M.Transformer(cfg, generator=torch.Generator().manual_seed(13), device="cpu")
+    card = copy.deepcopy(cpu).to("cuda")
+    batch = batch_of(cfg, B=2, S=40, seed=14)
+    want = port_forward(cfg, cpu, batch)
+    got = port_forward(cfg, card, batch)
+    assert np.abs(got - want).max() <= REL * np.abs(want).max()
+    serve = make_serve_step(cfg)
+    logits = []
+    for model, dev in ((cpu, "cpu"), (card, "cuda")):
+        cache = M.init_cache(cfg, 2, 16, device=dev)
+        if cfg.family == "audio":
+            cache = M.precompute_cross_kv(cfg, model, cache,
+                                          torch.from_numpy(batch["frames"]).to(dev))
+        out = []
+        for t in range(8):
+            _, lg, cache = serve(model, cache, torch.from_numpy(batch["tokens"][:, t:t + 1])
+                                 .to(dev))
+            out.append(lg.float().cpu())
+        logits.append(torch.stack(out).numpy())
+    assert np.abs(logits[1] - logits[0]).max() <= REL * np.abs(logits[0]).max()
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "hymba-1.5b", "whisper-tiny",
+                                  "xlstm-125m"])
+def test_family_trees_cross_both_ways(arch):
+    """The E-leading MoE leaves, the ``blocks`` list, the stacked encoder and
+    mixed-dtype leaves: a bf16 JAX tree (float32 leaves kept float32) into
+    the port and back, keyed in JAX's flatten order, bit for bit."""
+    import jax
+    import ml_dtypes
+
+    from repro_torch.models.convert import (keyed_leaves, param_tree, tree_to_jax,
+                                            unflatten_keyed)
+
+    _, tree = jax_params(arch, seed=15)
+    f32 = ("gate", "a_log", "d_skip", "dt_bias")  # float32 leaves of a bf16 model
+    tree = jax.tree_util.tree_map_with_path(
+        lambda path, a: a if str(path[-1].key) in f32 else a.astype(ml_dtypes.bfloat16), tree)
+    cfg = port_config(arch, param_dtype=torch.bfloat16, act_dtype=torch.bfloat16)
+    model = params_from_jax(cfg, tree, device="cpu")
+    back = tree_to_jax(param_tree(model))
+    want = jax.tree_util.tree_flatten_with_path(tree)[0]
+    got = keyed_leaves(back)
+    assert [k for k, _ in got] == ["/".join(str(getattr(p, "key", getattr(p, "idx", p)))
+                                            for p in path) for path, _ in want]
+    for (k, g), (_, w) in zip(got, want):
+        g = g.detach()
+        assert str(g.dtype).split(".")[-1] == w.dtype.name, k
+        bits = torch.int16 if g.dtype == torch.bfloat16 else torch.int32
+        assert np.array_equal(g.view(bits).numpy(), w.view(np.int16 if bits == torch.int16
+                                                           else np.int32)), k
+    again = unflatten_keyed(param_tree(model), [v for _, v in got])
+    assert [k for k, _ in keyed_leaves(tree_to_jax(again))] == [k for k, _ in got]
+
+
+def test_params_from_jax_refuses_family_trees_of_another_shape():
+    _, tree = jax_params("whisper-tiny", seed=16)
+    with pytest.raises(ValueError, match="encoder/layers"):
+        params_from_jax(port_config("whisper-tiny", encoder_layers=3), tree, device="cpu")
+    _, tree = jax_params("xlstm-125m", seed=17)
+    with pytest.raises(ValueError, match="list of 3"):
+        params_from_jax(port_config("xlstm-125m", block_types=["m", "s", "m"]), tree,
+                        device="cpu")
+    _, tree = jax_params("qwen2-moe-a2.7b", seed=18)
+    with pytest.raises(ValueError, match=r"\['moe'\]\['gate'\]: \(64, 8\)"):
+        params_from_jax(port_config("qwen2-moe-a2.7b", n_routed_experts=12), tree,
+                        device="cpu")
