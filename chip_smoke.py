@@ -91,7 +91,7 @@ with a non-zero exit; nothing is caught):
     ``superstep_factor`` against their plain versions on every epoch and
     superstep checked (poisson_2d(64), D = 1, 2, 4); the persistent
     factorization bitwise equal to the plain per-superstep loop at
-    poisson_2d(128) (its plain time taken there), and at full size to the
+    poisson_2d(96) (its plain time taken there), and at full size to the
     per-superstep kernel loop, with its time, device time per superstep,
     bound and chain floor.
     [sharded-sweep]: the whole band-partitioned apply as one persistent
@@ -146,15 +146,17 @@ with a non-zero exit; nothing is caught):
     lanes' solo solves. Launch counts add each graph's kernels (counted at
     its capture) times its replays to the wrappers' own.
 17. bicgstab — ILU(1) BiCGSTAB on ``poisson_2d(400)`` and on the
-    non-symmetric ``convection_diffusion_2d(400)``, gated on the float64
+    non-symmetric ``convection_diffusion_2d(200)`` (cut from 400 for the
+    time limit), gated on the float64
     true residual (at 1e-4 where float32 stalls above 1e-5, said in the
     output); phase 7 holds the card's BiCGSTAB equal to the CPU's.
 18. breakdown — the shift ladder on the four breakdown fixtures, card and
     CPU equal, the settled factor bitwise equal to ``numeric_ilu_ref`` of
     the shifted matrix, single-device and over 4 owners.
-19. serve — the multi-tenant solve service (``repro_torch.serve``) at full
-    width: three resident matrices (``poisson_2d(400)``, the same
-    structure with its values x1.25, sharing the first one's engine, and
+19. serve — the multi-tenant solve service (``repro_torch.serve``): three
+    resident matrices (``poisson_2d(200)``, cut from 400 for the time
+    limit, the same structure with its values x1.25, sharing the first
+    one's engine, and
     ``convection_diffusion_2d(128)``), buckets 1, 2, 4, 8, each engine's
     bucket restarts captured at warm-up; 48 seeded requests of four
     tenants, a background value update, a malformed request and an
@@ -174,8 +176,8 @@ with a non-zero exit; nothing is caught):
     smollm-135m at its published size, weights drawn from a seeded
     generator on the card: in float32 with 16-token chunks, 4 requests of
     32 seeded prompt tokens fed one per step through ``make_serve_step``,
-    then 32 greedy tokens, held teacher-forced against one ``forward``
-    over the 64 tokens (max log-softmax error <= 1e-3, between the
+    then 16 greedy tokens, held teacher-forced against one ``forward``
+    over the 48 tokens (max log-softmax error <= 1e-3, between the
     sound float32 readings and a bf16 decode's, inside
     test_decode_consistency's 0.05; argmax equal wherever the forward's
     top-2 gap exceeds twice that error); in the config's own bf16 the
@@ -199,21 +201,51 @@ with a non-zero exit; nothing is caught):
     twice the learning rate: AdamW divides by |g| + eps). (b) smollm-135m at its
     published size in its own bf16, remat "dots", through
     ``train.loop.train``: B = 8 sequences of 2,048 tokens from
-    ``SyntheticLM``, one warm-up step and 20 timed (warm-up 5, lr 3e-3);
+    ``SyntheticLM``, one warm-up step and 10 timed (warm-up 5, lr 3e-3;
+    21 steps until the budget of [llm-families-train] cut them);
     ms per step, tokens/s, peak memory, and one profiled step's launches
     and device-busy share; every loss finite and the last five's mean
     below the first five's. (c) the loop's ``AsyncCheckpointer`` saves at
-    steps 10, 20 and 21: the step-21 checkpoint restored into a fresh
+    steps 5, 10 and 11: the step-11 checkpoint restored into a fresh
     model and optimizer state on the card equals the live state bitwise,
-    and the loop resumed from step 10 runs steps 10 and 11 within 1e-3
-    relative of the uninterrupted losses (the card's embedding backward
-    adds with atomics). (d) the 30 layers as a 2-stage GPipe pipeline
-    over 2 gloo ranks sharing the card (15 layers each, payloads staged
-    through pinned host memory), B = 8, S = 256, 4 microbatches, float32:
+    and the loop resumed from step 5 runs steps 5 and 6 within 1e-3
+    relative of the uninterrupted losses. (d) the 30 layers as a 2-stage
+    GPipe pipeline over 2 gloo ranks sharing the card (15 layers each,
+    payloads staged through pinned host memory), B = 8, S = 256, 4
+    microbatches, float32:
     the output and every layer's gradient within 1e-4·max|·| of the
     sequential stack on the card; each rank's first call (one layer on a
     small input) is timed apart, so that the sequential and pipelined
     walls are warm.
+23. llm-families — the serving path of the MoE + MLA, hybrid SSM, xLSTM
+    and encoder-decoder families: deepseek-v2-lite-16b at its published
+    size in bf16 (its float32 decode held to its forward at 2 layers),
+    qwen2-moe-a2.7b at 2 layers, hymba-1.5b, xlstm-125m and whisper-tiny
+    at their published sizes; decode and prefill timed; the reduced
+    configs on the card against the CPU.
+24. llm-families-train — training of those four families (``loss_fn``,
+    the backward with layer remat and the chunked time scans of
+    ``models.scan_utils``, ``make_train_step``). (a) float32 (TF32 off),
+    at full width: hymba-1.5b at 2 layers (B = 1, S = 256), xlstm-125m's
+    first three blocks (m, m, s; B = 1, S = 256: two chunks of 128),
+    whisper-tiny (B = 1, S = 64, 1,500 seeded frames) and
+    deepseek-v2-lite-16b at 1 layer with full expert capacity (B = 1,
+    S = 128): one train step on the card and on the CPU from the same
+    weights and batch, under (a) of llm-train's bounds; the card's
+    gradient with the scans chunked equals the plain loop's bitwise
+    (hymba, xLSTM); how many leaves differ between two identical backward
+    passes on the card (printed); the standalone ``moe_ffn`` at deepseek's
+    width gives the same gradient bits in two identical passes (float32
+    and bf16). (b) bf16, remat "dots", at full width and B = 4: hymba-1.5b
+    at 8 of its 32 layers (S = 512), xlstm-125m's first three blocks
+    (S = 512; its peak beside the plain loop's reckoning, ~29 GB for these
+    blocks and ~116 GB for all 12), whisper-tiny (S = 448, 1,500 frames),
+    deepseek-v2-lite-16b at 4 layers (S = 2,048): one warm-up step (under
+    torch.profiler, the card's activity alone: launches, busy share) and
+    three timed steps (one for xLSTM) of ``make_train_step`` on one seeded
+    batch; ms per step, tokens/s, peak memory; every loss finite, the last
+    below the first. The depths of (a) deepseek and (b) hymba and xLSTM
+    are cut to keep the script inside its time limit on a slow host.
 
 ``[time]`` lines give the seconds of each group of phases.
 
@@ -282,7 +314,7 @@ PREVIOUS_TILE_MS = {"panel_update": 0.0112, "panel_update_bf16": 0.0116, "tile_l
 DISTRIBUTED_KERNELS = ("epoch_sweep", "superstep_factor")
 # [kernels]: the size at which superstep_factor's persistent launch is held
 # against (and timed beside) the plain per-superstep loop, which took
-# 135-215 s at full size
+# 135-215 s at full size (9.3-16.6 s at 128)
 PLAIN_LOOP_NX = 128
 # [dist-ranks] / [dist-nccl]: the bound on one run_ranks call (spawn, the
 # ranks' CUDA contexts, the fusion solve and the natural parts), and the
@@ -315,7 +347,11 @@ ORDERING_EXPECTED = {
                 fill_nnz=1116802),
 }
 BICGSTAB_FALLBACK_TOL = 1e-4  # [bicgstab]'s gate where float32 stalls above TOL
-SERVE_BUCKETS = (1, 2, 4, 8)  # [serve]'s buckets (nb = 8, n = 160,000: a 159 MB basis)
+SERVE_BUCKETS = (1, 2, 4, 8)  # [serve]'s buckets (nb = 8, n = 40,000: a 40 MB basis)
+# [serve]'s poisson_2d and [bicgstab]'s convection_diffusion_2d: cut from 400 to keep
+# the script inside its time limit on a slow host
+SERVE_NX = 200
+BICGSTAB_CD_NX = 200
 SERVE_TOLS = (1e-4, 1e-5)
 SERVE_REQUESTS = 48  # [serve]: 24 before the value update of p1, 16 while it runs, 8 after
 SERVE_SHARDED_NX = 200  # [serve-sharded]'s poisson_2d, cut from 400 to make room for [llm-train]
@@ -344,7 +380,7 @@ LLM_CPU_REL = 1e-4  # card against CPU: logits within LLM_CPU_REL * max|logits|
 # context), LLM_TRAIN_STEPS steps (the first a warm-up), checkpoints every
 # LLM_TRAIN_SAVE steps; (d) the pipeline over LLM_PIPE_RANKS ranks on the card
 LLM_TRAIN_F32_LAYERS, LLM_TRAIN_F32_B, LLM_TRAIN_F32_S = 2, 1, 128
-LLM_TRAIN_B, LLM_TRAIN_S, LLM_TRAIN_STEPS, LLM_TRAIN_SAVE = 8, 2048, 21, 10
+LLM_TRAIN_B, LLM_TRAIN_S, LLM_TRAIN_STEPS, LLM_TRAIN_SAVE = 8, 2048, 11, 5
 LLM_TRAIN_LR, LLM_TRAIN_WARMUP = 3e-3, 5
 LLM_TRAIN_LOSS_REL = 1e-5  # (a): loss within this relative
 LLM_TRAIN_REL = 1e-4  # (a): grad_norm and parameters within this * max|.| per leaf
@@ -365,7 +401,33 @@ LLM_FAMILY_ARCH = "deepseek-v2-lite-16b"
 LLM_FAMILY_F32_LAYERS = 2
 LLM_FAMILY_OTHERS = (("qwen2-moe-a2.7b", LLM_WIDE_LAYERS), ("hymba-1.5b", None),
                      ("xlstm-125m", None), ("whisper-tiny", None))
-LLM_RECURRENT_PREFILL_S = 512  # hymba's and xLSTM's prefill: their time scans are step loops
+# hymba's and xLSTM's prefill: their time scans are eager step loops, so S is held to
+# 256 (not 512) to keep the script inside its time limit
+LLM_RECURRENT_PREFILL_S = 256
+# [llm-families-train]: training of the other four families. (a) float32 (TF32 off),
+# one train step on the card and on the CPU at full width, under [llm-train] (a)'s
+# bounds: (config, changes, B, S) of LLM_FT_F32, deepseek with full expert capacity,
+# whisper with encoder_seq seeded frames; the standalone moe_ffn's repeatability at
+# deepseek's width over LLM_FT_MOE_B x LLM_FT_MOE_S tokens. (b) bf16, the configs'
+# remat "dots", one seeded batch: one warm-up step (profiled) and the entry's count of
+# timed steps of make_train_step at lr LLM_FT_LR: one for xLSTM, whose eager step takes
+# 18-26 s at 12 blocks; three for hymba, whose loss rises after the first step at this
+# lr (10.65 -> 14.79 -> 10.80 -> 6.27 at 32 layers). deepseek-v2-lite-16b at 4 layers:
+# all 27 would need ~190 GB for bf16 weights and gradients and float32 moments. Cut in
+# depth to keep the script inside its time limit on a slow host (the phase took 174 s
+# of a ~937 s script): (a) deepseek at 1 layer (its CPU step took ~37 s at 2), (b)
+# hymba at 8 of its 32 layers and xLSTM at its first 3 blocks (m, m, s: one unit of
+# the published 12-block layout), at full width, B and S.
+LLM_FT_F32 = (("hymba-1.5b", dict(n_layers=2), 1, 256),
+              ("xlstm-125m", dict(n_layers=3, block_types=["m", "m", "s"]), 1, 256),
+              ("whisper-tiny", {}, 1, 64),
+              ("deepseek-v2-lite-16b", dict(n_layers=1), 1, 128))
+LLM_FT_BF16 = (("hymba-1.5b", dict(n_layers=8), 4, 512, 3),
+               ("xlstm-125m", dict(n_layers=3, block_types=["m", "m", "s"]), 4, 512, 1),
+               ("whisper-tiny", {}, 4, 448, 3),
+               ("deepseek-v2-lite-16b", dict(n_layers=4), 4, 2048, 3))
+LLM_FT_LR = 1e-3
+LLM_FT_MOE_B, LLM_FT_MOE_S = 1, 512
 
 
 def require(cond, what):
@@ -442,12 +504,14 @@ def kernel_events(prof):
 
 def profile_launches(fn):
     """(wall ms, kernel launches, device-busy ms) of one call of ``fn`` under
-    torch.profiler (Memcpy / Memset events are not launches)."""
+    torch.profiler, tracing the card's activity alone (Memcpy / Memset
+    events are not launches; host-side events would only lengthen the wall
+    that the busy share divides by)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -3023,7 +3087,7 @@ def phase_warm(dev, b, single, multi, dist_cold, fused_cold, o4, nx=400):
 
 def phase_bicgstab(dev):
     """[bicgstab]: ILU(1) BiCGSTAB on poisson_2d(400) and on the
-    non-symmetric convection_diffusion_2d(400) at TOL. Where float32 stalls
+    non-symmetric convection_diffusion_2d(BICGSTAB_CD_NX) at TOL. Where float32 stalls
     above TOL (a verdict other than converged, or a float64 true residual
     above 2·TOL), the solve runs again at BICGSTAB_FALLBACK_TOL with the
     factor cached, and says so; the gate is the float64 true residual <=
@@ -3036,7 +3100,8 @@ def phase_bicgstab(dev):
 
     counts = None
     for name, make in (("poisson_2d(400)", lambda: poisson_2d(400)),
-                       ("convection_diffusion_2d(400)", lambda: convection_diffusion_2d(400))):
+                       (f"convection_diffusion_2d({BICGSTAB_CD_NX})",
+                        lambda: convection_diffusion_2d(BICGSTAB_CD_NX))):
         t0 = time.perf_counter()
         a = make()
         gen_s = time.perf_counter() - t0
@@ -3131,11 +3196,11 @@ def serve_traffic(svc, ids, n, seed):
     return res.records, res.responses, wall
 
 
-def phase_serve(dev, nx=400, nx_cd=128):
-    """[serve]: the multi-tenant solve service at full width. A
-    SolveService (device=dev, ILU(1), GMRES(30), maxiter 20, buckets
-    SERVE_BUCKETS) with three resident matrices — p0 = poisson_2d(nx) (the
-    main path's), p1 = the same structure with values x1.25 (sharing p0's
+def phase_serve(dev, nx=SERVE_NX, nx_cd=128):
+    """[serve]: the multi-tenant solve service. A SolveService
+    (device=dev, ILU(1), GMRES(30), maxiter 20, buckets SERVE_BUCKETS)
+    with three resident matrices — p0 = poisson_2d(nx) (the main path's
+    matrix, at SERVE_NX), p1 = the same structure with values x1.25 (sharing p0's
     engine) and cd = convection_diffusion_2d(nx_cd) — is warmed (each
     engine's bucket restarts captured as CUDA graphs), then serves
     SERVE_REQUESTS seeded requests of four tenants; between the first 24
@@ -3745,12 +3810,14 @@ def phase_llm_families(dev):
 
 def leaf_errors(got, want):
     """Per leaf of two JAX-layout trees (``convert.keyed_leaves``): (key,
-    max|diff|, max|want|, entries beyond LLM_TRAIN_REL·max|want|, size)."""
+    max|diff|, max|want|, entries beyond LLM_TRAIN_REL·max|want|, size),
+    computed on ``got``'s device."""
     from repro_torch.models.convert import keyed_leaves
 
     out = []
     for (key, a), (_, b) in zip(keyed_leaves(got), keyed_leaves(want)):
-        a, b = a.detach().float().cpu(), b.detach().float().cpu()
+        a = a.detach().float()
+        b = b.detach().float().to(a.device)
         err, scale = (a - b).abs(), float(b.abs().max())
         out.append((key, float(err.max()), scale, int((err > LLM_TRAIN_REL * scale).sum()),
                     err.numel()))
@@ -3758,80 +3825,157 @@ def leaf_errors(got, want):
 
 
 def train_grads(cfg, model, batch):
-    """The JAX-layout gradient of loss_fn at ``model``'s parameters, as the
-    train step takes it (one microbatch)."""
+    """(loss, the gradient of loss_fn at ``model``'s parameters in the
+    model's tree), as make_train_step takes them with one microbatch."""
     import torch
 
     from repro_torch.models import model as M
-    from repro_torch.models.convert import flatten, param_tree, tree_to_jax, unflatten
+    from repro_torch.models.convert import flatten, param_tree, unflatten
     from repro_torch.train.step import batch_to
 
     params = param_tree(M.trainable(model))
     with torch.enable_grad():
         loss = M.loss_fn(cfg, model, batch_to(batch, model.device))
         grads = torch.autograd.grad(loss, flatten(params))
-    return tree_to_jax(unflatten(params, grads))
+    return loss.detach(), unflatten(params, grads)
 
 
-def llm_train_f32(dev, arch):
-    """[llm-train] (a): the gradient and one float32 train step on the card
-    and on the CPU, from the same weights and batch. The gradients agree per
-    leaf within LLM_TRAIN_REL·max|g|, every entry; the updated parameters
-    within LLM_TRAIN_REL·max|p| but for at most LLM_TRAIN_OUTLIERS entries in
-    all, each within 2·lr (AdamW moves an entry whose gradient is near eps by
-    up to lr on tiny gradient differences)."""
-    import copy
-    import dataclasses
-
+def grad_leaves_differing(a, b):
+    """Keys of the leaves of two JAX-layout gradient trees that differ in
+    any bit."""
     import torch
 
-    from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import SyntheticLM
-    from repro_torch.models import model as M
-    from repro_torch.models.convert import param_tree, tree_to_jax
+    from repro_torch.models.convert import keyed_leaves
+
+    return [k for (k, x), (_, y) in zip(keyed_leaves(a), keyed_leaves(b))
+            if not torch.equal(x.view(torch.int32), y.view(torch.int32))]
+
+
+def caught_train_step(cfg, opt, model, batch):
+    """One step of make_train_step(cfg, opt) on ``model`` (one microbatch,
+    from a fresh optimizer state, in place), with the gradient that the step
+    hands to adamw.update caught on its way: (loss, grad_norm, lr, that
+    gradient in the model's tree)."""
+    from repro_torch.models.convert import param_tree
     from repro_torch.optim import adamw
     from repro_torch.train.step import make_train_step
 
-    cfg = dataclasses.replace(get_config(arch), n_layers=LLM_TRAIN_F32_LAYERS,
-                              param_dtype=torch.float32, act_dtype=torch.float32)
+    seen, real = [], adamw.update
+
+    def update(c, grads, state, params):
+        seen.append(grads)
+        return real(c, grads, state, params)
+
+    adamw.update = update
+    try:
+        _, _, m = make_train_step(cfg, opt)(model, adamw.init(param_tree(model)), batch)
+    finally:
+        adamw.update = real
+    return float(m["loss"]), float(m["grad_norm"]), float(m["lr"]), seen[0]
+
+
+def llm_train_f32(dev, tag, cfg, batch, phase="llm-train", seed=SEED + 50):
+    """[phase] (a): one float32 step of make_train_step on the card and on
+    the CPU, from the same weights (drawn on the card from ``seed``) and
+    ``batch`` (numpy; whisper's with its frames). The losses agree within
+    LLM_TRAIN_LOSS_REL; the gradients that the two steps hand to
+    adamw.update agree per leaf within LLM_TRAIN_REL·max|g|, every entry.
+    The update is held apart: the CPU's gradient goes through adamw.update
+    on the card from the same start, and those parameters agree with the
+    CPU step's within LLM_TRAIN_REL·max|p| but for at most
+    LLM_TRAIN_OUTLIERS entries in all, each within 2·lr. (The card step's
+    own parameters are printed against the CPU's, not gated: AdamW's first
+    step g/(|g| + eps) turns a gradient difference far inside the gradient
+    bound into up to 2·lr where the clipped gradient is near eps.) A second
+    backward on the card, at the same parameters, must give the step's
+    gradient bits: for the time scans' families (hymba, xLSTM) with the
+    scans unchunked (``scan_utils.REMAT_CHUNK`` = 1); for the others the
+    same computation again, and the leaves that differ are printed."""
+    import copy
+
+    import torch
+
+    from repro_torch.models import model as M
+    from repro_torch.models import scan_utils
+    from repro_torch.models.convert import (flatten, keyed_leaves, param_tree, tree_to_jax,
+                                            unflatten)
+    from repro_torch.optim import adamw
+
     opt = adamw.AdamWConfig(lr=LLM_TRAIN_LR, warmup_steps=LLM_TRAIN_WARMUP, total_steps=100)
-    cpu = M.Transformer(cfg, generator=torch.Generator().manual_seed(SEED + 50), device="cpu")
-    card = copy.deepcopy(cpu).to(dev)
-    batch = SyntheticLM(cfg.vocab_real, LLM_TRAIN_F32_S, LLM_TRAIN_F32_B).batch_at(0)
-    out = {}
-    for name, model in (("cpu", cpu), ("card", card)):
-        grads = train_grads(cfg, model, batch)
-        state = adamw.init(param_tree(model))
-        t0 = time.perf_counter()
-        model, state, m = make_train_step(cfg, opt)(model, state, batch)
-        loss, gnorm, lr = float(m["loss"]), float(m["grad_norm"]), float(m["lr"])
-        out[name] = (loss, gnorm, lr, grads, tree_to_jax(param_tree(model)),
-                     time.perf_counter() - t0)
-    (l0, g0, lr0, d0, p0, s0), (l1, g1, lr1, d1, p1, s1) = out["cpu"], out["card"]
-    g_errs, p_errs = leaf_errors(d1, d0), leaf_errors(p1, p0)
+    t_all = time.perf_counter()
+    card = M.Transformer(cfg, generator=torch.Generator(device=dev).manual_seed(seed), device=dev)
+    cpu = copy.deepcopy(card).to("cpu")
+    t_draw = time.perf_counter() - t_all
+    B, S = batch["tokens"].shape
+    t0 = time.perf_counter()
+    l0, g0, lr0, gcpu = caught_train_step(cfg, opt, cpu, batch)
+    s0 = time.perf_counter() - t0
+    d0, p0 = tree_to_jax(gcpu), tree_to_jax(param_tree(cpu))
+    del cpu
+    t0 = time.perf_counter()
+    scans = cfg.family in ("ssm", "hybrid")
+    chunk = scan_utils.REMAT_CHUNK
+    if scans:
+        scan_utils.REMAT_CHUNK = 1
+    try:
+        again = tree_to_jax(train_grads(cfg, card, batch)[1])
+    finally:
+        scan_utils.REMAT_CHUNK = chunk
+    start = unflatten(param_tree(card), [t.detach().clone() for t in flatten(param_tree(card))])
+    l1, g1, lr1, gcard = caught_train_step(cfg, opt, card, batch)
+    s1 = time.perf_counter() - t0
+    d1 = tree_to_jax(gcard)
+    del gcard
+    differ = grad_leaves_differing(d1, again)
+    n_leaves = len(keyed_leaves(d1))
+    del again
+    if scans:
+        say(f"[{phase}] (a) {tag}: the card step's gradient with chunked time scans (chunks of "
+            f"{scan_utils.chunk_size(S, chunk)}) against the plain loop's: {len(differ)} of "
+            f"{n_leaves} leaves differ in any bit"
+            + (f" ({', '.join(differ)})" if differ else "") + " (bound 0)")
+        require(not differ, f"[{phase}] (a) {tag}: chunking changed the gradient of {differ}")
+    else:
+        say(f"[{phase}] (a) {tag}: two identical backward passes on the card differ in "
+            f"{len(differ)} of {n_leaves} leaves" + (f" ({', '.join(differ)})" if differ else "")
+            + " (not gated)")
+    # the update alone: the CPU's gradient through adamw.update on the card, from the start
+    adamw.update(opt, unflatten(start, [g.to(dev) for g in flatten(gcpu)]),
+                 adamw.init(start), start)
+    del gcpu
+    t_cmp = time.perf_counter()
+    g_errs = leaf_errors(d1, d0)
+    del d1, d0
+    p_errs = leaf_errors(tree_to_jax(start), p0)
+    del start
+    own = sum(e[3] for e in leaf_errors(tree_to_jax(param_tree(card)), p0))
+    t_cmp = time.perf_counter() - t_cmp
     g_worst = max(g_errs, key=lambda e: e[1] / e[2])
     p_worst = max(p_errs, key=lambda e: e[1] / e[2])
     g_beyond, p_beyond = sum(e[3] for e in g_errs), sum(e[3] for e in p_errs)
     p_cap = max(e[1] for e in p_errs)
     size = sum(e[4] for e in p_errs)
-    say(f"[llm-train] (a) {arch} float32, d = {cfg.d_model}, {cfg.n_layers} layers, remat "
-        f"{cfg.remat}, B = {LLM_TRAIN_F32_B}, S = {LLM_TRAIN_F32_S}: one train step on the card "
-        f"({s1:.2f} s) and the CPU ({s0:.2f} s): loss {l1:.7f} / {l0:.7f} (rel "
-        f"{abs(l1 - l0) / abs(l0):.2e}, bound {LLM_TRAIN_LOSS_REL}), grad_norm {g1:.6f} / {g0:.6f}"
-        f" (rel {abs(g1 - g0) / g0:.2e}), lr {lr1:.3e}")
-    say(f"[llm-train] (a) gradients before the update: worst leaf {g_worst[0]} max|diff| "
+    say(f"[{phase}] (a) {tag} float32, remat {cfg.remat}, B = {B}, S = {S}: make_train_step on "
+        f"the card ({s1:.2f} s with the second backward) and the CPU ({s0:.2f} s): loss "
+        f"{l1:.7f} / {l0:.7f} (rel {abs(l1 - l0) / abs(l0):.2e}, bound {LLM_TRAIN_LOSS_REL}), "
+        f"grad_norm {g1:.6f} / {g0:.6f} (rel {abs(g1 - g0) / g0:.2e}), lr {lr1:.3e}")
+    say(f"[{phase}] (a) {tag} the steps' gradients: worst leaf {g_worst[0]} max|diff| "
         f"{g_worst[1]:.3e} = {g_worst[1] / g_worst[2]:.2e} x max|g|; {g_beyond} of {size} "
         f"entries beyond {LLM_TRAIN_REL} x max|g| of their leaf (bound 0)")
-    say(f"[llm-train] (a) updated parameters: worst leaf {p_worst[0]} max|diff| {p_worst[1]:.3e} "
-        f"= {p_worst[1] / p_worst[2]:.2e} x max|p|; {p_beyond} of {size} entries beyond "
-        f"{LLM_TRAIN_REL} x max|p| of their leaf (bound {LLM_TRAIN_OUTLIERS} in all), "
-        f"max|diff| {p_cap:.3e} (bound 2 x lr = {2 * lr0:.3e})")
-    require(abs(l1 - l0) <= LLM_TRAIN_LOSS_REL * abs(l0), "[llm-train] (a) loss, card != CPU")
-    require(abs(g1 - g0) <= LLM_TRAIN_REL * g0, "[llm-train] (a) grad_norm, card != CPU")
-    require(g_beyond == 0, "[llm-train] (a) gradients, card != CPU: "
+    say(f"[{phase}] (a) {tag} the CPU's gradient through adamw.update on the card against the "
+        f"CPU step: worst leaf {p_worst[0]} max|diff| {p_worst[1]:.3e} = "
+        f"{p_worst[1] / p_worst[2]:.2e} x max|p|; {p_beyond} of {size} entries beyond "
+        f"{LLM_TRAIN_REL} x max|p| of their leaf (bound {LLM_TRAIN_OUTLIERS} in all), max|diff| "
+        f"{p_cap:.3e} (bound 2 x lr = {2 * lr0:.3e}); the card step's own parameters: {own} "
+        "entries beyond (not gated)")
+    say(f"[time] {phase} (a) {tag}: {time.perf_counter() - t_all:.1f} s (weights drawn on the "
+        f"card and copied to the CPU {t_draw:.1f} s, the comparisons {t_cmp:.1f} s)")
+    require(abs(l1 - l0) <= LLM_TRAIN_LOSS_REL * abs(l0), f"[{phase}] (a) {tag} loss, card != CPU")
+    require(abs(g1 - g0) <= LLM_TRAIN_REL * g0, f"[{phase}] (a) {tag} grad_norm, card != CPU")
+    require(g_beyond == 0, f"[{phase}] (a) {tag} gradients, card != CPU: "
             + ", ".join(f"{k} {n} entries" for k, _, _, n, _ in g_errs if n))
     require(p_beyond <= LLM_TRAIN_OUTLIERS and p_cap <= 2 * lr0,
-            f"[llm-train] (a) parameters, card != CPU: {p_beyond} entries beyond the bound, "
+            f"[{phase}] (a) {tag} parameters, card != CPU: {p_beyond} entries beyond the bound, "
             f"max|diff| {p_cap:.3e}")
 
 
@@ -3918,7 +4062,10 @@ def phase_llm_train(dev):
     require(not torch.backends.cuda.matmul.allow_tf32, "[llm-train] float32 checks need TF32 off")
     arch = LLM_ARCH
     ops.reset_launch_counts()
-    llm_train_f32(dev, arch)
+    few = dataclasses.replace(get_config(arch), n_layers=LLM_TRAIN_F32_LAYERS,
+                              param_dtype=torch.float32, act_dtype=torch.float32)
+    llm_train_f32(dev, f"{arch}, d = {few.d_model}, {few.n_layers} layers", few,
+                  SyntheticLM(few.vocab_real, LLM_TRAIN_F32_S, LLM_TRAIN_F32_B).batch_at(0))
     # (b) the published size in bf16 through the training loop, checkpoints every 10
     cfg = get_config(arch)
     opt = adamw.AdamWConfig(lr=LLM_TRAIN_LR, warmup_steps=LLM_TRAIN_WARMUP,
@@ -3949,7 +4096,7 @@ def phase_llm_train(dev):
             f"{first:.4f}, last-five mean {last:.4f}")
         require(all(math.isfinite(v) for v in losses), "[llm-train] (b) a loss is not finite")
         require(last < first, f"[llm-train] (b) the loss did not fall: {first:.4f} -> {last:.4f}")
-        # (c) the step-21 checkpoint restored into a fresh model equals the live state
+        # (c) the last step's checkpoint restored into a fresh model equals the live state
         saved = sorted(d for d in os.listdir(ckpt) if d.startswith("step_"))
         require(latest_step(ckpt) == LLM_TRAIN_STEPS, f"[llm-train] (c) checkpoints {saved}")
         fresh = M.Transformer(cfg, generator=torch.Generator(device=dev).manual_seed(SEED + 51),
@@ -3967,7 +4114,8 @@ def phase_llm_train(dev):
                                   b.view(torch.int16) if b.dtype == torch.bfloat16 else b)]
         nbytes = sum(a.numel() * a.element_size() for a, _ in pairs)
         del got, fresh, like
-        # ... and the loop resumed from step 10 runs steps 10 and 11 as the first run did
+        # ... and the loop resumed from the first checkpoint runs its next two steps as the
+        # first run did
         resume = tempfile.mkdtemp(prefix="llm_resume_")
         step_dir = f"step_{LLM_TRAIN_SAVE:08d}"
         shutil.copytree(os.path.join(ckpt, step_dir), os.path.join(resume, step_dir))
@@ -4037,6 +4185,162 @@ def phase_llm_train(dev):
             f"[llm-train] (d) pipeline off the sequential stack: {y_err:.2e} / {g_err:.2e}")
     counts, _ = warm_counts()
     check_launches("llm-train", counts, (), idle=tuple(counts))
+    return counts
+
+
+def family_batch(cfg, B, S, seed):
+    """SyntheticLM's batch ``seed`` of B x S tokens (numpy), with B x
+    encoder_seq seeded frame embeddings for whisper."""
+    import numpy as np
+
+    from repro_torch.data.pipeline import SyntheticLM
+
+    batch = SyntheticLM(cfg.vocab_real, S, B).batch_at(seed)
+    if cfg.family == "audio":
+        batch["frames"] = (np.random.default_rng(seed).standard_normal(
+            (B, cfg.encoder_seq, cfg.d_model)) * 0.02).astype(np.float32)
+    return batch
+
+
+def moe_repeatability(dev, cfg, phase):
+    """The standalone ``moe_ffn`` at ``cfg``'s width, forward and backward
+    twice on the same inputs and cotangent (float32 and bf16): the
+    gradients of x and of every router, expert and shared-expert leaf must
+    agree bitwise."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.convert import keyed_leaves
+    from repro_torch.models.ffn import capacity, init_moe, moe_ffn
+
+    for dt in (torch.float32, torch.bfloat16):
+        c = dataclasses.replace(cfg, param_dtype=dt, act_dtype=dt)
+        g = torch.Generator(device=dev).manual_seed(SEED + 81)
+        p = init_moe(c, g, dev)
+        keyed = keyed_leaves(p)
+        for _, t in keyed:
+            t.requires_grad_(True)
+        x = torch.randn((LLM_FT_MOE_B, LLM_FT_MOE_S, c.d_model), generator=g, device=dev,
+                        dtype=dt).requires_grad_(True)
+        w = torch.randn(x.shape, generator=g, device=dev, dtype=dt)
+        leaves = [x] + [t for _, t in keyed]
+        runs = [torch.autograd.grad((moe_ffn(p, x, c) * w).float().sum(), leaves)
+                for _ in range(2)]
+        names = ["x"] + [k for k, _ in keyed]
+        view = torch.int16 if dt == torch.bfloat16 else torch.int32
+        differ = [n for n, a, b in zip(names, *runs) if not torch.equal(a.view(view), b.view(view))]
+        T = LLM_FT_MOE_B * LLM_FT_MOE_S
+        say(f"[{phase}] (a) moe_ffn at {cfg.arch}'s width ({c.n_routed_experts} experts of "
+            f"{c.d_expert}, top-{c.moe_top_k}, capacity {capacity(c, T)} slots for {T} tokens) "
+            f"in {str(dt).split('.')[-1]}: two identical backward passes differ in {len(differ)} "
+            f"of {len(names)} gradients" + (f" ({', '.join(differ)})" if differ else ""))
+        require(not differ, f"[{phase}] moe_ffn gradients not repeatable: {differ}")
+        del p, x, w, runs
+
+
+def llm_train_bf16(dev, phase, name, cfg, B, S, steps, seed):
+    """[phase] (b): ``cfg`` (its own bf16 and remat) drawn on the card from
+    ``seed``; one warm-up step and ``steps`` timed steps of
+    make_train_step on one seeded batch, the warm-up under the profiler.
+    Every loss finite, the last below the first. Returns the peak GiB of
+    the steps."""
+    import torch
+
+    from repro_torch.models import model as M
+    from repro_torch.models.convert import param_tree
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import batch_to, make_train_step
+
+    torch.cuda.empty_cache()
+    model = M.Transformer(cfg, generator=torch.Generator(device=dev).manual_seed(seed), device=dev)
+    n_params = sum(t.numel() for t in model.parameters())
+    batch = batch_to(family_batch(cfg, B, S, seed), dev)
+    state = adamw.init(param_tree(model))
+    step = make_train_step(cfg, adamw.AdamWConfig(lr=LLM_FT_LR, warmup_steps=1,
+                                                  total_steps=100))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    # the warm-up step runs under the profiler (launches and busy share), the rest timed
+    wall, launches, busy = profile_launches(
+        lambda: losses.append(float(step(model, state, batch)[2]["loss"])))
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        _, _, m = step(model, state, batch)
+        losses.append(float(m["loss"]))  # waits for the step
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_ms = statistics.median(ms)
+    say(f"[{phase}] (b) {name} bf16 ({cfg.n_layers} layers, d = {cfg.d_model}, {n_params} "
+        f"parameters), remat {cfg.remat}, B = {B} x S = {S}: {step_ms:.1f} ms per step (median "
+        f"of {steps} after the warm-up; min {min(ms):.1f}, max {max(ms):.1f}), "
+        f"{B * S * 1e3 / step_ms:.0f} tokens/s; peak memory allocated {peak:.2f} GiB; losses "
+        f"{' '.join(f'{v:.4f}' for v in losses)}")
+    say(f"[profile {phase}] {name} the warm-up bf16 train step under torch.profiler (the card's "
+        f"activity alone): wall "
+        f"{wall:.1f} ms, {launches} kernel launches, device busy {busy:.1f} ms "
+        f"({100 * busy / wall:.1f}% of wall)")
+    require(all(math.isfinite(v) for v in losses), f"[{phase}] (b) {name}: a loss is not finite")
+    require(losses[-1] < losses[0],
+            f"[{phase}] (b) {name}: the loss did not fall: {losses[0]:.4f} -> {losses[-1]:.4f}")
+    del model, state, batch
+    return peak
+
+
+def phase_llm_families_train(dev):
+    """[llm-families-train]: training of the MoE + MLA, hybrid SSM, xLSTM
+    and encoder-decoder families (loss_fn, the backward with layer remat and
+    chunked time scans, make_train_step) on the card."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+
+    phase = "llm-families-train"
+    require(not torch.backends.cuda.matmul.allow_tf32, f"[{phase}] float32 checks need TF32 off")
+    ops.reset_launch_counts()
+    free = subprocess.run(["free", "-g"], capture_output=True, text=True, timeout=60)
+    say(f"[{phase}] host memory (free -g): " + " | ".join(
+        " ".join(line.split()) for line in free.stdout.strip().splitlines()))
+    # (a) float32 card against CPU, one train step of each family at full width
+    for k, (name, changes, B, S) in enumerate(LLM_FT_F32):
+        cfg = dataclasses.replace(get_config(name), param_dtype=torch.float32,
+                                  act_dtype=torch.float32, **changes)
+        if cfg.n_routed_experts:
+            cfg = dataclasses.replace(cfg, moe_capacity_factor=float(cfg.n_routed_experts))
+            t0 = time.perf_counter()
+            moe_repeatability(dev, get_config(name), phase)
+            say(f"[time] {phase} (a) moe_ffn repeatability: {time.perf_counter() - t0:.1f} s")
+        layout = (f"blocks {''.join(cfg.block_types)}" if cfg.block_types
+                  else f"{cfg.n_layers} layers")
+        llm_train_f32(dev, f"{name} (d = {cfg.d_model}, {layout})", cfg,
+                      family_batch(cfg, B, S, k), phase=phase, seed=SEED + 80 + k)
+        torch.cuda.empty_cache()
+    # (b) bf16 train steps at full width, timed
+    for k, (name, changes, B, S, steps) in enumerate(LLM_FT_BF16):
+        cfg = dataclasses.replace(get_config(name), **changes)
+        t0 = time.perf_counter()
+        peak = llm_train_bf16(dev, phase, name, cfg, B, S, steps, SEED + 90 + k)
+        say(f"[time] {phase} (b) {name}: {time.perf_counter() - t0:.1f} s")
+        if cfg.family == "ssm":
+            from repro_torch.models import scan_utils
+
+            H = cfg.n_heads
+            hd = 2 * cfg.d_model // H
+            n_m = cfg.block_types.count("m")
+            n_pub = get_config(name).block_types.count("m")
+            per_block = 3 * B * H * hd * hd * 4 * S
+            say(f"[{phase}] (b) {name}: peak {peak:.2f} GiB with the mLSTM scans in chunks of "
+                f"{scan_utils.chunk_size(S, scan_utils.REMAT_CHUNK)} steps, against "
+                f"{per_block * n_m / 1e9:.1f} GB reckoned for the plain loop (3 float32 states "
+                f"of {B} x {H} x {hd} x {hd} kept per step, {S} steps, {n_m} mLSTM blocks; "
+                f"{per_block * n_pub / 1e9:.1f} GB at the published {n_pub})")
+        torch.cuda.empty_cache()
+    counts, _ = warm_counts()
+    check_launches(phase, counts, (), idle=tuple(counts))
     return counts
 
 
@@ -4120,6 +4424,8 @@ def run(oracles):
     lap("llm-train")
     by_path["llm-families"] = phase_llm_families(dev)
     lap("llm-families")
+    by_path["llm-families-train"] = phase_llm_families_train(dev)
+    lap("llm-families-train")
 
     for name, r in rows.items():
         path = ("main-inverse" if name == "inverse_chain"

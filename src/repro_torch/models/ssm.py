@@ -17,8 +17,12 @@ the decays and inputs of a block's steps are computed at once
 and one sum over (B, d_inner, N), and the readout C_t · h_t of the block's
 steps is one contraction after its loop. The state is carried from block
 to block, so memory is O(B · SCAN_BLOCK · d_inner · N) whatever S is
-(the JAX scan holds O(B · d_inner · N)). Decode is the same with S = 1,
-from the carried state.
+(the JAX scan holds O(B · d_inner · N)). Under a gradient a block's loop
+runs through ``scan_utils.chunked_remat_scan``, as the JAX scan does: its
+chunks of at most 128 steps keep their input state and their states for
+the readout, not each step's saved tensors. Prefill and decode (no
+gradient) run the plain loop; decode is the same with S = 1, from the
+carried state.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from . import scan_utils
 from .common import dense_init
 
 SCAN_BLOCK = 256  # time steps whose decays, inputs and states are held at once
@@ -64,20 +69,29 @@ def _causal_conv4(u, w, state=None):
     return y, ext[:, -3:]
 
 
+def _ssm_step(h, x):
+    """One step of the recurrence: h_t = decay_t ⊙ h_{t-1} + inp_t; the new
+    state is both the carry and the output."""
+    decay_t, inp_t = x
+    h = h * decay_t + inp_t
+    return h, h
+
+
 def _ssm_scan(u, dt_, B_, C_, a, h0):
     """u, dt_: (B,S,di); B_, C_: (B,S,N); a: (di,N) negative; h0: (B,di,N).
     Returns (h_S, y (B,S,di)). Runs in blocks of ``SCAN_BLOCK`` steps, the
-    state carried between them, so memory does not grow with S."""
+    state carried between them, so memory does not grow with S. A block's
+    steps go through ``chunked_remat_scan``: under a gradient, chunks of at
+    most ``scan_utils.REMAT_CHUNK`` steps keep their input state and their
+    output states (the readout's operand), and recompute the rest in the
+    backward; without one (prefill, decode) the plain loop."""
     h = h0
     ys = []
     for s in range(0, u.shape[1], SCAN_BLOCK):
         blk = slice(s, s + SCAN_BLOCK)
         decay = torch.exp(dt_[:, blk, :, None] * a)  # (B,T,di,N)
         inp = (dt_[:, blk] * u[:, blk])[..., None] * B_[:, blk, None, :]
-        hs = torch.empty_like(decay)
-        for t in range(decay.shape[1]):
-            h = h * decay[:, t] + inp[:, t]
-            hs[:, t] = h
+        h, hs = scan_utils.chunked_remat_scan(_ssm_step, h, (decay, inp))
         ys.append(torch.einsum("bsdn,bsn->bsd", hs, C_[:, blk]))
     return h, torch.cat(ys, dim=1)
 

@@ -16,15 +16,21 @@ scale):
 The gates and states are float32 whatever the model's dtype. The
 recurrences are loops over time (a decode step is one iteration from the
 carried state); the log-forget gates of every step are computed before the
-loop.
+loop. Under a gradient the loops run through
+``scan_utils.chunked_remat_scan``, as the JAX scans do: chunks of at most
+128 steps keep their input state and their outputs, and recompute each
+step's saved tensors (an mLSTM step's (B, H, hd, hd) states) in the
+backward. Prefill and decode (no gradient) run the plain loop.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 
+from . import scan_utils
 from .common import dense_init, rms_norm
 
 
@@ -56,23 +62,30 @@ def mlstm_state(cfg, batch, device):
             torch.zeros((batch, H), dtype=f32, device=device))
 
 
-def _mlstm_scan(q, k, v, i_pre, f_pre, state):
-    """q, k, v: (B,S,H,hd); i_pre, f_pre: (B,S,H); state (C, n, m)."""
+def _mlstm_step(state, x):
+    """One mLSTM step from (C, n, m) on (q_t, k_t, v_t, ĩ_t, log σ(f̃_t))."""
     C, n, m = state
+    qt, kt, vt, it, logf = x
+    m_new = torch.maximum(logf + m, it)
+    fg = torch.exp(logf + m - m_new)[..., None]  # (B,H,1)
+    ig = torch.exp(it - m_new)[..., None]
+    C = fg[..., None] * C + ig[..., None] * (vt[..., :, None] * kt[..., None, :])
+    n = fg * n + ig * kt
+    num = torch.matmul(C, qt[..., None])[..., 0]
+    den = torch.clamp(torch.abs(torch.sum(n * qt, dim=-1))[..., None], min=1.0)
+    return (C, n, m_new), num / den
+
+
+def _mlstm_scan(q, k, v, i_pre, f_pre, state):
+    """q, k, v: (B,S,H,hd); i_pre, f_pre: (B,S,H); state (C, n, m).
+    Returns (state, y (B,S,H,hd)). Under a gradient the steps run in
+    chunks of at most ``scan_utils.REMAT_CHUNK``, each keeping its input
+    state and outputs and recomputing its steps' states in the backward
+    (without chunking every step's C would be kept); prefill and decode
+    run the plain loop."""
     logf_all = F.logsigmoid(f_pre)  # the forget gate in log space
-    ys = []
-    for t in range(q.shape[1]):
-        qt, kt, vt, it, logf = q[:, t], k[:, t], v[:, t], i_pre[:, t], logf_all[:, t]
-        m_new = torch.maximum(logf + m, it)
-        fg = torch.exp(logf + m - m_new)[..., None]  # (B,H,1)
-        ig = torch.exp(it - m_new)[..., None]
-        C = fg[..., None] * C + ig[..., None] * (vt[..., :, None] * kt[..., None, :])
-        n = fg * n + ig * kt
-        num = torch.matmul(C, qt[..., None])[..., 0]
-        den = torch.clamp(torch.abs(torch.sum(n * qt, dim=-1))[..., None], min=1.0)
-        ys.append(num / den)
-        m = m_new
-    return (C, n, m), torch.stack(ys, dim=1)  # (B,S,H,hd)
+    return scan_utils.chunked_remat_scan(_mlstm_step, tuple(state),
+                                         (q, k, v, i_pre, logf_all))
 
 
 def mlstm_forward(p, x, cfg, state=None):
@@ -115,28 +128,34 @@ def slstm_state(cfg, batch, device):
                  for _ in range(4))
 
 
-def _slstm_scan(gx, r, state, H, hd):
-    """gx: (B,S,4d); r: (H,hd,4hd) float32; state (c, n, h, m), each (B,d)."""
+def _slstm_step(state, g_x, r, H, hd):
+    """One sLSTM step from (c, n, h, m) on the input gates ``g_x`` (B, 4d)."""
     c, n, h, m = state
-    B = gx.shape[0]
+    B = g_x.shape[0]
     d_ = H * hd
-    ys = []
-    for t in range(gx.shape[1]):
-        rec = torch.einsum("bhd,hde->bhe", h.reshape(B, H, hd), r)
-        # each head's 4·hd entries back into 4 gates of d
-        rec = rec.reshape(B, H, 4, hd).transpose(1, 2).reshape(B, 4 * d_)
-        g = gx[:, t] + rec
-        i_pre, f_pre, z_pre, o_pre = g[:, :d_], g[:, d_:2 * d_], g[:, 2 * d_:3 * d_], g[:, 3 * d_:]
-        logf = F.logsigmoid(f_pre)
-        m_new = torch.maximum(logf + m, i_pre)
-        ig = torch.exp(i_pre - m_new)
-        fg = torch.exp(logf + m - m_new)
-        c = fg * c + ig * torch.tanh(z_pre)
-        n = fg * n + ig
-        h = torch.sigmoid(o_pre) * c / torch.clamp(n, min=1.0)
-        m = m_new
-        ys.append(h)
-    return (c, n, h, m), torch.stack(ys, dim=1)
+    rec = torch.einsum("bhd,hde->bhe", h.reshape(B, H, hd), r)
+    # each head's 4·hd entries back into 4 gates of d
+    rec = rec.reshape(B, H, 4, hd).transpose(1, 2).reshape(B, 4 * d_)
+    g = g_x + rec
+    i_pre, f_pre, z_pre, o_pre = g[:, :d_], g[:, d_:2 * d_], g[:, 2 * d_:3 * d_], g[:, 3 * d_:]
+    logf = F.logsigmoid(f_pre)
+    m_new = torch.maximum(logf + m, i_pre)
+    ig = torch.exp(i_pre - m_new)
+    fg = torch.exp(logf + m - m_new)
+    c = fg * c + ig * torch.tanh(z_pre)
+    n = fg * n + ig
+    h = torch.sigmoid(o_pre) * c / torch.clamp(n, min=1.0)
+    return (c, n, h, m_new), h
+
+
+def _slstm_scan(gx, r, state, H, hd):
+    """gx: (B,S,4d); r: (H,hd,4hd) float32; state (c, n, h, m), each (B,d).
+    Returns (state, y (B,S,d)). Under a gradient the steps run in chunks of
+    at most ``scan_utils.REMAT_CHUNK``, each keeping its input state and
+    outputs and recomputing its steps in the backward; prefill and decode
+    run the plain loop."""
+    return scan_utils.chunked_remat_scan(functools.partial(_slstm_step, r=r, H=H, hd=hd),
+                                         tuple(state), gx)
 
 
 def slstm_forward(p, x, cfg, state=None):

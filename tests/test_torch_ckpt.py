@@ -8,7 +8,8 @@ loop's resume, against the JAX package's on-disk layout.
 * Both directions, float32, bitwise: what the port writes,
   ``repro.checkpoint.ckpt.restore`` reads back to the same bits and the
   same manifest entries; what the JAX package writes, the port restores
-  bitwise.
+  bitwise. Also for xlstm-125m (``blocks`` a list) and whisper-tiny (the
+  ``encoder``'s layers stacked) after two train steps on either side.
 * bf16, bitwise: the port's round trip, and a bf16 checkpoint written by
   the JAX package read by the port. (The JAX ``restore`` without
   ``shardings`` returns such leaves as 2-byte voids: a reference fault,
@@ -33,7 +34,7 @@ from repro_torch.optim import adamw
 from repro_torch.train.loop import train
 from repro_torch.train.step import make_train_step
 
-from test_torch_models import jax_params, port_config
+from test_torch_models import frames_of, jax_params, port_config
 
 
 def trained_state(cfg, seed=0, steps=2):
@@ -139,6 +140,86 @@ def test_jax_checkpoint_restores_in_the_port_bitwise(tmp_path):
             for path, leaf in jax.tree_util.tree_flatten_with_path(pair)[0]}
     got = dict(keyed_leaves((tree_to_jax(params), tree_to_jax(state))))
     assert got.keys() == want.keys()
+    for key, leaf in got.items():
+        assert np.array_equal(bits(leaf), np_bits(want[key])), key
+
+
+FAMILIES = ["xlstm-125m", "whisper-tiny"]
+
+
+def jax_key(path):
+    return "/".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path)
+
+
+def family_batches(cfg, n, seed):
+    """``n`` seeded train batches of 2 x 16 tokens (whisper's with frames)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        toks = rng.integers(0, cfg.vocab_real, (2, 17)).astype(np.int32)
+        batch = {"tokens": toks[:, :16], "labels": toks[:, 1:]}
+        if cfg.family == "audio":
+            batch["frames"] = frames_of(cfg, 2, seed + 1 + i)
+        out.append(batch)
+    return out
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_port_checkpoint_restores_in_jax_bitwise(tmp_path, arch):
+    import jax
+
+    from repro.checkpoint import ckpt as JC
+
+    _, tree = jax_params(arch, seed=83)
+    cfg = port_config(arch)
+    model = params_from_jax(cfg, tree, device="cpu")
+    state = adamw.init(param_tree(model))
+    step = make_train_step(cfg, adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10))
+    for batch in family_batches(cfg, 2, 84):
+        model, state, _ = step(model, state, batch)
+    save(str(tmp_path), 2, (param_tree(model), state))
+    got, manifest = JC.restore(str(tmp_path), None, jax_pair(tree))
+    assert manifest["step"] == 2 and int(got[1]["count"]) == 2
+    mine = dict(keyed_leaves((tree_to_jax(param_tree(model)), tree_to_jax(state))))
+    paths = jax.tree_util.tree_flatten_with_path(got)[0]
+    assert [jax_key(path) for path, _ in paths] == list(mine)
+    for path, leaf in paths:
+        key = jax_key(path)
+        assert leaf.dtype == mine[key].detach().numpy().dtype, key
+        assert np.array_equal(np_bits(leaf), bits(mine[key])), key
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_jax_checkpoint_restores_in_the_port_bitwise(tmp_path, arch):
+    import jax
+    import jax.numpy as jnp
+
+    from repro.checkpoint import ckpt as JC
+    from repro.optim import adamw as jadamw
+    from repro.train.step import make_train_step as jax_train_step
+
+    jcfg, tree = jax_params(arch, seed=85)
+    cfg = port_config(arch)
+    jstep = jax.jit(jax_train_step(jcfg, jadamw.AdamWConfig(lr=1e-3, warmup_steps=1,
+                                                            total_steps=10)))
+    params = jax.tree.map(jnp.asarray, tree)
+    jstate = jadamw.init(params)
+    for batch in family_batches(cfg, 2, 86):
+        params, jstate, _ = jstep(params, jstate, {k: jnp.asarray(v) for k, v in batch.items()})
+    JC.save(str(tmp_path), 5, (params, jstate))
+    model = M.Transformer(cfg, generator=torch.Generator().manual_seed(1), device="cpu")
+    like = (param_tree(model), adamw.init(param_tree(model)))
+    (got_params, state), manifest = restore(str(tmp_path), 5, like, device="cpu")
+    assert manifest["step"] == 5 and int(state["count"]) == 2
+    if cfg.family == "ssm":
+        assert isinstance(got_params["blocks"], list) and len(got_params["blocks"]) == len(
+            cfg.block_types)
+    else:
+        assert len(got_params["encoder"]["layers"]) == cfg.encoder_layers
+    want = {jax_key(path): leaf
+            for path, leaf in jax.tree_util.tree_flatten_with_path((params, jstate))[0]}
+    got = dict(keyed_leaves((tree_to_jax(got_params), tree_to_jax(state))))
+    assert list(got) == list(want)
     for key, leaf in got.items():
         assert np.array_equal(bits(leaf), np_bits(want[key])), key
 

@@ -9,9 +9,10 @@
   ``repro_torch.train.step``), one decode step each of a reduced
   deepseek-v2-lite (MoE, MLA) and whisper-tiny (after
   ``precompute_cross_kv``), a train step of it (two microbatches,
-  compressed gradients) and a checkpoint round trip, and imports the
-  pipeline and the training CLI, on the CPU; no ``repro`` module may get
-  loaded.
+  compressed gradients) and a checkpoint round trip, a train step of a
+  reduced xlstm-125m whose scans run in chunks (``models.scan_utils``), and
+  imports the pipeline and the training CLI, on the CPU; no ``repro``
+  module may get loaded.
 * No source file of the port (its examples included) mentions an import
   of jax or of ``repro``.
 * Without a GPU, the entry points (the training loop, its CLI, example
@@ -127,6 +128,14 @@ with tempfile.TemporaryDirectory() as d:
     save(d, 1, (param_tree(lm), state))
     got, _ = restore(d, 1, (param_tree(lm), state), device="cpu")
     assert all(torch.equal(a, b) for a, b in zip(flatten(got), flatten((param_tree(lm), state))))
+from repro_torch.models import scan_utils
+scan_utils.REMAT_CHUNK = 4  # the 8 steps in two chunks
+xcfg = get_config("xlstm-125m").reduced()
+xm = LM.Transformer(xcfg, generator=torch.Generator().manual_seed(2), device="cpu")
+xstate = adamw.init(param_tree(xm))
+xm, xstate, xmet = make_train_step(xcfg, adamw.AdamWConfig(lr=1e-3, warmup_steps=1))(
+    xm, xstate, SyntheticLM(xcfg.vocab_real, 8, 2).batch_at(0))
+assert int(xstate["count"]) == 1 and bool(torch.isfinite(xmet["grad_norm"]))
 bad = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert not bad, bad
 print("ISOLATED")
@@ -157,6 +166,7 @@ def test_no_source_file_imports_jax_or_repro():
             "checkpoint"} <= scanned
     assert ROOT / "examples" / "serve_decode_torch.py" in files
     assert ROOT / "examples" / "train_smollm_torch.py" in files
+    assert PORT / "models" / "scan_utils.py" in files
     for f in files:
         for no, line in enumerate(f.read_text().splitlines(), 1):
             assert not pat.search(line), f"{f.relative_to(ROOT)}:{no}: {line.strip()}"
