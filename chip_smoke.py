@@ -246,6 +246,22 @@ with a non-zero exit; nothing is caught):
     batch; ms per step, tokens/s, peak memory; every loss finite, the last
     below the first. The depths of (a) deepseek and (b) hymba and xLSTM
     are cut to keep the script inside its time limit on a slow host.
+25. dryrun — the dry-run side (``repro_torch.launch.dryrun``), in a
+    process of its own (``python3 chip_smoke.py --dryrun-phase``), since
+    its meshes run over a fake process group. (a) smollm-135m
+    ``decode_32k`` and deepseek-v2-lite-16b ``train_4k`` on the 16x16
+    production mesh end ``status: ok``: per-device bytes, the three
+    roofline terms on the H100 (floors) and the bottleneck. (b) On a 1x1
+    mesh, smollm-135m at its published size in bf16: the reckoned bytes of
+    its parameters, its AdamW moments and a B = 4 decode cache of
+    [llm-serve]'s length each equal the bytes that making them on the card
+    asks the allocator for, and its ``torch.cuda.memory_allocated()``
+    delta up to the allocator's rounding (512 B per tensor, and an unsplit
+    segment tail of ≤ 1 MiB for a tensor above 1 MiB). (c) [llm-train]'s bf16 step (B = 8, S = 2,048):
+    the FLOPs ``FlopCounterMode`` counts on the card equal the ``meta``
+    count exactly, and the dry run's H100 bound is at most the measured
+    step's wall (its share printed), beside the step's peak memory and the
+    dry run's arguments + temp.
 
 ``[time]`` lines give the seconds of each group of phases.
 
@@ -428,6 +444,14 @@ LLM_FT_BF16 = (("hymba-1.5b", dict(n_layers=8), 4, 512, 3),
                ("deepseek-v2-lite-16b", dict(n_layers=4), 4, 2048, 3))
 LLM_FT_LR = 1e-3
 LLM_FT_MOE_B, LLM_FT_MOE_S = 1, 512
+# [dryrun]: (a) the production-mesh cells, (b) the bytes reckoned on a 1x1 mesh
+# against the allocator (it rounds each block up to 512 B), (c) [llm-train]'s step
+DRYRUN_CELLS = (("smollm-135m", "decode_32k"), ("deepseek-v2-lite-16b", "train_4k"))
+DRYRUN_ROUNDING = 512
+# ... and where a tensor of more than 1 MiB leaves its segment a tail of at most 1 MiB,
+# the allocator hands the block over whole (its kSmallSize: a tail that small is not split)
+DRYRUN_UNSPLIT_TAIL = 1 << 20
+DRYRUN_TIMEOUT_S = 300
 
 
 def require(cond, what):
@@ -4344,6 +4368,137 @@ def phase_llm_families_train(dev):
     return counts
 
 
+def phase_dryrun():
+    """[dryrun]: the dry run in a process of its own (its meshes start a
+    fake process group); its lines are printed as they are."""
+    import torch
+
+    torch.cuda.empty_cache()
+    out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--dryrun-phase"],
+                         capture_output=True, text=True, timeout=DRYRUN_TIMEOUT_S)
+    for line in out.stdout.splitlines():
+        say(line)
+    require(out.returncode == 0 and "[dryrun] ok" in out.stdout,
+            f"[dryrun] exited {out.returncode}: {out.stderr[-3000:]}")
+
+
+def dryrun_allocated(what, make, reckoned, card):
+    """(b): the bytes ``make()`` asks the allocator for (its
+    ``requested_bytes``) equal ``reckoned``, and its ``memory_allocated``
+    delta exceeds them by no more than the allocator's rounding: 512 B per
+    tensor, and for a tensor of more than 1 MiB a segment tail of at most 1
+    MiB that it does not split off. Returns what ``make`` made."""
+    import torch
+
+    from repro_torch.models.convert import flatten
+
+    def now():
+        torch.cuda.synchronize()
+        return (torch.cuda.memory_allocated(),
+                torch.cuda.memory_stats()["requested_bytes.all.current"])
+
+    before = now()
+    made = make()
+    after = now()
+    delta, requested = after[0] - before[0], after[1] - before[1]
+    leaves = (list(made.parameters()) if isinstance(made, torch.nn.Module)
+              else [t for t in flatten(made) if torch.is_tensor(t)])
+    sizes = [t.numel() * t.element_size() for t in leaves]
+    slack = sum(DRYRUN_ROUNDING + (DRYRUN_UNSPLIT_TAIL if n > DRYRUN_UNSPLIT_TAIL else 0)
+                for n in sizes)
+    over = sum(n > DRYRUN_UNSPLIT_TAIL for n in sizes)
+    say(f"[dryrun] (b) {what}: reckoned {reckoned:,} B, {len(leaves)} tensors of {sum(sizes):,} "
+        f"B, requested {requested:,} B, allocated {delta:,} B (+{delta - reckoned:,}; "
+        f"{delta - reckoned - DRYRUN_ROUNDING * len(leaves):,} past 512 B per tensor, "
+        f"{over} tensors above 1 MiB) ({card})")
+    require(sum(sizes) == reckoned == requested,
+            f"[dryrun] (b) {what}: reckoned {reckoned} B, made {sum(sizes)} B, "
+            f"requested {requested} B")
+    require(0 <= delta - reckoned <= slack,
+            f"[dryrun] (b) {what}: allocated {delta} B against {reckoned} B reckoned")
+    return made
+
+
+def run_dryrun_phase():
+    """The body of [dryrun] (``python3 chip_smoke.py --dryrun-phase``)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import dryrun
+    from repro_torch.models import model as M
+    from repro_torch.models.convert import param_tree
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_step
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    card = smi.stdout.strip() or torch.cuda.get_device_name(0)
+    t0 = time.perf_counter()
+    # (a) the production-mesh cells, built on meta
+    for arch, shape in DRYRUN_CELLS:
+        r = dryrun.build_cell(arch, shape, False, {})
+        require(r.get("status") == "ok", f"[dryrun] (a) {arch} {shape}: {r}")
+        m = r["memory_stats"]
+        require(m["temp_bytes"] is not None, f"[dryrun] (a) {arch} {shape}: "
+                f"{r['temp_bytes_source']}")
+        say(f"[dryrun] (a) {arch} {shape} on {r['mesh']} ({r['chips']} chips): per device "
+            f"params {m['param_bytes']:,} B, optimizer {m['optimizer_bytes']:,} B, batch "
+            f"{m['batch_bytes']:,} B, cache {m['cache_bytes']:,} B, temp "
+            f"{m['temp_bytes']:,.0f} B (ceiling); fits 80 GB: {r['fits_hbm_80g']} "
+            f"({r['fits_hbm_80g_from']}); "
+            f"terms (floors, {r['hardware']['name']}) compute {r['compute_s']:.6g} s, memory "
+            f"{r['memory_s']:.6g} s, collective {r['collective_s']:.6g} s -> "
+            f"{r['bottleneck']}; FLOPs {r['flops_global']:.6g} counted, {r['model_flops']:.6g} "
+            f"model ({r['useful_ratio']:.3f}); passes {r['pass_a_s']} + {r['pass_b_s']} s "
+            f"({card})")
+    # (b) the bytes reckoned on a 1x1 mesh against the allocator
+    dev = torch.device("cuda")
+    cfg = get_config(LLM_ARCH)
+    mesh = ((1, 1), ("data", "model"))
+    train = dryrun.dry_run(cfg, (LLM_TRAIN_S, LLM_TRAIN_B, "train"), *mesh)
+    decode = dryrun.dry_run(cfg, (LLM_CACHE, LLM_B, "decode"), *mesh, {"skip_cost_pass": True})
+    gen = torch.Generator(device=dev).manual_seed(SEED + 90)
+    model = dryrun_allocated("parameters", lambda: M.Transformer(cfg, generator=gen, device=dev),
+                             train["memory_stats"]["param_bytes"], card)
+    state = dryrun_allocated("AdamW moments", lambda: adamw.init(param_tree(model)),
+                             train["memory_stats"]["optimizer_bytes"], card)
+    cache = dryrun_allocated(f"decode cache (B = {LLM_B}, {LLM_CACHE} slots)",
+                             lambda: M.init_cache(cfg, LLM_B, LLM_CACHE, device=dev),
+                             decode["memory_stats"]["cache_bytes"], card)
+    del cache
+    # (c) [llm-train]'s step: FLOPs counted on the card against meta, the bound's share
+    shape = (LLM_TRAIN_S, LLM_TRAIN_B, "train")
+    meta_flops = dryrun.count_flops(cfg, shape)
+    batch = SyntheticLM(cfg.vocab_real, LLM_TRAIN_S, LLM_TRAIN_B).batch_at(0)
+    step = make_train_step(cfg, adamw.AdamWConfig())
+    step(model, state, batch)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    step(model, state, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated()
+    with FlopCounterMode(display=False) as fc:
+        step(model, state, batch)
+    card_flops = float(fc.get_total_flops())
+    bound = max(train["compute_s"], train["memory_s"], train["collective_s"])
+    m = train["memory_stats"]
+    say(f"[dryrun] (c) {LLM_ARCH} bf16 train step B = {LLM_TRAIN_B}, S = {LLM_TRAIN_S}: FLOPs "
+        f"{card_flops:.9g} on the card, {meta_flops:.9g} on meta, {train['flops_global']:.9g} "
+        f"by the dry run's 1-and-2-layer extrapolation; H100 bound {bound * 1e3:.3f} ms "
+        f"({train['bottleneck']}) against a step of {wall * 1e3:.1f} ms: {100 * bound / wall:.2f}% "
+        f"of it; peak {peak / 2**30:.2f} GiB on the card, dry run arguments + temp "
+        f"{(m['argument_bytes'] + m['temp_bytes']) / 2**30:.2f} GiB ({card})")
+    require(card_flops == meta_flops,
+            f"[dryrun] (c) the card counted {card_flops} FLOPs, meta {meta_flops}")
+    require(bound <= wall, f"[dryrun] (c) the bound {bound} s exceeds the step's {wall} s")
+    say(f"[dryrun] ok in {time.perf_counter() - t0:.1f} s ({card})")
+    return 0
+
+
 def run(oracles):
     import torch
 
@@ -4426,6 +4581,8 @@ def run(oracles):
     lap("llm-families")
     by_path["llm-families-train"] = phase_llm_families_train(dev)
     lap("llm-families-train")
+    phase_dryrun()
+    lap("dryrun")
 
     for name, r in rows.items():
         path = ("main-inverse" if name == "inverse_chain"
@@ -4472,6 +4629,8 @@ def main():
     setup()
     if sys.argv[1:] == ["--dist-nccl"]:
         return run_dist_nccl()
+    if sys.argv[1:] == ["--dryrun-phase"]:
+        return run_dryrun_phase()
     # the sequential inverse oracles of phase 3b are pure Python (about a
     # minute for convection_diffusion_2d(32) at k=2); two worker processes
     # run them, the longest first, while the card works through phases 2-3.

@@ -8,8 +8,8 @@ package exports ``CONFIG`` (the published numbers) and the registry in
 
 Vocab sizes are padded to a multiple of 256; ``vocab_real`` keeps the
 published size, and the serving path slices the logits to it before the
-argmax. ``input_specs`` (the dry run's ``jax.ShapeDtypeStruct`` stand-ins)
-is not ported: the dry run is a later slice.
+argmax. ``input_specs`` gives the dry run its inputs as ``meta`` tensors,
+where the JAX package gives ``jax.ShapeDtypeStruct`` stand-ins.
 """
 from __future__ import annotations
 
@@ -30,6 +30,17 @@ SHAPES: Dict[str, Tuple[int, int, str]] = {
     "decode_32k": (32768, 128, "decode"),
     "long_500k": (524288, 1, "decode"),
 }
+
+
+def resolve_shape(shape) -> Tuple[int, int, str]:
+    """(seq_len, global_batch, kind) of a ``SHAPES`` name, or of such a
+    triple given as it is."""
+    if isinstance(shape, str):
+        return SHAPES[shape]
+    seq, gbatch, kind = shape
+    if kind not in ("train", "prefill", "decode"):
+        raise ValueError(f"shape kind {kind!r}: expected train, prefill or decode")
+    return int(seq), int(gbatch), kind
 
 
 @dataclasses.dataclass
@@ -161,8 +172,31 @@ class ModelConfig:
         active = emb + head + L * per_layer_active + enc
         return {"total": total, "active": active, "embedding": emb + head}
 
-    def cache_len(self, shape_name: str) -> int:
-        seq, _, _ = SHAPES[shape_name]
+    # ---------------- shape/input specs -----------------------------------
+    def input_specs(self, shape, device="meta") -> Dict[str, torch.Tensor]:
+        """Every model input of ``shape`` (a ``SHAPES`` name or a (seq,
+        batch, kind) triple) as an empty tensor on ``device``, ``meta`` by
+        default: tokens and labels (B, S) int32, plus vision_embeds (vlm) or
+        frames (audio) in the activation dtype; for decode, one new token
+        (B, 1) (and the frames) against a seq-long cache."""
+        seq, gbatch, kind = resolve_shape(shape)
+
+        def empty(*dims, dtype=self.act_dtype):
+            return torch.empty(dims, dtype=dtype, device=device)
+
+        if kind in ("train", "prefill"):
+            specs = {"tokens": empty(gbatch, seq, dtype=torch.int32),
+                     "labels": empty(gbatch, seq, dtype=torch.int32)}
+            if self.family == "vlm":
+                specs["vision_embeds"] = empty(gbatch, self.vision_patches, self.d_model)
+        else:
+            specs = {"tokens": empty(gbatch, 1, dtype=torch.int32)}
+        if self.family == "audio":
+            specs["frames"] = empty(gbatch, self.encoder_seq, self.d_model)
+        return specs
+
+    def cache_len(self, shape) -> int:
+        seq, _, _ = resolve_shape(shape)
         if self.sliding_window is not None:
             return min(seq, self.sliding_window)
         return seq

@@ -2,6 +2,8 @@
 
 The port runs on a CUDA device unless the caller asks for the CPU. The CPU
 runs the plain PyTorch version of every kernel; it is what the tests use.
+The ``meta`` device (shapes and dtypes, no storage) is what the dry run
+builds its cells on; it is taken only when the caller names it.
 """
 from __future__ import annotations
 
@@ -11,11 +13,12 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` means ``"cuda"``. Raises when CUDA is asked for (or implied)
-    and no GPU is present: the port never falls back to the CPU quietly."""
+    """``None`` means ``"cuda"``; ``"cpu"`` and ``"meta"`` are taken when
+    named. Raises when CUDA is asked for (or implied) and no GPU is present:
+    the port never falls back to the CPU quietly."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"repro_torch runs on 'cuda' or 'cpu', got {dev}")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"repro_torch runs on 'cuda', 'cpu' or 'meta', got {dev}")
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "repro_torch runs on a CUDA device by default and none is available; "

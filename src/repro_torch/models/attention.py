@@ -19,9 +19,10 @@ computing what the JAX package computes:
   the latent (q/k heads of nope + rope, v heads of ``mla_v_dim``); the
   decode is the absorbed form: W_uk folded into the query, the scores and
   the latent output in float32, W_uv applied after.
-
-The ``unroll_prefix`` cost-pass form is not ported (ROADMAP Queue A item
-13d).
+* ``unroll_prefix`` (``cfg.attn_unroll``, the dry run's cost pass) is the
+  JAX package's cost form: per query chunk one block over the whole
+  statically sliced prefix of keys, with the causal and window mask over
+  it and one softmax, so that each product is one counted matmul.
 """
 from __future__ import annotations
 
@@ -64,10 +65,12 @@ def _pick(size, c):
 
 
 def chunked_attention(q, k, v, positions_q=None, positions_kv=None, *, causal: bool = True,
-                      window: Optional[int] = None, q_chunk: int = 1024, kv_chunk: int = 1024):
+                      window: Optional[int] = None, q_chunk: int = 1024, kv_chunk: int = 1024,
+                      unroll_prefix: bool = False):
     """Flash-style attention. Shapes: q (B,S,H,D), k/v (B,Skv,Hkv,Dv);
     positions_q (S,), positions_kv (Skv,) (default: 0, 1, ...), read only
-    when ``causal``."""
+    when ``causal``. ``unroll_prefix``: one block per query chunk over its
+    whole prefix of keys in place of the walk over KV chunks."""
     B, S, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     Dv = v.shape[-1]
@@ -81,26 +84,36 @@ def chunked_attention(q, k, v, positions_q=None, positions_kv=None, *, causal: b
     if causal and positions_kv is None:
         positions_kv = torch.arange(Skv, device=q.device)
 
+    def mask_of(qi, lo, hi):
+        """Where chunk qi's queries may see the keys of chunks lo..hi-1."""
+        if not causal:
+            return None
+        pos_q = positions_q[qi * cq:(qi + 1) * cq]
+        pos_k = positions_kv[lo * ck:hi * ck]
+        mask = pos_q[None, :, None] >= pos_k[None, None, :]
+        if window is not None:
+            mask &= pos_q[None, :, None] - pos_k[None, None, :] < window
+        return mask
+
     outs = []
     for qi in range(nq):
         qs = q[:, qi * cq:(qi + 1) * cq]
         # static causal prefix: kv chunks lo..hi-1; a sliding window skips below lo
         hi = min(nk, ((qi + 1) * cq + ck - 1) // ck) if causal else nk
         lo = max(0, (qi * cq - window) // ck) if causal and window is not None else 0
+        if unroll_prefix:
+            _, l_b, o_b = _attend_block(qs, k[:, lo * ck:hi * ck], v[:, lo * ck:hi * ck],
+                                        scale, mask_of(qi, lo, hi))
+            o = o_b / torch.clamp(l_b[..., None], min=1e-30)
+            outs.append(o.reshape(B, cq, H, Dv).to(q.dtype))
+            continue
         m_run = torch.full((B, cq, Hkv, g), NEG_INF, dtype=torch.float32, device=q.device)
         l_run = torch.zeros((B, cq, Hkv, g), dtype=torch.float32, device=q.device)
         o_run = torch.zeros((B, cq, Hkv, g, Dv), dtype=torch.float32, device=q.device)
         for kc in range(lo, hi):
             ks = k[:, kc * ck:(kc + 1) * ck]
             vs = v[:, kc * ck:(kc + 1) * ck]
-            mask = None
-            if causal:
-                pos_q = positions_q[qi * cq:(qi + 1) * cq]
-                pos_k = positions_kv[kc * ck:(kc + 1) * ck]
-                mask = pos_q[None, :, None] >= pos_k[None, None, :]
-                if window is not None:
-                    mask &= pos_q[None, :, None] - pos_k[None, None, :] < window
-            m_b, l_b, o_b = _attend_block(qs, ks, vs, scale, mask)
+            m_b, l_b, o_b = _attend_block(qs, ks, vs, scale, mask_of(qi, kc, kc + 1))
             m_new = torch.maximum(m_run, m_b)
             a1 = torch.exp(m_run - m_new)
             a2 = torch.exp(m_b - m_new)
@@ -187,13 +200,15 @@ def gqa_attention(p, x, cfg, positions=None, cross_kv=None):
         q = q.reshape(B, S, H, hd)
         k = (cross_kv @ p["wk"]).reshape(B, T, Hkv, hd)
         v = (cross_kv @ p["wv"]).reshape(B, T, Hkv, hd)
-        o = chunked_attention(q, k, v, causal=False, q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+        o = chunked_attention(q, k, v, causal=False, q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
+                              unroll_prefix=cfg.attn_unroll)
         return o.reshape(B, S, -1) @ p["wo"]
     if positions is None:
         positions = torch.arange(S, device=x.device)
     q, k, v = gqa_project_qkv(p, x, cfg, positions)
     o = chunked_attention(q, k, v, positions, positions, window=cfg.sliding_window,
-                          q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+                          q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
+                          unroll_prefix=cfg.attn_unroll)
     return o.reshape(B, S, -1) @ p["wo"]
 
 
@@ -270,7 +285,7 @@ def mla_attention(p, x, cfg, positions=None):
     qf = torch.cat([q_nope, q_rope], dim=-1)
     kf = torch.cat([k_nope, k_rope.expand(B, S, H, dr)], dim=-1)
     o = chunked_attention(qf, kf, v, positions, positions, q_chunk=cfg.q_chunk,
-                          kv_chunk=cfg.kv_chunk)
+                          kv_chunk=cfg.kv_chunk, unroll_prefix=cfg.attn_unroll)
     return o.reshape(B, S, H * dv) @ p["wo"]
 
 

@@ -1,11 +1,17 @@
-"""Shared model building blocks: norms, RoPE, init, activations, the loss.
+"""Shared model building blocks: norms, RoPE, init, activations, the loss,
+and the logical mesh the layers read.
 
 The port's copy of ``repro.models.common``'s arithmetic. Every function
 keeps the JAX version's casts: the norms and the rope compute in float32
 and cast back to the activation dtype, and the norms multiply by their
-scale after the cast back. The JAX package's sharding helpers
-(``logical_mesh``, ``maybe_shard``, ``mesh_axis_size``) are not ported: the
-port serves on one card, and the layers call nothing in their place.
+scale after the cast back.
+
+``logical_mesh(axis_sizes)`` sets the axis sizes of a logical mesh for
+the code inside it, and ``mesh_axis_size(name)`` reads one (1 outside a
+mesh, or for an axis the mesh lacks): the MoE routes in one dispatch group
+per data-parallel shard, as the JAX package's does under its mesh. The
+JAX package's ``maybe_shard`` only places activations on its mesh; the
+port's layers run on unsharded tensors, so nothing stands in its place.
 
 The ``*_init`` helpers draw from an explicit ``torch.Generator`` on the
 device the tensor is made on (``generator=None`` only for the ``meta``
@@ -13,11 +19,36 @@ device, which draws nothing).
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional
+from typing import Mapping, Optional
 
 import torch
 import torch.nn.functional as F
+
+
+# --------------------------------------------------------------------------
+# the logical mesh
+# --------------------------------------------------------------------------
+_AXIS_SIZES: Mapping[str, int] = {}  # set by logical_mesh()
+
+
+@contextlib.contextmanager
+def logical_mesh(axis_sizes: Mapping[str, int]):
+    """Within the block, ``mesh_axis_size`` reads ``axis_sizes`` ({axis
+    name: size}, as ``launch.mesh.mesh_axis_sizes`` gives them)."""
+    global _AXIS_SIZES
+    prev = _AXIS_SIZES
+    _AXIS_SIZES = dict(axis_sizes)
+    try:
+        yield _AXIS_SIZES
+    finally:
+        _AXIS_SIZES = prev
+
+
+def mesh_axis_size(name: str) -> int:
+    """Size of an axis of the active logical mesh (1 if absent)."""
+    return int(_AXIS_SIZES.get(name, 1))
 
 
 # --------------------------------------------------------------------------

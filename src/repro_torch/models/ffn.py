@@ -4,9 +4,13 @@ The port's copy of ``repro.models.ffn``. The MoE keeps the JAX package's
 **sort-based dropping dispatch**: each token's top-k assignments are
 stably sorted by expert, positioned by a cumulative count, and gathered
 into an (E, C, d) buffer; an expert's assignments past its capacity C are
-dropped (the later ones in the sort). On one device the whole batch is one
-dispatch group (the JAX ``G`` is 1 wherever no mesh is set), so C is
-``max(ceil(T·K/E·capacity_factor), 1)`` over the T = B·S tokens.
+dropped (the later ones in the sort). The T = B·S tokens route in G
+dispatch groups, one per data-parallel shard of the logical mesh
+(``G = mesh_axis_size("pod") · mesh_axis_size("data")``, halved while it
+does not divide B): each group of T/G tokens has its own sort, its own
+capacity ``C = max(ceil((T/G)·K/E·capacity_factor), 1)`` and its own
+combine, as the JAX package's local dispatch. Outside a logical mesh G is
+1, the whole batch one group.
 
 Three details keep the port on the JAX package's choices:
 
@@ -29,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from .attention import NEG_INF
-from .common import dense_init, gelu, swiglu
+from .common import dense_init, gelu, mesh_axis_size, swiglu
 
 
 # --------------------------------------------------------------------------
@@ -119,39 +123,63 @@ def _route_group(xt, gate, cfg, C):
 
 
 def _combine(y_assign, sorted_t, T, K):
-    """(T, d): per token, the sum of its K rows of ``y_assign`` (one per
-    sorted assignment; ``sorted_t`` their tokens), added in the sorted order
-    left to right from zero in ``y_assign``'s dtype: JAX's sequential
+    """(..., T, d): per token, the sum of its K rows of ``y_assign`` (one per
+    sorted assignment; ``sorted_t`` (..., T·K) their tokens, per group of a
+    leading axis if there is one), added in the sorted order left to right
+    from zero in ``y_assign``'s dtype: JAX's sequential
     ``zeros.at[sorted_t].add(y_assign)``, with no atomics."""
-    mine = torch.sort(sorted_t, stable=True).indices.reshape(T, K)  # token t's, ascending
-    contrib = y_assign[mine]  # (T, K, d)
-    y = torch.zeros((T, y_assign.shape[1]), dtype=y_assign.dtype, device=y_assign.device)
+    lead = sorted_t.shape[:-1]
+    mine = torch.sort(sorted_t, dim=-1, stable=True).indices  # token t's, ascending
+    # one gather over every group: group g's rows start at g·T·K
+    mine = mine + torch.arange(mine.numel() // (T * K), device=mine.device).reshape(
+        *lead, 1) * (T * K)
+    d = y_assign.shape[-1]
+    contrib = y_assign.reshape(-1, d)[mine.reshape(-1)].reshape(*lead, T, K, d)
+    y = torch.zeros((*lead, T, d), dtype=y_assign.dtype, device=y_assign.device)
     for k in range(K):
-        y = y + contrib[:, k]
+        y = y + contrib[..., k, :]
     return y
 
 
+def dispatch_groups(B: int, T: int) -> int:
+    """The MoE's dispatch groups for a batch of B sequences, T tokens: one
+    per data-parallel shard of the logical mesh, halved while it does not
+    divide B (JAX's ``moe_ffn``)."""
+    G = mesh_axis_size("pod") * mesh_axis_size("data")
+    while G > 1 and (B % G or (T // G) < 1):
+        G //= 2
+    return G
+
+
 def moe_ffn(p, x, cfg):
-    """x: (B, S, d) -> (B, S, d). Top-k routing of the B·S tokens as one
-    group, the experts' SwiGLU as batched products over (E, C, d), and the
-    shared experts' MLP added to every token."""
+    """x: (B, S, d) -> (B, S, d). Top-k routing of the B·S tokens in
+    ``dispatch_groups`` groups, the experts' SwiGLU as batched products over
+    (E, G·C, d), and the shared experts' MLP added to every token."""
     B, S, d = x.shape
     T = B * S
     E, K = padded_experts(cfg), cfg.moe_top_k
-    C = capacity(cfg, T)
+    G = dispatch_groups(B, T)
+    Tg = T // G
+    C = capacity(cfg, Tg)
     xt = x.reshape(T, d)
-    tok_for_slot, sorted_t, sorted_w, keep, slot = _route_group(xt, p["gate"], cfg, C)
+    xg = xt.reshape(G, Tg, d)
+    routes = [_route_group(xg[g], p["gate"], cfg, C) for g in range(G)]
+    tok, sorted_t, sorted_w, keep, slot = (torch.stack(r) for r in zip(*routes))  # (G, ...)
+    group = torch.arange(G, device=x.device)[:, None]
 
-    x_pad = torch.cat([xt, xt.new_zeros((1, d))])
-    xe = x_pad[tok_for_slot].reshape(E, C, d)
+    # one gather of every group's slots from its own tokens (Tg: the zero row)
+    x_pad = torch.cat([xg, xg.new_zeros((G, 1, d))], dim=1).reshape(G * (Tg + 1), d)
+    xe = x_pad[tok + group * (Tg + 1)]  # (G, E·C, d)
+    xe = xe.reshape(G, E, C, d).transpose(0, 1).reshape(E, G * C, d)
     h = F.silu(torch.bmm(xe, p["w_gate"])) * torch.bmm(xe, p["w_up"])
-    ye = torch.bmm(h, p["w_down"]).reshape(E * C, d)
+    ye = torch.bmm(h, p["w_down"]).reshape(E, G, C, d).transpose(0, 1).reshape(G * E * C, d)
 
     # combine: each kept assignment's expert output times its weight, and
     # per token its K contributions added in sorted (ascending expert) order
-    y_assign = torch.where(keep[:, None], ye[torch.clamp(slot, max=E * C - 1)], 0.0)
-    y_assign = (y_assign * sorted_w[:, None].to(ye.dtype)).to(x.dtype)
-    y = _combine(y_assign, sorted_t, T, K)
+    y_assign = ye[torch.clamp(slot, max=E * C - 1) + group * (E * C)]  # (G, Tg·K, d)
+    y_assign = torch.where(keep[..., None], y_assign, 0.0)
+    y_assign = (y_assign * sorted_w[..., None].to(ye.dtype)).to(x.dtype)
+    y = _combine(y_assign, sorted_t, Tg, K).reshape(T, d)
     if cfg.n_shared_experts:
         y = y + mlp(p["shared"], xt, cfg)
     return y.reshape(B, S, d)

@@ -193,7 +193,7 @@ def _encode_audio(cfg, p, frames):
         h = apply_norm(enc_cfg, lp["attn_norm"], x)
         q, k, v = gqa_project_qkv(lp["attn"], h, enc_cfg, positions)
         o = chunked_attention(q, k, v, causal=False, q_chunk=enc_cfg.q_chunk,
-                              kv_chunk=enc_cfg.kv_chunk)
+                              kv_chunk=enc_cfg.kv_chunk, unroll_prefix=enc_cfg.attn_unroll)
         x = x + o.reshape(B, T, -1) @ lp["attn"]["wo"]
         return x + mlp(lp["mlp"], apply_norm(enc_cfg, lp["mlp_norm"], x), enc_cfg)
 

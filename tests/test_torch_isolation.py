@@ -10,14 +10,18 @@
   deepseek-v2-lite (MoE, MLA) and whisper-tiny (after
   ``precompute_cross_kv``), a train step of it (two microbatches,
   compressed gradients) and a checkpoint round trip, a train step of a
-  reduced xlstm-125m whose scans run in chunks (``models.scan_utils``), and
-  imports the pipeline and the training CLI, on the CPU; no ``repro``
-  module may get loaded.
+  reduced xlstm-125m whose scans run in chunks (``models.scan_utils``),
+  imports the pipeline and the training CLI, and runs one reduced dry-run
+  cell (deepseek, train) on the (2,4) mesh (``launch.mesh``,
+  ``launch.sharding``, ``launch.dryrun``, ``roofline.analysis``,
+  ``core.perf_model``), on the CPU; no ``repro`` module may get loaded.
 * No source file of the port (its examples included) mentions an import
   of jax or of ``repro``.
 * Without a GPU, the entry points (the training loop, its CLI, example
   and ``restore`` included) raise unless the caller passes
-  ``device="cpu"``; and ``chip_smoke.py`` fails without printing a result.
+  ``device="cpu"``, and ``resolve_device(None)`` raises; ``"meta"`` is
+  taken only when named; and ``chip_smoke.py`` fails without printing a
+  result.
 """
 import os
 import re
@@ -136,6 +140,14 @@ xstate = adamw.init(param_tree(xm))
 xm, xstate, xmet = make_train_step(xcfg, adamw.AdamWConfig(lr=1e-3, warmup_steps=1))(
     xm, xstate, SyntheticLM(xcfg.vocab_real, 8, 2).batch_at(0))
 assert int(xstate["count"]) == 1 and bool(torch.isfinite(xmet["grad_norm"]))
+import dataclasses
+import torch.distributed as dist
+import repro_torch.launch.mesh, repro_torch.launch.sharding, repro_torch.roofline.analysis
+import repro_torch.core.perf_model
+from repro_torch.launch.dryrun import dry_run
+dcfg = dataclasses.replace(get_config("deepseek-v2-lite-16b").reduced(), q_chunk=16, kv_chunk=16)
+cell = dry_run(dcfg, (32, 4, "train"), (2, 4), ("data", "model"), {"zero1": True})
+assert cell["status"] == "ok" and cell["flops_global"] > 0 and not dist.is_initialized(), cell
 bad = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert not bad, bad
 print("ISOLATED")
@@ -163,10 +175,12 @@ def test_no_source_file_imports_jax_or_repro():
     assert len(files) > 10
     scanned = {f.relative_to(PORT).parts[0] for f in files if PORT in f.parents}
     assert {"configs", "models", "train", "core", "kernels", "serve", "optim", "data",
-            "checkpoint"} <= scanned
+            "checkpoint", "launch", "roofline"} <= scanned
     assert ROOT / "examples" / "serve_decode_torch.py" in files
     assert ROOT / "examples" / "train_smollm_torch.py" in files
     assert PORT / "models" / "scan_utils.py" in files
+    assert {PORT / "launch" / "dryrun.py", PORT / "roofline" / "analysis.py",
+            PORT / "core" / "perf_model.py", ROOT / "examples" / "quickstart_torch.py"} <= set(files)
     for f in files:
         for no, line in enumerate(f.read_text().splitlines(), 1):
             assert not pat.search(line), f"{f.relative_to(ROOT)}:{no}: {line.strip()}"
@@ -216,6 +230,7 @@ def test_distributed_entry_points_raise_without_gpu(monkeypatch):
 
 def test_model_entry_points_raise_without_gpu(monkeypatch):
     from repro_torch.configs import get_config
+    from repro_torch.core.device import resolve_device
     from repro_torch.models import model as M
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -225,6 +240,11 @@ def test_model_entry_points_raise_without_gpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         M.init_cache(cfg, 1, 4)
     assert M.Transformer(cfg, generator=torch.Generator(), device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device(None)
+    assert resolve_device("meta").type == "meta"
+    meta = M.Transformer(cfg, device="meta", params=M.init_params(cfg, None, torch.device("meta")))
+    assert meta.device.type == "meta" and M.init_cache(cfg, 1, 4, device="meta")["kv"]["k"].is_meta
     out = subprocess.run([sys.executable, str(ROOT / "examples" / "serve_decode_torch.py"),
                           "--tokens", "2"], env={**_child_env(), "CUDA_VISIBLE_DEVICES": ""},
                          cwd=ROOT, capture_output=True, text=True, timeout=300)
