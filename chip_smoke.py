@@ -127,17 +127,33 @@ with a non-zero exit; nothing is caught):
 15b. dist-ranks — the band owners as 4 processes (``run_ranks``, gloo
     ranks all on this card, each exchange staged through pinned host
     memory; ``DistBandGroup``) on ``poisson_2d(128)`` (cut from 400 to make
-    room for [llm-train]): the fusion-ordered ``solve_sharded`` for 2
-    restarts (a gloo collective costs ~6 ms there), with ``x`` on every
+    room for [llm-train]): the fusion-ordered ``solve_sharded`` for 1
+    restart (a gloo collective costs ~6 ms there), with ``x`` on every
     rank bitwise equal to a one-card run of the same call, the same steps,
     restarts, verdict and group counts, one ``superstep_factor`` launch per
     superstep (127) and one ``epoch_sweep`` launch per run of levels;
     the natural factorization by the ring (258 supersteps) bitwise equal
     to the one-card factorization over 4 owners, one sweep apply and one
     inverse apply equal to the one-card applies; per rank the factor,
-    solve and collective walls and the bytes staged. 15c. dist-nccl — the same fusion solve over
-    NCCL ranks, one card each, where the machine has two cards or more;
-    otherwise one line says why it did not run.
+    solve and collective walls and the bytes staged. Then, in the same
+    ranks, [serve-ranks]: the solve service over them (``serve_rank``;
+    rank 0 leads a ``SolveService`` over ``ServeConfig(group=...)``, the
+    others follow): (i) the inverse method on ``poisson_2d(128)``,
+    GMRES(30), 12 requests of two tenants in bursts of 1-4 at tol 1e-4
+    around one background value update; (ii) the sweep on the CPU tests'
+    traffic (``matgen(256)``, GMRES(8), 16 requests); every request
+    completed, nothing built or captured after warm-up, every follower's
+    solve digests equal rank 0's, every response bitwise equal to one
+    card's ``ShardedServeEngine`` over 4 owners on its value version, and
+    ``spmv_ell``, ``epoch_sweep`` and ``superstep_factor`` launched; per
+    part solves/s, p50 and p99, collectives and staged bytes per batch.
+    15c. dist-nccl — the same fusion solve over NCCL ranks, one card
+    each, and with four cards [serve-ranks]' services over them, where
+    the machine has two cards or more; otherwise one line says why it did
+    not run. 15d. pipeline-demo — ``examples/ilu_pipeline_demo_torch.py``'s
+    8 band owners on the card: ``topilu_numeric`` under psum and ring,
+    each bitwise equal to ``numeric_ilu_ref``, one ``superstep_factor``
+    launch per factorization.
 16. warm — ``warm_solve`` captures each bucket's GMRES restart as one CUDA
     graph (main path: nb = 1, 4; path E: nb = 1, 4 natural, 1 fused);
     the warmed solves replay it once per restart and equal the cold ones
@@ -330,8 +346,9 @@ PREVIOUS_TILE_MS = {"panel_update": 0.0112, "panel_update_bf16": 0.0116, "tile_l
 DISTRIBUTED_KERNELS = ("epoch_sweep", "superstep_factor")
 # [kernels]: the size at which superstep_factor's persistent launch is held
 # against (and timed beside) the plain per-superstep loop, which took
-# 135-215 s at full size (9.3-16.6 s at 128)
-PLAIN_LOOP_NX = 128
+# 135-215 s at full size (9.3-16.6 s at 128; cut to 64 to make room for
+# [serve-ranks])
+PLAIN_LOOP_NX = 64
 # [dist-ranks] / [dist-nccl]: the bound on one run_ranks call (spawn, the
 # ranks' CUDA contexts, the fusion solve and the natural parts), and the
 # restarts of their fusion solve: a host-staged 4-rank gloo all-gather
@@ -339,11 +356,25 @@ PLAIN_LOOP_NX = 128
 # restarts) makes 3,847 of them; the reference is a one-card run with the
 # same maxiter. The size, the restarts and the applies were cut (from 400,
 # 4 and 2) to make room for [llm-train]: poisson_2d(128) has 127 fusion and
-# 258 natural supersteps against 1,243 and 2,811
+# 258 natural supersteps against 1,243 and 2,811; the restarts cut again
+# from 2 to 1 to make room for [serve-ranks]
 DIST_RANKS_TIMEOUT_S = 600
 DIST_RANKS_NX = 128
-DIST_RANKS_MAXITER = 2
+DIST_RANKS_MAXITER = 1
 DIST_RANKS_APPLIES = 1  # natural sweep applies over the ranks
+# [serve-ranks], inside [dist-ranks]' run_ranks call: (i) the inverse
+# method at full traffic on poisson_2d(DIST_RANKS_NX), GMRES(30) at
+# SERVE_RANKS_TOL, SERVE_RANKS_REQUESTS requests of two tenants in bursts of
+# 1-4 around one background value update; (ii) the sweep on the CPU tests'
+# traffic (tests/test_torch_serve_ranks.py: matgen(256), GMRES(8), its
+# SERVE_RANKS_SWEEP_REQUESTS requests at 1e-4 / 1e-5)
+SERVE_RANKS_BUCKETS = (1, 2, 4)
+SERVE_RANKS_TOL = 1e-4
+SERVE_RANKS_REQUESTS = 12
+SERVE_RANKS_SWEEP_N = 256
+SERVE_RANKS_SWEEP_REQUESTS = 16
+# [pipeline-demo]: examples/ilu_pipeline_demo_torch.py's owners on the card
+PIPELINE_DEMO_OWNERS = 8
 SHARDED_D = 4  # band owners of the distributed path, on one card
 BAND_ROWS = 32  # rows per band (the JAX package's default)
 SRC = Path(__file__).resolve().parent / "src"
@@ -380,7 +411,7 @@ SERVE_SHARDED_NX = 200  # [serve-sharded]'s poisson_2d, cut from 400 to make roo
 LLM_ARCH = "smollm-135m"
 LLM_WIDE = ("qwen1.5-0.5b", "starcoder2-15b", "stablelm-12b", "llava-next-mistral-7b")
 LLM_WIDE_LAYERS = 2
-LLM_B, LLM_PROMPT, LLM_GEN, LLM_CACHE = 4, 32, 32, 128
+LLM_B, LLM_PROMPT, LLM_GEN, LLM_CACHE = 4, 32, 16, 128  # LLM_GEN cut from 32 for [serve-ranks]
 LLM_CHUNK = 16
 LLM_PREFILL_S = 2048
 LLM_LSM_BOUND = 0.05  # tests/test_decode_consistency.py's bound on decode against forward
@@ -2725,21 +2756,23 @@ def phase_distributed_fusion(dev, b, o4, nx=400):
     return counts, res
 
 
-def dist_ranks_body(group, nx, b, fusion_perm, b_nat):
+def dist_ranks_body(group, nx, b, fusion_perm, b_nat, serve=()):
     """[dist-ranks] / [dist-nccl], on each rank of a DistBandGroup: the
     fusion-ordered solve_sharded of poisson_2d(nx) (GMRES(30) for
     DIST_RANKS_MAXITER restarts, TOL; the matrix built here, b from the
     parent); with ``b_nat`` also the natural factorization with the ring
     broadcast and, on its factors, one sweep apply per vector of ``b_nat``
-    and one inverse apply of the first. Each part reads the launch counts
-    and the group's counts and walls it made."""
+    and one inverse apply of the first; then [serve-ranks]: one ranked
+    solve service per case of ``serve`` (``serve_rank``'s arguments; rank 0
+    leads, the others follow). Each part reads the launch counts and the
+    group's counts and walls it made."""
     import numpy as np
     import torch
 
-    from repro_torch.core.api import ilu_sharded
     from repro_torch.core.matgen import poisson_2d
     from repro_torch.core.solvers import solve_sharded
     from repro_torch.kernels import ops
+    from repro_torch.launch.dist import serve_rank
 
     dev = group.device
 
@@ -2769,8 +2802,27 @@ def dist_ranks_body(group, nx, b, fusion_perm, b_nat):
         supersteps=fact.plan.n_supersteps, block=tuple(fact.loc_vals.shape),
         same_perm=bool(np.array_equal(fact.ordering.perm, fusion_perm)),
         runs=fact.precond().sweep.tables.runs()))
-    if b_nat is None:
-        return out
+    if b_nat is not None:
+        dist_ranks_natural(group, nx, b_nat, out, start, done)
+    out["serve"] = []
+    for case in serve:
+        t0 = start()
+        got = serve_rank(group, *case)
+        got.update(wall=time.perf_counter() - t0, launches=ops.launch_counts())
+        out["serve"].append(got)
+    return out
+
+
+def dist_ranks_natural(group, nx, b_nat, out, start, done):
+    """[dist-ranks]' natural parts on one rank, into ``out``: the ring
+    factorization of poisson_2d(nx), a sweep apply per vector of ``b_nat``
+    and one inverse apply of the first."""
+    import torch
+
+    from repro_torch.core.api import ilu_sharded
+    from repro_torch.core.matgen import poisson_2d
+
+    dev = group.device
     a = poisson_2d(nx)
     t0 = start()
     f = ilu_sharded(a, 1, band_rows=BAND_ROWS, group=group, broadcast="ring")
@@ -2789,7 +2841,6 @@ def dist_ranks_body(group, nx, b, fusion_perm, b_nat):
     t0 = start()
     y = inv(torch.as_tensor(b_nat[0], device=dev))
     out["inverse"] = done(t0, y=y.cpu().numpy())
-    return out
 
 
 def fusion_reference(dev, b, ordering, n_owners, nx=400):
@@ -2865,6 +2916,154 @@ def dist_ranks_check(tag, out, ref, ref_nat=None):
                 f"{tag} rank {r}: inverse apply != the one-card inverse apply")
 
 
+def serve_ranks_cases(nx):
+    """[serve-ranks]' two services, as ``serve_rank``'s arguments, each
+    with the matrix and the update's values the references need: (i) the
+    inverse method on poisson_2d(nx), GMRES(30); (ii) the sweep on the CPU
+    tests' matgen(SERVE_RANKS_SWEEP_N), GMRES(8). Each: half its traffic,
+    a background value update, a quarter while it runs, its join, the
+    rest."""
+    import numpy as np
+
+    from repro_torch.core.matgen import matgen, poisson_2d
+
+    parts = []
+    a = poisson_2d(nx)
+    m = matgen(SERVE_RANKS_SWEEP_N, density=min(0.02, 12.0 / SERVE_RANKS_SWEEP_N), seed=21)
+    for method, a, new, restart, n_req, tols, seed in (
+            # poisson_2d scaled whole, as [serve-sharded] does: entry-wise noise
+            # leaves the inverse preconditioner short of 1e-4 in 20 restarts
+            ("inverse", a, (a.data * np.float32(0.8)).astype(np.float32), 30,
+             SERVE_RANKS_REQUESTS, (SERVE_RANKS_TOL,), SEED + 40),
+            # the CPU tests' update of matgen(256)
+            ("sweep", m, (m.data * np.random.default_rng(5).uniform(0.8, 1.2, m.nnz)
+                          ).astype(np.float32), 8, SERVE_RANKS_SWEEP_REQUESTS, (1e-4, 1e-5), 33)):
+        config = dict(band_rows=BAND_ROWS, buckets=SERVE_RANKS_BUCKETS, k=1, restart=restart,
+                      maxiter=20, precond_method=method)
+        traffic = dict(tenants=("t0", "t1"), burst_max=4, tol_choices=tols)
+        half, quarter = n_req // 2, n_req // 4
+        steps = [("traffic", dict(n_requests=half, seed=seed, **traffic)), ("update", "m0", new),
+                 ("traffic", dict(n_requests=quarter, seed=seed + 1, **traffic)), ("wait",),
+                 ("traffic", dict(n_requests=n_req - half - quarter, seed=seed + 2, **traffic))]
+        parts.append(dict(method=method, a=a, new=new, n=n_req, restart=restart,
+                          args=(config, {"m0": (a.n, a.indptr, a.indices, a.data)}, steps,
+                                DIST_RANKS_TIMEOUT_S)))
+    return parts
+
+
+def serve_ranks_refs(dev, parts, leads):
+    """Per part, every response's reference: the one-card ShardedServeEngine
+    over a BandGroup of SHARDED_D owners with the part's knobs, bound to
+    the values of the version the request was admitted under, warmed, and
+    solving the request alone. Returns [{request_id: LaneResult}]."""
+    import numpy as np
+
+    from repro_torch.core.api import _symbolic
+    from repro_torch.core.sparse import CSRMatrix
+    from repro_torch.serve.engine import ShardedServeEngine
+
+    out = []
+    for part, lead in zip(parts, leads):
+        a, cfg = part["a"], part["args"][0]
+        eng = ShardedServeEngine(a, _symbolic(a, 1, "sum"), n_devices=SHARDED_D,
+                                 band_rows=BAND_ROWS, restart=cfg["restart"],
+                                 maxiter=cfg["maxiter"], precond_method=part["method"],
+                                 device=dev, buckets=SERVE_RANKS_BUCKETS)
+        v0, v1 = lead["versions"]["m0"]
+        a1 = CSRMatrix(n=a.n, indptr=a.indptr, indices=a.indices, data=part["new"])
+        bindings = {v: eng.bind(m, eng.factor(m)) for v, m in ((v0, a), (v1, a1))}
+        eng.warm(bindings[v0], (1,))
+        refs = {}
+        for rec in lead["records"]:
+            refs[rec["request_id"]] = eng.solve(bindings[rec["version"]], rec["b"][None],
+                                                np.asarray([rec["tol"]], np.float32))[0]
+        out.append(refs)
+    return out
+
+
+def serve_ranks_check(tag, outs, parts, refs, backend="gloo"):
+    """[serve-ranks] on every rank's results: per part every request
+    completed, none failed, nothing built or captured after warm-up (and no
+    graph captured at all on rank 0), every follower's solve digests equal
+    rank 0's, every response bitwise equal to the one-card engine's
+    (``refs``), both value versions served; prints solves/s, p50 and p99,
+    collectives and staged bytes per batch, cold restarts and the launches.
+    Returns rank 0's launch counts over both parts."""
+    import numpy as np
+
+    total = {}
+    for i, part in enumerate(parts):
+        lead = outs[0]["serve"][i]
+        snap, tr = lead["metrics"], lead["traffic"]
+        name = f"{tag} ({'i' if i == 0 else 'ii'}) {part['method']}"
+        req = snap["requests"]
+        require(req["admitted"] == req["completed"] == part["n"] and req["failed"] == 0,
+                f"[{name}] requests {req}")
+        require(snap["compiles"]["after_warmup"] == 0 and lead["events"]["captures"] == 0,
+                f"[{name}] after warm-up: compiles {snap['compiles']}, events {lead['events']}")
+        for o in outs[1:]:
+            require(o["serve"][i]["digests"] == lead["digests"],
+                    f"[{name}] rank {o['rank']}'s solve digests differ from rank 0's")
+        v0, v1 = lead["versions"]["m0"]
+        require({r["version"] for r in lead["responses"]} == {v0, v1},
+                f"[{name}] the responses did not see both value versions {v0}, {v1}")
+        for r in lead["responses"]:
+            ref = refs[i][r["request_id"]]
+            require(r["ok"] and bits_equal(np.asarray(r["x"], np.float32), ref.x)
+                    and (r["iterations"], r["verdict"]) == (ref.iterations, ref.verdict),
+                    f"[{name}] response {r['request_id']} (v{r['version']}) != the one-card "
+                    "engine's solve of it")
+        lat = sorted(r["latency"] for r in lead["responses"])
+        batches = snap["coalescing"]["batches"]
+        say(f"[{name}] {len(outs)} {backend} ranks, n={part['a'].n}, GMRES({part['restart']}): "
+            f"{part['n']} requests of 2 tenants in {batches} batches around one background "
+            f"value update in {lead['seconds']['traffic']:.3f} s: "
+            f"{part['n'] / lead['seconds']['traffic']:.3f} solves/s, latency p50 "
+            f"{lat[len(lat) // 2] * 1e3:.1f} ms, p99 {lat[min(len(lat) - 1, int(0.99 * len(lat)))] * 1e3:.1f} ms; "
+            f"{tr['counts']['collectives'] / batches:.1f} collectives per batch "
+            f"({tr['counts']['collectives']} in {tr['exchange_seconds']:.3f} s), "
+            f"{tr['staged_bytes'] / batches:,.0f} bytes staged per batch; register "
+            f"{lead['seconds']['register']:.3f} s, warm-up {lead['seconds']['warmup']:.3f} s; "
+            f"compiles {json.dumps(snap['compiles'])}, cold restarts "
+            f"{json.dumps(snap['cold_restarts'])}, captures {lead['events']['captures']}; "
+            f"announced {json.dumps(lead['announced'])}")
+        for k, v in lead["launches"].items():
+            total[k] = total.get(k, 0) + v
+    say(f"[{tag}] every response bitwise equal to the one-card ShardedServeEngine over "
+        f"{SHARDED_D} owners on its value version; followers' digests equal rank 0's")
+    return total
+
+
+def phase_pipeline_demo(dev, owners=PIPELINE_DEMO_OWNERS):
+    """[pipeline-demo]: examples/ilu_pipeline_demo_torch.py's run on the card
+    (one BandGroup of ``owners`` owners): psum and ring each bitwise equal
+    to numeric_ilu_ref, one superstep_factor launch per factorization."""
+    import importlib.util
+
+    from repro_torch.kernels import ops
+
+    path = Path(__file__).resolve().parent / "examples" / "ilu_pipeline_demo_torch.py"
+    spec = importlib.util.spec_from_file_location("ilu_pipeline_demo_torch", path)
+    demo = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(demo)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = demo.run(owners, dev)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    require(all(ok for ok, _, _ in out.values()),
+            "[pipeline-demo] a broadcast's factors differ from numeric_ilu_ref")
+    check_launches("pipeline-demo", counts, ("superstep_factor",),
+                   idle=("factor_wavefront", "epoch_sweep", "tri_solve_wavefront"))
+    require(counts["superstep_factor"] == len(out),
+            f"[pipeline-demo] {counts['superstep_factor']} superstep_factor launches for "
+            f"{len(out)} factorizations")
+    say(f"[pipeline-demo] matgen(512) PILU(1) over {owners} owners on the card: psum and ring "
+        f"bitwise equal to numeric_ilu_ref, one superstep_factor launch each; {wall:.2f} s "
+        "with the plan")
+    return counts
+
+
 def phase_dist_ranks(dev, nx=None):
     """[dist-ranks]: the band owners as SHARDED_D processes (gloo ranks, all
     on this card, each exchange staged through pinned host memory), spawned
@@ -2904,14 +3103,23 @@ def phase_dist_ranks(dev, nx=None):
     inv = f.precond(method="inverse")
     g.reset_counts()
     ref_nat["inverse"] = (inv(torch.as_tensor(b_nat[0], device=dev)).cpu().numpy(), g.counts())
+    parts = serve_ranks_cases(nx)
     t0 = time.perf_counter()
     out = run_ranks(dist_ranks_body, SHARDED_D, "gloo", ["cuda"] * SHARDED_D,
-                    timeout_s=DIST_RANKS_TIMEOUT_S, args=(nx, b, o.perm, b_nat))
+                    timeout_s=DIST_RANKS_TIMEOUT_S,
+                    args=(nx, b, o.perm, b_nat, [p["args"] for p in parts]))
     wall = time.perf_counter() - t0
     say(f"[dist-ranks] poisson_2d({nx}) n={a.n} ILU(1), {SHARDED_D} gloo ranks of "
         f"{BAND_ROWS}-row bands on one card ({torch.cuda.get_device_name(0)}): {wall:.1f} s "
-        "with the spawn, the ranks' imports, their CUDA contexts and host plans")
+        "with the spawn, the ranks' imports, their CUDA contexts and host plans, and "
+        f"[serve-ranks]' {sum(p['wall'] for p in out[0]['serve']):.1f} s")
     dist_ranks_check("dist-ranks", out, ref, ref_nat)
+    t1 = time.perf_counter()
+    serve_refs = serve_ranks_refs(dev, parts, out[0]["serve"])
+    say(f"[serve-ranks] the one-card references: {time.perf_counter() - t1:.1f} s")
+    serve_counts = serve_ranks_check("serve-ranks", out, parts, serve_refs)
+    check_launches("serve-ranks", serve_counts, ("spmv_ell", "epoch_sweep", "superstep_factor"),
+                   idle=("factor_wavefront", "tri_solve_wavefront", "inverse_chain"))
     check_launches("dist-ranks", out[0]["fusion"]["launches"],
                    ("epoch_sweep", "superstep_factor", "spmv_ell"),
                    idle=("factor_wavefront", "tri_solve_wavefront", "inverse_chain"))
@@ -2920,15 +3128,17 @@ def phase_dist_ranks(dev, nx=None):
         "launch per superstep, the one-card group's counts; the natural factors (ring), "
         f"{DIST_RANKS_APPLIES} sweep apply(ies) and the inverse apply equal to the one-card "
         f"ones over {SHARDED_D} owners, with equal counts")
-    return out[0]["fusion"]["launches"], (b, o, ref, nx)
+    return out[0]["fusion"]["launches"], serve_counts, (b, o, ref, nx, parts)
 
 
-def phase_dist_nccl(dev, b, o4, ref, nx=400):
+def phase_dist_nccl(dev, b, o4, ref, nx=400, parts=None):
     """[dist-nccl]: with two cards or more, the fusion solve of [dist-ranks]
     over NCCL ranks, one card each (D = min(SHARDED_D, cards)), under the
     same requirements, held to ``ref`` ([dist-ranks]' one-card run) or, where
-    D differs from SHARDED_D, to a one-card run of D owners. With one card
-    it says that it did not run, and why."""
+    D differs from SHARDED_D, to a one-card run of D owners; with SHARDED_D
+    cards also [serve-ranks]' services (``parts``) over the NCCL ranks, held
+    to the one-card engine. With one card it says that it did not run, and
+    why."""
     import numpy as np
     import torch
 
@@ -2946,11 +3156,16 @@ def phase_dist_nccl(dev, b, o4, ref, nx=400):
     if D != SHARDED_D:
         ordering = fusion_aware_ordering(poisson_2d(nx), D, band_rows=BAND_ROWS)
         ref = fusion_reference(dev, b, ordering, D, nx)
+    serve = parts is not None and D == SHARDED_D
     out = run_ranks(dist_ranks_body, D, "nccl", None, timeout_s=DIST_RANKS_TIMEOUT_S,
-                    args=(nx, b, np.asarray(ordering.perm), None))
+                    args=(nx, b, np.asarray(ordering.perm), None,
+                          [p["args"] for p in parts] if serve else ()))
     dist_ranks_check("dist-nccl", out, ref)
     say(f"[dist-nccl] {D} NCCL ranks, one card each: x, steps, restarts, verdict and counts "
         "equal to the one-card run")
+    if serve:
+        serve_ranks_check("dist-nccl serve-ranks", out, parts,
+                          serve_ranks_refs(dev, parts, out[0]["serve"]), backend="NCCL")
 
 
 def engines_of(matvec):
@@ -4560,10 +4775,12 @@ def run(oracles):
     o4 = phase_ordering()
     by_path["distributed-fusion"], fused_cold = phase_distributed_fusion(dev, b, o4)
     lap("ordering, distributed-fusion")
-    by_path["dist-ranks"], nccl_args = phase_dist_ranks(dev)
-    lap("dist-ranks")
+    by_path["dist-ranks"], by_path["serve-ranks"], nccl_args = phase_dist_ranks(dev)
+    lap("dist-ranks, serve-ranks")
     phase_dist_nccl(dev, *nccl_args)
     lap("dist-nccl")
+    by_path["pipeline-demo"] = phase_pipeline_demo(dev)
+    lap("pipeline-demo")
     by_path.update(phase_warm(dev, b, single, multi, dist_cold, fused_cold, o4))
     lap("warm")
     by_path["bicgstab"] = phase_bicgstab(dev)
@@ -4617,9 +4834,11 @@ def run_dist_nccl():
     build.build()
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    b = np.random.default_rng(SEED + 1).standard_normal(400 * 400).astype(np.float32)
-    o4 = fusion_aware_ordering(poisson_2d(400), SHARDED_D, band_rows=BAND_ROWS)
-    phase_dist_nccl(dev, b, o4, fusion_reference(dev, b, o4, SHARDED_D))
+    nx = DIST_RANKS_NX
+    b = np.random.default_rng(SEED + 1).standard_normal(nx * nx).astype(np.float32)
+    o4 = fusion_aware_ordering(poisson_2d(nx), SHARDED_D, band_rows=BAND_ROWS)
+    phase_dist_nccl(dev, b, o4, fusion_reference(dev, b, o4, SHARDED_D, nx), nx,
+                    serve_ranks_cases(nx))
     say(f"[time] dist-nccl: {time.perf_counter() - t0:.1f} s")
     say(json.dumps({"dist_nccl": {"ok": True, "cards": cards}}))
     return 0

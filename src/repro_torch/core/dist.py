@@ -32,6 +32,13 @@ device raises; nothing switches in silence):
 Collectives cannot be captured in a CUDA graph here (gloo runs on the
 host), so a warm restart over a :class:`DistBandGroup` is refused
 (``capturable`` is False).
+
+A solve service over the ranks (``repro_torch.serve.ranks``) runs its
+refactorizations on a second group of the same ranks
+(:meth:`DistBandGroup.sibling`), so a refactor's exchanges never share a
+communicator with a solve's, and reports a rank's failure through the
+ranks' store (``store``, which :func:`repro_torch.launch.dist.run_ranks`
+passes).
 """
 from __future__ import annotations
 
@@ -64,12 +71,15 @@ class DistBandGroup(GroupCounts):
     keeps ``staged_bytes`` (bytes copied between the card and pinned host
     buffers for gloo) and ``exchange_seconds`` (wall seconds inside
     exchanges and :meth:`gather_owners`; on a card the stream is
-    synchronized before and after each, so kernel time is not counted)."""
+    synchronized before and after each, so kernel time is not counted).
+
+    ``store`` (optional) is the key-value store the ranks joined through;
+    it carries no exchange, only what a rank reports out of band."""
 
     kind = "ranks"
     capturable = False
 
-    def __init__(self, process_group=None, device=None, backend=None):
+    def __init__(self, process_group=None, device=None, backend=None, store=None):
         if not (dist.is_available() and dist.is_initialized()):
             raise RuntimeError("DistBandGroup needs torch.distributed initialized on every rank "
                                "(init_process_group, or repro_torch.launch.dist.run_ranks)")
@@ -90,7 +100,23 @@ class DistBandGroup(GroupCounts):
         self.staged = self.backend == "gloo" and self.device.type == "cuda"
         self._peers = [r if process_group is None else dist.get_global_rank(process_group, r)
                        for r in range(self.n_devices)]
+        self.store = store
         self.reset_counts()
+
+    @property
+    def global_ranks(self) -> list:
+        """The group's ranks in the default process group, in owner order."""
+        return list(self._peers)
+
+    def sibling(self, timeout=None) -> "DistBandGroup":
+        """A second group of the same owners over a new process group of the
+        same ranks, with this group's backend, device and store: its
+        collectives never share a communicator with this group's, so two
+        threads can each drive one. ``dist.new_group`` is collective: every
+        rank makes its sibling at the same point, in the same order."""
+        kw = {} if timeout is None else dict(timeout=timeout)
+        pg = dist.new_group(ranks=self._peers, backend=self.backend, **kw)
+        return DistBandGroup(pg, self.device, self.backend, self.store)
 
     def reset_counts(self) -> None:
         super().reset_counts()

@@ -54,6 +54,7 @@ bucket (:func:`batch_buckets`) and returns the real lanes.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import os
 import threading
 import time
@@ -499,6 +500,13 @@ class WarmRestart:
         groups = self._groups()
         before, group_before = ops.launch_counts(), [g.counts() for g in groups]
         graph = torch.cuda.CUDAGraph()
+        # the collector must not run inside the capture: an unreachable
+        # engine it frees destroys its graph, a call that invalidates the
+        # capture in progress (engines sit in cycles through their matvec's
+        # store); so collect now and hold the collector off until the end
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             # capture vs. other threads: "thread_local" lets a thread that
             # refactors on its own stream allocate and synchronize while
@@ -508,6 +516,8 @@ class WarmRestart:
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 self._step()
         finally:
+            if collecting:
+                gc.enable()
             after = ops.launch_counts()
             ops.set_launch_counts(before)  # the capture launched nothing
             group_after = [g.counts() for g in groups]
@@ -649,17 +659,20 @@ def gmres_batched(matvec, bs: torch.Tensor, precond=None, restart=30, tol=1e-5,
 
 
 def warm_gmres(matvec, nb: int, n: int, precond=None, restart=30, maxiter=20,
-               device=None) -> WarmRestart:
+               device=None, capture: bool = True) -> WarmRestart:
     """Make (once) the :class:`WarmRestart` of GMRES(``restart``) for ``nb``
     right-hand sides of length ``n`` over (matvec, precond) on ``device``,
-    and on a CUDA device capture it; later :func:`gmres` /
+    and on a CUDA device capture it unless ``capture`` is False (operators
+    whose exchanges are host collectives: the engine then runs each restart
+    eagerly over its static tensors); later :func:`gmres` /
     :func:`gmres_batched` calls with the same objects, nb, restart and
     maxiter run through it."""
     M = precond or _identity
     dev = resolve_device(device)
     engine = _cached_engine(matvec, M, _engine_key(nb, restart, maxiter),
                             lambda: WarmRestart(matvec, M, nb, n, restart, maxiter, dev))
-    engine.capture()
+    if capture:
+        engine.capture()
     return engine
 
 

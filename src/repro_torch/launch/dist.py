@@ -4,9 +4,10 @@
                         init_file="/tmp/x/store", timeout_s=300, args=(a_arg,))
 
 Every rank is a process started with the ``spawn`` method. It joins the
-process group through a file store (``init_method="file://…"``: a new file
-per run, so parallel runs never compete for a TCP port), makes a
-:class:`~repro_torch.core.dist.DistBandGroup` on its device and returns
+process group through a file store (``dist.FileStore``: a new file per run,
+so parallel runs never compete for a TCP port), makes a
+:class:`~repro_torch.core.dist.DistBandGroup` on its device (the store
+attached, for out-of-band reports) and returns
 ``fn(group, *args)``, which must be picklable, as must ``fn`` (a module
 level function, imported anew by each rank). ``run_ranks`` returns the
 results in rank order and raises when a rank raises, dies or outlives
@@ -19,7 +20,9 @@ When the ranks use CUDA the kernels are built once in the calling process
 first, so the ranks find the library instead of racing D ``nvcc`` builds.
 
 The rank bodies of the port's own drivers live here too:
-:func:`solve_rank` (``python -m repro_torch.launch.solve --ranks N``).
+:func:`solve_rank` (``python -m repro_torch.launch.solve --ranks N``) and
+:func:`serve_rank` (a solve service over the ranks: rank 0 serves, the
+others follow).
 """
 from __future__ import annotations
 
@@ -70,10 +73,11 @@ def _rank_main(rank, world, backend, device, init_file, timeout_s, fn, args, res
         dev = torch.device(device)
         if dev.type == "cuda":
             torch.cuda.set_device(dev.index or 0)
-        dist.init_process_group(backend, init_method=f"file://{init_file}", world_size=world,
-                                rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
+        store = dist.FileStore(init_file, world)
+        dist.init_process_group(backend, store=store, world_size=world, rank=rank,
+                                timeout=datetime.timedelta(seconds=timeout_s))
         try:
-            out = fn(DistBandGroup(device=dev, backend=backend), *args)
+            out = fn(DistBandGroup(device=dev, backend=backend, store=store), *args)
         finally:
             dist.destroy_process_group()
         results.put((rank, True, out))
@@ -194,3 +198,86 @@ def solve_rank(group, n, density, k, method, broadcast, band_rows, ordering, see
                 numeric=fact.numeric_seconds, supersteps=fact.plan.n_supersteps,
                 counts=group.counts(), exchange_seconds=group.exchange_seconds,
                 staged_bytes=group.staged_bytes)
+
+
+def _response_record(r) -> dict:
+    """A SolveResponse as plain values (what a rank returns through its queue)."""
+    return dict(request_id=r.request_id, tenant=r.tenant, matrix_id=r.matrix_id, ok=r.ok,
+                x=r.x, iterations=r.iterations, residual=r.residual, verdict=r.verdict,
+                version=r.matrix_version, lanes=r.batch_lanes, latency=r.latency_seconds,
+                error_reason=r.error_reason, error=r.error)
+
+
+def serve_rank(group, config: dict, matrices: dict, steps=(), timeout_s: float = 600.0) -> dict:
+    """A solve service over the ranks of ``group``, one band owner each
+    (``repro_torch.serve.ranks``): rank 0 serves ``SolveService(ServeConfig(
+    sharded=True, group=group, **config))``, every other rank follows it.
+
+    Rank 0 registers ``matrices`` ({id: (n, indptr, indices, data)}), warms
+    up, and runs ``steps`` in order: ``("traffic", kw)`` drives
+    ``run_traffic(svc, ids, **kw)``, ``("update", id, values)`` pushes new
+    values in the background, ``("wait",)`` joins the refactorizations in
+    flight; then it drains, stops the followers and
+    returns the responses, the traffic records, each matrix's version at
+    registration and at the end, the metrics snapshot (taken before the
+    stop), the seconds of registration, warm-up and traffic, the solve
+    digests, the operations it announced, the group's counts, those of the
+    traffic alone with its staged bytes and exchange seconds (the solve
+    lane's; the refactor lane exchanges over a group of its own) and the
+    process's ``engine_events()``. A follower returns its digests, the operations it
+    ran and its group's counts. When an operation failed on some rank, rank 0 raises a
+    :class:`~repro_torch.serve.ranks.RankFailure` naming it, with the
+    structured errors of the requests that failed. ``timeout_s`` bounds
+    each collective of the service."""
+    from repro_torch.core.solvers import engine_events
+    from repro_torch.core.sparse import CSRMatrix
+    from repro_torch.serve import ServeConfig, SolveService, ranks, run_traffic
+
+    lanes = ranks.open_lanes(group, timeout_s)
+    if group.rank != 0:
+        return ranks.follow(lanes)
+    out = dict(rank=0, responses=[], records=[], seconds={})
+    with ranks.lead(lanes) as leader:
+        svc = SolveService(ServeConfig(sharded=True, group=group, **config))
+        t0 = time.perf_counter()
+        for mid, m in matrices.items():
+            svc.register_matrix(mid, CSRMatrix.from_arrays(*m))
+        out["versions"] = {mid: [svc.cache.entry(mid).version] for mid in matrices}
+        t1 = time.perf_counter()
+        svc.warmup()
+        at_warm = (group.counts(), group.staged_bytes, group.exchange_seconds)
+        t2 = time.perf_counter()
+        for step in steps:
+            if step[0] == "traffic":
+                res = run_traffic(svc, list(matrices), **step[1])
+                out["responses"] += [_response_record(r) for r in res.responses]
+                out["records"] += [dict(request_id=r.request_id, matrix_id=r.matrix_id, b=r.b,
+                                        tol=r.tol, version=r.expected_version)
+                                   for r in res.records]
+            elif step[0] == "update":
+                svc.update_matrix_values(step[1], step[2], background=True)
+            elif step[0] == "wait":
+                svc.cache.wait_refactors()
+            else:
+                raise ValueError(f"serve_rank: unknown step {step[0]!r}")
+        svc.drain()
+        if group.device.type == "cuda":
+            torch.cuda.synchronize(group.device)
+        t3 = time.perf_counter()
+        for mid in matrices:
+            out["versions"][mid].append(svc.cache.entry(mid).version)
+        out["metrics"] = svc.metrics_snapshot()
+        out["seconds"] = dict(register=t1 - t0, warmup=t2 - t1, traffic=t3 - t2)
+        if leader.failure is not None:
+            failed = [(r["request_id"], r["error_reason"], r["error"])
+                      for r in out["responses"] if not r["ok"]]
+            raise ranks.RankFailure(leader.failure.rank, leader.failure.op,
+                                    f"{leader.failure.detail}\n{len(failed)} request(s) "
+                                    f"failed; the first: {failed[:1]}")
+    counts = group.counts()
+    out.update(digests=list(leader.digests), announced=dict(leader.announced), counts=counts,
+               events=engine_events(),
+               traffic=dict(counts={k: counts[k] - at_warm[0][k] for k in counts},
+                            staged_bytes=group.staged_bytes - at_warm[1],
+                            exchange_seconds=group.exchange_seconds - at_warm[2]))
+    return out

@@ -24,7 +24,10 @@ no engine at all.
 **Background refactorization.** ``update_values`` refactorizes the new
 values through the engine's structure-keyed plan (the first registrant of
 the structure is its host) and binds them — in a worker thread, so a
-tenant's value push never blocks other tenants' solves. The swap is atomic
+tenant's value push never blocks other tenants' solves. The worker runs
+inside the engine's ``refactoring()`` lane where it has one (a sharded
+engine: over ranks the refactor's exchanges go through a process group of
+their own and a follower thread of their own, ``serve.ranks``). The swap is atomic
 (one reference assignment under the cache lock); requests admitted before
 the swap keep their pinned old binding (``SolveRequest.binding``) and
 solve against the values they were admitted under — a racing update can
@@ -298,7 +301,10 @@ class PlanCache:
 
         def work():
             a_new = CSRMatrix(n=a0.n, indptr=a0.indptr, indices=a0.indices, data=data)
-            with bind_stream(engine.device):
+            # a sharded engine's refactor lane: over ranks its exchanges go
+            # through a group of their own, never the solves' communicator
+            lane = getattr(engine, "refactoring", contextlib.nullcontext)
+            with lane(), bind_stream(engine.device):
                 factored = self._factorize(engine, a_new)
                 try:
                     binding = self._guarded_bind(engine, pattern, a_new, factored)

@@ -38,11 +38,18 @@ give a lane the bits of the solo solve.
 operators — the row-block SpMV and the band-partitioned sweep
 (``ShardedSweep``, one persistent ``epoch_sweep`` launch per apply on the
 card) or the sharded inverse chain — on one
-:class:`~repro_torch.core.top_ilu.BandGroup`. A binding refactors with
-``ilu_sharded`` (one persistent ``superstep_factor`` launch), reusing the
-structure's plan and engines; its values refill the sweep's slots in
-place, so it too captures nothing after warm-up (the JAX sharded engine
-recompiles its Krylov jits per rebind).
+:class:`~repro_torch.core.top_ilu.BandGroup`, or, one owner per rank, on a
+:class:`~repro_torch.core.dist.DistBandGroup` (the counterpart of the JAX
+engine's mesh; ``repro_torch.serve.ranks`` runs every rank's engine in
+step). A binding refactors with ``ilu_sharded`` (one persistent
+``superstep_factor`` launch on one card), reusing the structure's plan and
+engines; its values refill the sweep's slots in place, so it too captures
+nothing after warm-up (the JAX sharded engine recompiles its Krylov jits
+per rebind). Over ranks the restarts cannot be captured (the exchanges are
+host collectives): :meth:`ShardedServeEngine.warm` builds every plan, table
+and restart engine and warms the preconditioner, the restarts then run
+eagerly, and a refactorization (:meth:`ShardedServeEngine.refactoring`)
+exchanges over a group of its own.
 
 Card hazards handled here and in the cache:
 
@@ -56,6 +63,7 @@ Card hazards handled here and in the cache:
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import threading
@@ -147,6 +155,9 @@ class _Engine:
     #: binding identity-valued factors through the bound kernels applies
     #: M^{-1} = I exactly — the cache's last-resort "fallback" degradation
     supports_identity_fallback = True
+    #: whether :meth:`warm` captures each bucket's restart as a CUDA graph
+    #: (on a CUDA device)
+    capturable = True
 
     def _init_common(self, a, pattern, restart, maxiter, precond_method, buckets):
         from repro_torch.core.solvers import batch_buckets
@@ -183,7 +194,8 @@ class _Engine:
         return torch.as_tensor(vals).to(self.device)
 
     # -- shift rung -----------------------------------------------------------
-    def bind_degraded(self, a: CSRMatrix, shift: float, factorize=None) -> Optional[EngineBinding]:
+    def bind_degraded(self, a: CSRMatrix, shift: float, factorize=None,
+                      version: Optional[int] = None) -> Optional[EngineBinding]:
         """One rung of the serve-side shift ladder: factor
         ``A + shift·diag(‖row‖₁)`` through ``factorize`` (default
         :meth:`factor`: the structure's cached plan, nothing rebuilt),
@@ -191,13 +203,14 @@ class _Engine:
         matvec values. The solve still targets Ax=b; only M changes — and
         the warmed restarts are the very ones the healthy path uses, so a
         retry costs a bind and a slot refill, never a capture. Returns None
-        when this rung's factor is itself broken (the caller escalates α)."""
+        when this rung's factor is itself broken (the caller escalates α).
+        ``version`` is the binding's version (the next one when None)."""
         from repro_torch.core.guard import shifted_matrix
 
         factored = (factorize or self.factor)(shifted_matrix(a, shift))
         if not self.audit(factored).ok:
             return None
-        binding = self.bind(a, factored)
+        binding = self.bind(a, factored, version=version)
         binding.shift = float(shift)
         return binding
 
@@ -223,16 +236,10 @@ class _Engine:
 
         return bucket_batch(nb, self.buckets)
 
-    def solve(self, binding: EngineBinding, bs: np.ndarray,
-              tols: np.ndarray) -> List[LaneResult]:
-        """Solve a coalesced (nb, n) stack with per-lane tolerances: pads to
-        the nearest bucket, refills the slots if ``binding`` is not
-        resident, runs GMRES through the bucket's warmed restart (eagerly
-        when the bucket was not warmed), and scatters per-lane results back.
-        Padding lanes (zero RHS, tol 1) stop before any iteration and are
-        sliced off — they cannot touch a real lane's bits."""
-        from repro_torch.core.solvers import gmres_batched
-
+    def pad(self, bs: np.ndarray, tols: np.ndarray):
+        """A coalesced (nb, n) stack and its (nb,) tolerances padded to the
+        nearest bucket with zero right-hand sides at tol 1; returns the
+        padded pair."""
         bs = np.asarray(bs, np.float32)
         tols = np.asarray(tols, np.float32)
         nb = bs.shape[0]
@@ -246,17 +253,38 @@ class _Engine:
         if tgt > nb:
             bs = np.concatenate([bs, np.zeros((tgt - nb, self.n), np.float32)])
             tols = np.concatenate([tols, np.ones(tgt - nb, np.float32)])
+        return bs, tols
+
+    def solve_bucket(self, binding: EngineBinding, bs: np.ndarray,
+                     tols: np.ndarray) -> List[LaneResult]:
+        """Every lane of a stack already padded to its bucket
+        (:meth:`pad`): refills the slots if ``binding`` is not resident and
+        runs GMRES through the bucket's warmed restart (eagerly when the
+        bucket was not warmed)."""
+        from repro_torch.core.solvers import gmres_batched
+
         self._load(binding)
         res = gmres_batched(self.matvec, torch.as_tensor(bs).to(self.device), self.precond,
                             restart=self.restart, tol=tols, maxiter=self.maxiter)
         return [LaneResult(x=r.x, iterations=r.iterations, residual=r.residual,
-                           converged=r.converged, verdict=r.verdict) for r in res[:nb]]
+                           converged=r.converged, verdict=r.verdict) for r in res]
+
+    def solve(self, binding: EngineBinding, bs: np.ndarray,
+              tols: np.ndarray) -> List[LaneResult]:
+        """Solve a coalesced (nb, n) stack with per-lane tolerances: pads to
+        the nearest bucket, runs :meth:`solve_bucket`, and scatters per-lane
+        results back. Padding lanes (zero RHS, tol 1) stop before any
+        iteration and are sliced off — they cannot touch a real lane's
+        bits."""
+        nb = np.shape(bs)[0]
+        return self.solve_bucket(binding, *self.pad(bs, tols))[:nb]
 
     def warm(self, binding: EngineBinding, buckets: Optional[Sequence[int]] = None) -> dict:
         """Serving warm-up: load ``binding``, then per bucket warm the
         preconditioner and make the bucket's restart engine
         (``warm_gmres``: on the card the restart captured as one CUDA
-        graph; on the CPU nothing captured). Returns {bucket: seconds}."""
+        graph where the engine is :attr:`capturable`; on the CPU nothing
+        captured). Returns {bucket: seconds}."""
         from repro_torch.core.solvers import warm_gmres
 
         self._load(binding)
@@ -265,7 +293,7 @@ class _Engine:
             t0 = time.perf_counter()
             self.precond.warm((nb,))
             warm_gmres(self.matvec, nb, self.n, self.precond, restart=self.restart,
-                       maxiter=self.maxiter, device=self.device)
+                       maxiter=self.maxiter, device=self.device, capture=self.capturable)
             out[nb] = time.perf_counter() - t0
         return out
 
@@ -332,12 +360,13 @@ class ServeEngine(_Engine):
 
         return audit_values(self.pattern, vals_csr, pivot_tol)
 
-    def bind(self, a: CSRMatrix, vals_csr: np.ndarray) -> EngineBinding:
-        """Attach one value version: the host-side scatter of A's values and
-        of the factor's (the sweep's level-major arrays, staged as the
-        bound sweep reads them; for the inverse method the inverse plan and
-        W/Z computed on the device), as tensors on the device. Writes no
-        slot and captures nothing."""
+    def bind(self, a: CSRMatrix, vals_csr: np.ndarray,
+             version: Optional[int] = None) -> EngineBinding:
+        """Attach one value version (the next one when ``version`` is None):
+        the host-side scatter of A's values and of the factor's (the sweep's
+        level-major arrays, staged as the bound sweep reads them; for the
+        inverse method the inverse plan and W/Z computed on the device), as
+        tensors on the device. Writes no slot and captures nothing."""
         t0 = time.perf_counter()
         vals_csr = np.asarray(vals_csr, np.float32)
         args = [self._a_values(a)]
@@ -356,7 +385,8 @@ class ServeEngine(_Engine):
                 raise ValueError("ServeEngine.bind: inverse pattern changed shape — "
                                  "values were bound against a different structure")
             args += [w_vals, z_vals]
-        return EngineBinding(version=self._next_version(), value_args=tuple(args),
+        return EngineBinding(version=self._next_version() if version is None else version,
+                             value_args=tuple(args),
                              vals_csr=vals_csr, bound_seconds=time.perf_counter() - t0, a=a)
 
     def _fill(self, value_args: tuple) -> None:
@@ -382,9 +412,23 @@ def _adopt_structure(a: CSRMatrix, host: CSRMatrix) -> CSRMatrix:
     return a
 
 
+def group_key(group=None, n_devices: int = 2) -> tuple:
+    """What an engine's fingerprint takes of its band group: the group's
+    kind and owner count, and over ranks this rank — never the group
+    object, so equal groups key alike. None stands for a one-device
+    ``BandGroup(n_devices)``."""
+    if group is None:
+        return ("card", int(n_devices))
+    return (group.kind, group.n_devices) + ((group.rank,) if group.kind == "ranks" else ())
+
+
 class ShardedServeEngine(_Engine):
     """The same serve surface over the distributed stack: ``n_devices`` band
-    owners of ``band_rows``-row bands on one :class:`BandGroup`.
+    owners of ``band_rows``-row bands on one :class:`BandGroup`, or the
+    owners of ``group`` (a ``BandGroup``, or a
+    :class:`~repro_torch.core.dist.DistBandGroup`: one owner per rank, each
+    rank's engine holding its owner's slice of A's rows, of the sweep's
+    tables and values, or of W's and Z's rows).
 
     ``matvec`` is the row-block SpMV (:class:`~repro_torch.core.solvers.RowBlockELL`)
     and ``precond`` the band-partitioned apply of the first factorization
@@ -395,25 +439,40 @@ class ShardedServeEngine(_Engine):
     factorizer the structure's, adopted from the engine's host matrix), its
     blocks extracted on the device; a solve refills the slots in place and
     replays the bucket's restart graph — no capture after warm-up.
+
+    ``refactor_group`` (default ``group``) is a second group of the same
+    owners that the factorizations made inside :meth:`refactoring` exchange
+    over: over ranks a refactor runs on a thread of its own beside the
+    solves, and its collectives must not share their communicator. A
+    group that is not ``capturable`` (a ``DistBandGroup``) makes the engine
+    not capturable: :meth:`warm` then captures nothing.
     """
 
     def __init__(self, a: CSRMatrix, pattern: ILUPattern, vals_csr=None,
                  restart: int = DEFAULT_RESTART, maxiter: int = DEFAULT_MAXITER,
                  precond_method: str = "sweep", n_devices: int = 2, band_rows: int = 32,
                  k: Optional[int] = None, rule: str = "sum", broadcast: str = "gather",
-                 device=None, buckets: Optional[Sequence[int]] = None):
+                 device=None, buckets: Optional[Sequence[int]] = None, group=None,
+                 refactor_group=None):
         from repro_torch.core.api import _group
         from repro_torch.core.solvers import make_sharded_ell_matvec
 
-        self.group = _group(n_devices, device, None)
+        self.group = _group(n_devices, device, group)
+        self.refactor_group = self.group if refactor_group is None else refactor_group
+        if group_key(self.refactor_group) != group_key(self.group):
+            raise ValueError("ShardedServeEngine: the refactor group's owners differ from the "
+                             "group's")
         self.device = self.group.device
+        self.capturable = bool(getattr(self.group, "capturable", True))
+        self._lane = threading.local()
         self._init_common(a, pattern, restart, maxiter, precond_method, buckets)
         self.band_rows = int(band_rows)
         self.k = pattern.k if k is None else int(k)
         self.rule = rule
         self.broadcast = broadcast
         self.fingerprint = self.fingerprint_for(a, pattern, restart, maxiter, precond_method,
-                                                self.device, n_devices, band_rows, broadcast)
+                                                self.device, self.group.n_devices, band_rows,
+                                                broadcast, group=self.group)
         fact0 = self.factor(a)
         self._plan = fact0.plan
         self.matvec = make_sharded_ell_matvec(a, self.group)
@@ -422,23 +481,43 @@ class ShardedServeEngine(_Engine):
     @staticmethod
     def fingerprint_for(a, pattern, restart=DEFAULT_RESTART, maxiter=DEFAULT_MAXITER,
                         precond_method="sweep", device=None, n_devices=2, band_rows=32,
-                        broadcast="gather", **_ignored) -> tuple:
+                        broadcast="gather", group=None, **_ignored) -> tuple:
+        """The engine's :func:`engine_fingerprint` without building it; the
+        group enters through :func:`group_key` (its device beside it)."""
         from repro_torch.core.device import resolve_device
 
+        dev = group.device if group is not None else resolve_device(device)
         return engine_fingerprint(a, pattern, ("sharded", precond_method, int(restart),
-                                               int(maxiter), int(band_rows), int(n_devices),
-                                               str(resolve_device(device)), broadcast))
+                                               int(maxiter), int(band_rows), str(dev), broadcast)
+                                  + group_key(group, n_devices))
+
+    @contextlib.contextmanager
+    def refactoring(self):
+        """Within the block, this thread's factorizations (:meth:`factor`,
+        and the binds and shift rungs that factor) exchange over
+        ``refactor_group``."""
+        prev = getattr(self._lane, "refactor", False)
+        self._lane.refactor = True
+        try:
+            yield
+        finally:
+            self._lane.refactor = prev
+
+    def lane_group(self):
+        """The group this thread's factorizations exchange over."""
+        return self.refactor_group if getattr(self._lane, "refactor", False) else self.group
 
     def factor(self, a: CSRMatrix):
-        """The sharded factorization of ``a`` over this engine's group
-        (``superstep_factor`` on the card), its audit attached as
-        ``.health``; the structure's plan and factorizer are reused."""
+        """The sharded factorization of ``a`` over this thread's group
+        (:meth:`lane_group`; ``superstep_factor`` on the card), its audit
+        attached as ``.health``; the structure's plan and factorizer are
+        reused."""
         from repro_torch.core.api import ilu_sharded
 
         return ilu_sharded(_adopt_structure(a, self.host), self.k, rule=self.rule,
                            band_rows=self.band_rows, broadcast=self.broadcast,
                            precond_method=self.precond_method, on_breakdown="ignore",
-                           group=self.group)
+                           group=self.lane_group())
 
     def audit(self, factored, pivot_tol: Optional[float] = None):
         """The audit of a factorization (on the device, ``guard.audit_sharded``),
@@ -452,19 +531,24 @@ class ShardedServeEngine(_Engine):
         return audit_sharded(factored, pivot_tol)
 
     def _loc_from_csr(self, vals_csr: np.ndarray) -> torch.Tensor:
-        """CSR-aligned factor values in the owners' (D, s_loc, W) layout."""
+        """CSR-aligned factor values in the local owners' (L, s_loc, W) layout."""
         plan = self._plan
         rows = np.repeat(np.arange(self.n), np.diff(self.pattern.indptr))
         lane = np.arange(self.pattern.nnz, dtype=np.int64) - self.pattern.indptr[rows]
         rm = np.zeros((plan.n_pad, plan.width), np.float32)
         rm[rows, lane] = vals_csr
         dm = plan.rows_device_major(rm).reshape(self.group.n_devices, -1, plan.width)
+        dm = dm[list(self.group.local_owners)]
         return torch.as_tensor(np.ascontiguousarray(dm)).to(self.device)
 
-    def bind(self, a: CSRMatrix, factored) -> EngineBinding:
-        """Attach one value version: a sharded factorization (or CSR-aligned
-        values, for the identity fallback) and A's values, as the slots'
-        tensors on the device. Writes no slot and captures nothing."""
+    def bind(self, a: CSRMatrix, factored, version: Optional[int] = None) -> EngineBinding:
+        """Attach one value version (the next one when ``version`` is
+        None): a sharded factorization (or CSR-aligned values, for the
+        identity fallback) and A's values, as the slots' tensors on the
+        device. A factorization's CSR-aligned values are gathered from
+        every owner (``values_csr``: over ranks an all-gather of the
+        factorization's group, so every rank binds at the same point).
+        Writes no slot and captures nothing."""
         t0 = time.perf_counter()
         if isinstance(factored, np.ndarray):
             vals_csr = np.asarray(factored, np.float32)
@@ -479,7 +563,8 @@ class ShardedServeEngine(_Engine):
 
             plan = build_inverse_plan(self.pattern, vals_csr, k=self.pattern.k)
             args += compute_inverse_values(plan, self.device)
-        return EngineBinding(version=self._next_version(), value_args=tuple(args),
+        return EngineBinding(version=self._next_version() if version is None else version,
+                             value_args=tuple(args),
                              vals_csr=vals_csr, bound_seconds=time.perf_counter() - t0, a=a)
 
     def _fill(self, value_args: tuple) -> None:

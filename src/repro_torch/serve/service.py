@@ -92,6 +92,11 @@ class ServeConfig:
     sharded: bool = False                 # ShardedServeEngine over solve_sharded
     n_devices: int = 2                    # sharded only: band owners on the device
     band_rows: int = 32                   # sharded only
+    #: sharded only: the band group the engines run over, the counterpart of
+    #: the JAX package's ``mesh`` — None for a one-device
+    #: ``BandGroup(n_devices)``; a ``DistBandGroup`` (one owner per rank) is
+    #: served from rank 0 inside ``repro_torch.serve.ranks.lead``
+    group: object = None
     # -- robustness knobs ---------------------------------------------------
     #: breakdown policy for *register-time* factorization audits
     #: ("raise" | "shift" | "fallback" | "ignore"); solve-time lane retries
@@ -129,7 +134,8 @@ class SolveService:
                       precond_method=cfg.precond_method, buckets=cfg.buckets,
                       device=cfg.device)
         if cfg.sharded:
-            common.update(n_devices=cfg.n_devices, band_rows=cfg.band_rows, k=cfg.k)
+            common.update(n_devices=cfg.n_devices, band_rows=cfg.band_rows, k=cfg.k,
+                          group=cfg.group)
         common.update(knobs)
         return common
 
@@ -137,7 +143,18 @@ class SolveService:
         return ShardedServeEngine if self.config.sharded else ServeEngine
 
     def _make_engine(self, a, pattern, vals_csr=None, **knobs):
-        return self._engine_class()(a, pattern, vals_csr, **self._engine_knobs(knobs))
+        knobs = self._engine_knobs(knobs)
+        group = knobs.get("group")
+        if getattr(group, "kind", None) == "ranks":
+            from .ranks import leader_of
+
+            leader = leader_of(group)
+            if leader is None:
+                raise ValueError("a service over a DistBandGroup runs on rank 0 inside "
+                                 "repro_torch.serve.ranks.lead, with every other rank in "
+                                 "follow: its engines' collectives need every rank")
+            return leader.engine(a, pattern, knobs)
+        return self._engine_class()(a, pattern, vals_csr, **knobs)
 
     def _engine_key(self, a, pattern, **knobs):
         return self._engine_class().fingerprint_for(a, pattern, **self._engine_knobs(knobs))

@@ -3,8 +3,9 @@
 * A child process imports the port with ``jax`` blocked and runs a tiny
   GMRES and CG solve, a Block-ILU, a distributed solve over two band
   owners, an RCM-ordered BiCGSTAB solve, a fusion-ordered batch, a
-  warm-up, a two-tenant round trip of the solve service and a solve over
-  two gloo ranks (``repro_torch.launch.dist``) and three greedy decode
+  warm-up, a two-tenant round trip of the solve service, a solve over
+  two gloo ranks (``repro_torch.launch.dist``), imports the solve service
+  over ranks (``repro_torch.serve.ranks``) and runs three greedy decode
   steps of a reduced smollm-135m (``repro_torch.models``,
   ``repro_torch.train.step``), one decode step each of a reduced
   deepseek-v2-lite (MoE, MLA) and whisper-tiny (after
@@ -85,8 +86,9 @@ for tenant, mid in (("t0", "m0"), ("t1", "m1"), ("t1", "m0")):
 out = svc.tick()
 assert len(out) == 3 and all(r.ok and r.verdict == "converged" for r in out), out
 assert svc.metrics_snapshot()["compiles"]["after_warmup"] == 0
-import repro_torch.core.dist, repro_torch.launch.dist
-from repro_torch.launch.dist import run_ranks, solve_rank
+import repro_torch.core.dist, repro_torch.launch.dist, repro_torch.serve.ranks
+from repro_torch.launch.dist import run_ranks, serve_rank, solve_rank
+from repro_torch.serve.ranks import follow, lead, open_lanes
 out = run_ranks(solve_rank, 2, "gloo", ["cpu"] * 2, timeout_s=120,
                 args=(40, 0.1, 1, "gmres", "gather", 8, "natural", 0))
 assert all(o["verdict"] == "converged" for o in out), out
@@ -180,7 +182,8 @@ def test_no_source_file_imports_jax_or_repro():
     assert ROOT / "examples" / "train_smollm_torch.py" in files
     assert PORT / "models" / "scan_utils.py" in files
     assert {PORT / "launch" / "dryrun.py", PORT / "roofline" / "analysis.py",
-            PORT / "core" / "perf_model.py", ROOT / "examples" / "quickstart_torch.py"} <= set(files)
+            PORT / "core" / "perf_model.py", ROOT / "examples" / "quickstart_torch.py",
+            PORT / "serve" / "ranks.py", ROOT / "examples" / "ilu_pipeline_demo_torch.py"} <= set(files)
     for f in files:
         for no, line in enumerate(f.read_text().splitlines(), 1):
             assert not pat.search(line), f"{f.relative_to(ROOT)}:{no}: {line.strip()}"

@@ -240,3 +240,37 @@ def test_sharded_graph_replay_equals_eager_on_card():
     ragged, _ = solve_sharded(a, bs, fact=wf)
     for i in range(3):
         _same(ragged[i], solve_sharded(cold_a, bs[i], fact=cf)[0])
+
+
+@pytest.mark.cuda
+def test_capture_holds_the_collector_off():
+    """No collection runs inside a capture: cyclic garbage holding a
+    captured restart (an engine and its matvec's store refer to each other)
+    freed there destroys its graph, which invalidates the capture. With the
+    collector's thresholds at 1 it would run at the capture's first
+    allocation; a callback records any collection made while capturing."""
+    import gc
+
+    dev = _needs_cuda()
+    warm_solve(poisson_2d(24), k=1, batch_sizes=(1, 2), sharded=False, device=dev)
+    a = poisson_2d(24)  # the matrix above is garbage now, its engines and graphs in cycles
+    seen = []
+
+    def watch(phase, info):
+        if phase == "start" and torch.cuda.is_current_stream_capturing():
+            seen.append(info["generation"])
+
+    threshold = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    gc.callbacks.append(watch)
+    try:
+        warm_solve(a, k=1, batch_sizes=(1,), sharded=False, device=dev)
+    finally:
+        gc.callbacks.remove(watch)
+        gc.set_threshold(*threshold)
+    assert seen == [] and gc.isenabled()
+    engine = next(iter(_engines(_matvec(a, dev)).values()))
+    assert engine.graph is not None
+    b = _rhs(a.n, seed=4)
+    _same(solve_with_ilu(a, b, k=1, device=dev)[0],
+          solve_with_ilu(poisson_2d(24), b, k=1, device=dev)[0])
