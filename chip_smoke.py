@@ -148,9 +148,34 @@ with a non-zero exit; nothing is caught):
     ``spmv_ell``, ``epoch_sweep`` and ``superstep_factor`` launched; per
     part solves/s, p50 and p99, collectives and staged bytes per batch.
     15c. dist-nccl — the same fusion solve over NCCL ranks, one card
-    each, and with four cards [serve-ranks]' services over them, where
-    the machine has two cards or more; otherwise one line says why it did
-    not run. 15d. pipeline-demo — ``examples/ilu_pipeline_demo_torch.py``'s
+    each, where the machine has two cards or more (otherwise one line says
+    why it did not run); with four cards, in the same ranks, (b)
+    ``warm_solve`` of ``poisson_2d(400)`` (GMRES(30), 3 restarts, the sweep
+    under the fusion ordering and the inverse method): each restart one
+    replayed CUDA graph with its collectives inside, ``x``, steps,
+    restarts, verdict and counts of the warm and of the eager ranked solve
+    bitwise equal to the one-card run over 4 owners on every rank, the
+    seconds per restart eager and replayed printed per rank; (c)
+    [serve-ranks]' services over the NCCL ranks, every bucket's restart
+    captured at warm-up on every rank, no build, capture or cold restart
+    after it, the responses bitwise equal to the one-card engine, solves/s
+    beside the eager services'; then, in ranks of their own, the ring's
+    NCCL point-to-point hops in a captured graph (printed where every
+    failing rank raised the ring's own refusal; any other fault ends the
+    run). [nccl-capture]: one NCCL rank on this card (``run_ranks``): a
+    CUDA graph of a ``spmv_ell`` launch (the main path's matrix and one
+    right-hand side) and ``DistBandGroup.exchange`` of its output, gather
+    and ring (one rank makes no ring hop, so no point-to-point op is
+    captured), replayed 3 times on new inputs written in place, each
+    bitwise equal to the eager call with the eager counts, one
+    ``spmv_ell`` launch per replay; eager and replayed ms; then in the same
+    rank (b)'s warm ranked solves over that one NCCL rank (each capture
+    under ``torch.cuda.set_sync_debug_mode("error")``; one rank holds
+    every owner, so these restarts exchange nothing and sweep in the
+    one-card persistent launch), held with the eager ranked solve to the
+    one-card run of one owner, one replay per restart, ``spmv_ell`` and
+    ``epoch_sweep`` launched only through the graph.
+    15d. pipeline-demo — ``examples/ilu_pipeline_demo_torch.py``'s
     8 band owners on the card: ``topilu_numeric`` under psum and ring,
     each bitwise equal to ``numeric_ilu_ref``, one ``superstep_factor``
     launch per factorization.
@@ -373,6 +398,18 @@ SERVE_RANKS_TOL = 1e-4
 SERVE_RANKS_REQUESTS = 12
 SERVE_RANKS_SWEEP_N = 256
 SERVE_RANKS_SWEEP_REQUESTS = 16
+# [nccl-capture]: replays of each captured spmv_ell + exchange graph, each on
+# a new input (and the calls timed per form)
+NCCL_CAPTURE_REPLAYS = 3
+NCCL_CAPTURE_TIMED = 10
+# [dist-nccl] (b): warm_solve over the NCCL ranks on poisson_2d(400) (the size
+# whose one-card warm restart under fusion is timed in [warm]), GMRES(30)
+# for this many restarts, eager and replayed
+DIST_WARM_NX = 400
+DIST_WARM_MAXITER = 3
+# [dist-nccl] (c): the ranked services' solves/s with every restart eager, on 4
+# NCCL ranks (H100 80GB HBM3 cards at 700 W), printed beside the captured ones
+EAGER_RANKED_SOLVES_PER_S = (0.936, 7.799)
 # [pipeline-demo]: examples/ilu_pipeline_demo_torch.py's owners on the card
 PIPELINE_DEMO_OWNERS = 8
 SHARDED_D = 4  # band owners of the distributed path, on one card
@@ -2756,23 +2793,61 @@ def phase_distributed_fusion(dev, b, o4, nx=400):
     return counts, res
 
 
-def dist_ranks_body(group, nx, b, fusion_perm, b_nat, serve=()):
+def dist_ranks_body(group, nx, b, fusion_perm, b_nat, serve=(), warm=None):
     """[dist-ranks] / [dist-nccl], on each rank of a DistBandGroup: the
     fusion-ordered solve_sharded of poisson_2d(nx) (GMRES(30) for
     DIST_RANKS_MAXITER restarts, TOL; the matrix built here, b from the
     parent); with ``b_nat`` also the natural factorization with the ring
     broadcast and, on its factors, one sweep apply per vector of ``b_nat``
-    and one inverse apply of the first; then [serve-ranks]: one ranked
-    solve service per case of ``serve`` (``serve_rank``'s arguments; rank 0
-    leads, the others follow). Each part reads the launch counts and the
-    group's counts and walls it made."""
+    and one inverse apply of the first; with ``warm`` ((nx, b) of
+    [dist-nccl] (b)) the eager and the warm ranked solves of
+    :func:`dist_warm_part`; then [serve-ranks]: one ranked solve service per
+    case of ``serve`` (``serve_rank``'s arguments; rank 0 leads, the others
+    follow), with the restart engines it built and captured. Each part
+    reads the launch counts and the group's counts and walls it made."""
     import numpy as np
-    import torch
 
     from repro_torch.core.matgen import poisson_2d
-    from repro_torch.core.solvers import solve_sharded
-    from repro_torch.kernels import ops
+    from repro_torch.core.solvers import engine_events, solve_sharded
     from repro_torch.launch.dist import serve_rank
+
+    start, done = rank_clock(group)
+    a = poisson_2d(nx)
+    t0 = start()
+    res, fact = solve_sharded(a, b, k=1, group=group, band_rows=BAND_ROWS, ordering="fusion",
+                              tol=TOL, maxiter=DIST_RANKS_MAXITER)
+    out = dict(rank=group.rank, fusion=done(
+        t0, x=res.x, steps=res.iterations, restarts=len(res.history), verdict=res.verdict,
+        residual=res.residual, factor_s=fact.symbolic_seconds + fact.numeric_seconds,
+        supersteps=fact.plan.n_supersteps, block=tuple(fact.loc_vals.shape),
+        same_perm=bool(np.array_equal(fact.ordering.perm, fusion_perm)),
+        runs=fact.precond().sweep.tables.runs()))
+    if b_nat is not None:
+        dist_ranks_natural(group, nx, b_nat, out, start, done)
+    if warm is not None:
+        out["warm"] = dist_warm_part(group, *warm)
+    out["serve"] = []
+    for case in serve:
+        before = engine_events()
+        t0 = start()
+        got = serve_rank(group, *case)
+        launches, graphs = warm_counts()
+        after = engine_events()
+        got.update(wall=time.perf_counter() - t0, launches=launches, replays=graphs["replays"],
+                   events={k: v - before[k] for k, v in after.items()})
+        out["serve"].append(got)
+    return out
+
+
+def rank_clock(group):
+    """(start, done) for a part of a rank body: ``start()`` zeroes the
+    group's and the wrappers' counts, synchronizes and returns the clock;
+    ``done(t0, **kw)`` synchronizes and returns the wall since ``t0``, the
+    group's counts, the wrappers' launches, the exchange seconds and the
+    staged bytes, with ``kw``."""
+    import torch
+
+    from repro_torch.kernels import ops
 
     dev = group.device
 
@@ -2792,25 +2867,250 @@ def dist_ranks_body(group, nx, b, fusion_perm, b_nat, serve=()):
                     launches=ops.launch_counts(), collective_s=group.exchange_seconds,
                     staged=group.staged_bytes, **kw)
 
-    a = poisson_2d(nx)
-    t0 = start()
-    res, fact = solve_sharded(a, b, k=1, group=group, band_rows=BAND_ROWS, ordering="fusion",
-                              tol=TOL, maxiter=DIST_RANKS_MAXITER)
-    out = dict(rank=group.rank, fusion=done(
-        t0, x=res.x, steps=res.iterations, restarts=len(res.history), verdict=res.verdict,
-        residual=res.residual, factor_s=fact.symbolic_seconds + fact.numeric_seconds,
-        supersteps=fact.plan.n_supersteps, block=tuple(fact.loc_vals.shape),
-        same_perm=bool(np.array_equal(fact.ordering.perm, fusion_perm)),
-        runs=fact.precond().sweep.tables.runs()))
-    if b_nat is not None:
-        dist_ranks_natural(group, nx, b_nat, out, start, done)
-    out["serve"] = []
-    for case in serve:
-        t0 = start()
-        got = serve_rank(group, *case)
-        got.update(wall=time.perf_counter() - t0, launches=ops.launch_counts())
-        out["serve"].append(got)
+    return start, done
+
+
+def dist_warm_methods():
+    """[dist-nccl] (b)'s solves: (name, solve_sharded's and warm_solve's
+    keywords) for the sweep and the inverse method under the fusion order."""
+    common = dict(k=1, band_rows=BAND_ROWS, ordering="fusion", restart=30,
+                  maxiter=DIST_WARM_MAXITER)
+    return [("sweep", dict(common, precond_method="sweep", tol=TOL)),
+            ("inverse", dict(common, precond_method="inverse", tol=INV_TOL))]
+
+
+def dist_warm_part(group, nx, b):
+    """[dist-nccl] (b) on one rank, per method of :func:`dist_warm_methods`:
+    solve_sharded of poisson_2d(nx) once cold (the factorization, cached),
+    once eagerly with the factorization cached, then ``warm_solve`` with
+    the same keywords (each bucket's restart captured as one CUDA graph,
+    the collectives inside) and the same solve again, each restart one
+    replay. Returns per method both solves' x, steps, restarts, verdict,
+    counts, walls and launches (the warm one's graph replays and the
+    launches they made), and warm_solve's seconds."""
+    from repro_torch.core.matgen import poisson_2d
+    from repro_torch.core.solvers import solve_sharded, warm_solve
+
+    start, done = rank_clock(group)
+    out = {}
+    for name, kw in dist_warm_methods():
+        a = poisson_2d(nx)
+
+        def solve():
+            t0 = start()
+            res, _ = solve_sharded(a, b, group=group, **kw)
+            launches, graphs = warm_counts()
+            return done(t0, x=res.x, steps=res.iterations, restarts=len(res.history),
+                        verdict=res.verdict, graph_launches=graphs["kernels"],
+                        replays=graphs["replays"])
+
+        cold = solve()
+        eager = solve()
+        t0 = time.perf_counter()
+        warm_solve(a, group=group, **kw)
+        warm_s = time.perf_counter() - t0
+        out[name] = dict(cold_wall=cold["wall"], eager=eager, warm=solve(), warm_s=warm_s)
     return out
+
+
+def dist_warm_body(group, nx, b):
+    """A rank body: :func:`dist_warm_part` alone, each capture recorded
+    with ``torch.cuda.set_sync_debug_mode("error")`` (so a call of the
+    restart that synchronizes with the host raises where it is made; this
+    rank runs no other thread)."""
+    from repro_torch.core.solvers import CapturedStep
+
+    CapturedStep.sync_debug_mode = "error"
+    return dict(rank=group.rank, warm=dist_warm_part(group, nx, b))
+
+
+def dist_warm_reference(dev, b, nx, n_owners=SHARDED_D):
+    """:func:`dist_warm_part`'s one-card runs: per method the same solves
+    over ``n_owners`` owners of one BandGroup, cold then again with the
+    factorization cached; returns {method: (result, that solve's counts)}."""
+    from repro_torch.core.matgen import poisson_2d
+    from repro_torch.core.solvers import solve_sharded
+
+    out = {}
+    for name, kw in dist_warm_methods():
+        a = poisson_2d(nx)
+        _, fact = solve_sharded(a, b, n_devices=n_owners, device=dev, **kw)
+        fact.group.reset_counts()
+        res, _ = solve_sharded(a, b, n_devices=n_owners, device=dev, **kw)
+        out[name] = (res, fact.group.counts())
+    return out
+
+
+def dist_warm_check(tag, out, ref, n_owners):
+    """:func:`dist_warm_part` on every rank (``out``): the warm solve (each
+    restart a replayed graph) and the eager one give the same x, steps,
+    restarts, verdict and counts as the one-card run of ``n_owners`` owners
+    (``ref``, :func:`dist_warm_reference`); the warm solve replays its
+    graph once per restart and launches spmv_ell (and, for the sweep,
+    epoch_sweep) only through it; per rank the seconds per restart, eager
+    and replayed."""
+    import numpy as np
+
+    for name, _kw in dist_warm_methods():
+        want, want_counts = ref[name]
+        for o in out:
+            w = o["warm"][name]
+            r = o["rank"]
+            for part in ("eager", "warm"):
+                g = w[part]
+                require(np.array_equal(g["x"].view(np.int32), want.x.view(np.int32))
+                        and (g["steps"], g["restarts"], g["verdict"])
+                        == (want.iterations, len(want.history), want.verdict)
+                        and g["counts"] == want_counts,
+                        f"[{tag}] rank {r} {name} {part}: x, steps, restarts, verdict "
+                        f"or counts ({g['counts']}) != the one-card run's ({want_counts})")
+            e, g = w["eager"], w["warm"]
+            kernels = ("spmv_ell", "epoch_sweep") if name == "sweep" else ("spmv_ell",)
+            require(e["replays"] == 0 and g["replays"] == g["restarts"] > 0
+                    and all(g["graph_launches"].get(k, 0) > 0 and g["launches"][k] == 0
+                            for k in kernels),
+                    f"[{tag}] rank {r} {name}: {g['replays']} replays for "
+                    f"{g['restarts']} restarts, graph launches {g['graph_launches']}, wrapper "
+                    f"launches {g['launches']}")
+            say(f"[{tag}] rank {r} {name}: {g['steps']} steps in {g['restarts']} "
+                f"restarts ({g['verdict']}); eager {e['wall'] / e['restarts']:.4f} s per restart "
+                f"({e['collective_s']:.3f} s of {e['wall']:.3f} s in "
+                f"{e['counts']['collectives']} collectives), replayed "
+                f"{g['wall'] / g['restarts']:.4f} s per restart ({g['replays']} replays, "
+                f"{g['counts']['collectives']} collectives counted, exchange seconds "
+                f"{g['collective_s']:.3f}); warm_solve {w['warm_s']:.2f} s, cold solve with the "
+                f"factorization {w['cold_wall']:.2f} s; per replay "
+                + ", ".join(f"{k} {v // g['replays']}" for k, v in
+                            sorted(g["graph_launches"].items())))
+    say(f"[{tag}] every rank: the warm and the eager ranked solves' x, steps, restarts, "
+        f"verdict and counts bitwise equal to the one-card run over {n_owners} owners "
+        "(sweep under fusion, inverse)")
+
+
+def nccl_capture_body(group, nx, broadcasts, nb=1, warm_b=None,
+                      replays=NCCL_CAPTURE_REPLAYS, timed=NCCL_CAPTURE_TIMED):
+    """[nccl-capture] on each rank of an NCCL DistBandGroup: per broadcast
+    one CUDA graph (``solvers.CapturedStep``) of a ``spmv_ell`` launch on
+    this rank's row block of poisson_2d(nx) (``nb`` right-hand sides; one is
+    the main path's) and ``group.exchange`` of its output; ``replays``
+    replays on new inputs written in place, each held bitwise to the eager
+    call on the same input, with the group's counts per replay; then
+    ``timed`` eager calls and replays timed. Returns per broadcast what
+    held, the counts, the kernels per replay and their launches, the
+    exchange seconds the replays added, and the ms per eager call, per
+    replay and of the capture; with ``warm_b`` also, after them,
+    :func:`dist_warm_body`'s warm ranked solves of poisson_2d(nx)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.matgen import poisson_2d
+    from repro_torch.core.solvers import CapturedStep, csr_to_ell_arrays
+    from repro_torch.kernels import ops
+
+    dev, D, r = group.device, group.n_devices, group.rank
+    a = poisson_2d(nx)
+    rows = a.n // D
+    require(rows * D == a.n, f"[nccl-capture] n = {a.n} does not split into {D} row blocks")
+    cols, vals = csr_to_ell_arrays(a, dev)
+    op = ops.EllOperator(cols[r * rows:(r + 1) * rows].contiguous(),
+                         vals[r * rows:(r + 1) * rows].contiguous(), n=a.n)
+    rng = np.random.default_rng(SEED + 60)
+    inputs = [torch.as_tensor(rng.standard_normal((nb, a.n)).astype(np.float32), device=dev)
+              for _ in range(replays)]
+    x = torch.empty((nb, a.n), dtype=torch.float32, device=dev)
+    out = torch.empty((D, nb, rows), dtype=torch.float32, device=dev)
+
+    def timed_ms(fn):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            fn()
+        torch.cuda.synchronize(dev)
+        return (time.perf_counter() - t0) / timed * 1e3
+
+    res = {}
+    for bc in broadcasts:
+        def step():
+            out.copy_(group.exchange(op(x)[None], bc)[0])
+
+        eager = []
+        for xi in inputs:
+            x.copy_(xi)
+            group.reset_counts()
+            step()
+            eager.append((out.clone(), group.counts()))
+        eager_ms = timed_ms(step)
+        cap = CapturedStep(step, [group], dev)
+        ops.reset_launch_counts()
+        bitwise = counts_equal = True
+        added_s = 0.0
+        for xi, (want, want_counts) in zip(inputs, eager):
+            x.copy_(xi)
+            group.reset_counts()
+            cap.replay()
+            added_s += group.exchange_seconds
+            bitwise &= torch.equal(out.view(torch.int32), want.view(torch.int32))
+            counts_equal &= group.counts() == want_counts
+        graphs = ops.graph_counts()
+        res[bc] = dict(bitwise=bool(bitwise), counts_equal=bool(counts_equal),
+                       counts=eager[0][1], kernels=cap.kernels, graphs=graphs,
+                       wrapper_launches=ops.launch_counts()["spmv_ell"],
+                       added_s=added_s, eager_ms=eager_ms,
+                       replay_ms=timed_ms(cap.replay), capture_ms=cap.seconds * 1e3)
+    if warm_b is None:
+        return dict(rank=r, res=res)
+    return dict(dist_warm_body(group, nx, warm_b), res=res)
+
+
+def nccl_capture_check(tag, outs, broadcasts, replays=NCCL_CAPTURE_REPLAYS):
+    """Hold every rank's :func:`nccl_capture_body` results: each replay
+    bitwise equal to the eager call with the eager counts, one spmv_ell
+    launch per replay (none through the wrapper), no exchange seconds
+    added by the replays; print the times."""
+    for o in outs:
+        for bc in broadcasts:
+            g = o["res"][bc]
+            require(g["bitwise"] and g["counts_equal"],
+                    f"[{tag}] rank {o['rank']} {bc}: a replay != the eager call (bitwise "
+                    f"{g['bitwise']}, counts equal {g['counts_equal']})")
+            require(g["kernels"] == {"spmv_ell": 1} and g["wrapper_launches"] == 0
+                    and g["graphs"] == {"replays": replays, "kernels": {"spmv_ell": replays}}
+                    and g["counts"]["exchanges"] == 1 and g["added_s"] == 0.0,
+                    f"[{tag}] rank {o['rank']} {bc}: kernels {g['kernels']}, graphs "
+                    f"{g['graphs']}, counts {g['counts']}, added seconds {g['added_s']}")
+            say(f"[{tag}] rank {o['rank']} {bc}: spmv_ell + exchange captured in "
+                f"{g['capture_ms']:.1f} ms, {replays} replays on new inputs bitwise equal to "
+                f"the eager calls, counts per replay {json.dumps(g['counts'])}; eager "
+                f"{g['eager_ms']:.4f} ms per call, replayed {g['replay_ms']:.4f} ms")
+
+
+def phase_nccl_capture(dev, nx=400):
+    """[nccl-capture]: one NCCL rank on this card (run_ranks): a CUDA graph
+    of a spmv_ell launch and the group's exchange of its output, "gather"
+    and "ring" (a group of one makes no hop, so no point-to-point op is
+    captured), replayed on new inputs and held to the eager calls
+    (:func:`nccl_capture_body`); then in the same rank the warm ranked
+    solves of poisson_2d(nx) (:func:`dist_warm_body`: warm_solve over the
+    NCCL group, each restart a replayed graph, the sweep under fusion and
+    the inverse), held with the eager ranked solve to the one-card run of
+    one owner. One rank holds every owner, so its restart exchanges
+    nothing and its sweep is the one-card persistent launch: this drives
+    the entry point and the capture over a DistBandGroup, not the ranked
+    sweep's route (four cards, [dist-nccl] (b))."""
+    import numpy as np
+
+    from repro_torch.launch.dist import run_ranks
+
+    warm_b = np.random.default_rng(SEED + 61).standard_normal(nx * nx).astype(np.float32)
+    t0 = time.perf_counter()
+    out = run_ranks(nccl_capture_body, 1, "nccl", None, timeout_s=300,
+                    args=(nx, ("gather", "ring"), 1, warm_b))
+    say(f"[nccl-capture] poisson_2d({nx}), one NCCL rank: {time.perf_counter() - t0:.1f} s "
+        "with the spawn")
+    nccl_capture_check("nccl-capture", out, ("gather", "ring"))
+    t0 = time.perf_counter()
+    dist_warm_check("nccl-capture warm", out, dist_warm_reference(dev, warm_b, nx, 1), 1)
+    say(f"[nccl-capture warm] the one-card reference: {time.perf_counter() - t0:.1f} s")
 
 
 def dist_ranks_natural(group, nx, b_nat, out, start, done):
@@ -2983,12 +3283,16 @@ def serve_ranks_refs(dev, parts, leads):
 
 def serve_ranks_check(tag, outs, parts, refs, backend="gloo"):
     """[serve-ranks] on every rank's results: per part every request
-    completed, none failed, nothing built or captured after warm-up (and no
-    graph captured at all on rank 0), every follower's solve digests equal
-    rank 0's, every response bitwise equal to the one-card engine's
-    (``refs``), both value versions served; prints solves/s, p50 and p99,
-    collectives and staged bytes per batch, cold restarts and the launches.
-    Returns rank 0's launch counts over both parts."""
+    completed, none failed, nothing built or captured and no cold restart
+    after warm-up; over gloo no graph captured at all, over NCCL every
+    restart engine the service built captured on every rank (and its
+    solves replayed); every follower's solve digests equal rank 0's, every
+    response bitwise equal to the one-card engine's (``refs``), both value
+    versions served; prints solves/s (over NCCL beside the eager
+    services' ``EAGER_RANKED_SOLVES_PER_S``), p50 and p99, collectives and
+    staged bytes per batch, cold restarts and the launches. Returns rank
+    0's launch counts over both parts (the wrappers' and the graph
+    replays')."""
     import numpy as np
 
     total = {}
@@ -2999,8 +3303,17 @@ def serve_ranks_check(tag, outs, parts, refs, backend="gloo"):
         req = snap["requests"]
         require(req["admitted"] == req["completed"] == part["n"] and req["failed"] == 0,
                 f"[{name}] requests {req}")
-        require(snap["compiles"]["after_warmup"] == 0 and lead["events"]["captures"] == 0,
-                f"[{name}] after warm-up: compiles {snap['compiles']}, events {lead['events']}")
+        require(snap["compiles"]["after_warmup"] == 0
+                and snap["cold_restarts"]["after_warmup"] == 0,
+                f"[{name}] after warm-up: compiles {snap['compiles']}, cold restarts "
+                f"{snap['cold_restarts']}")
+        for o in outs:
+            ev = o["serve"][i]["events"]
+            captured = (ev["captures"] == ev["warm_builds"] > 0 and o["serve"][i]["replays"] > 0
+                        if backend == "NCCL" else ev["captures"] == 0)
+            require(captured, f"[{name}] rank {o['rank']}: {backend} service built "
+                    f"{ev['warm_builds']} restart engines, captured {ev['captures']}, replayed "
+                    f"{o['serve'][i]['replays']} graphs")
         for o in outs[1:]:
             require(o["serve"][i]["digests"] == lead["digests"],
                     f"[{name}] rank {o['rank']}'s solve digests differ from rank 0's")
@@ -3015,18 +3328,20 @@ def serve_ranks_check(tag, outs, parts, refs, backend="gloo"):
                     "engine's solve of it")
         lat = sorted(r["latency"] for r in lead["responses"])
         batches = snap["coalescing"]["batches"]
+        eager = (f" (every restart eager: {EAGER_RANKED_SOLVES_PER_S[i]})"
+                 if backend == "NCCL" else "")
         say(f"[{name}] {len(outs)} {backend} ranks, n={part['a'].n}, GMRES({part['restart']}): "
             f"{part['n']} requests of 2 tenants in {batches} batches around one background "
             f"value update in {lead['seconds']['traffic']:.3f} s: "
-            f"{part['n'] / lead['seconds']['traffic']:.3f} solves/s, latency p50 "
+            f"{part['n'] / lead['seconds']['traffic']:.3f} solves/s{eager}, latency p50 "
             f"{lat[len(lat) // 2] * 1e3:.1f} ms, p99 {lat[min(len(lat) - 1, int(0.99 * len(lat)))] * 1e3:.1f} ms; "
             f"{tr['counts']['collectives'] / batches:.1f} collectives per batch "
             f"({tr['counts']['collectives']} in {tr['exchange_seconds']:.3f} s), "
             f"{tr['staged_bytes'] / batches:,.0f} bytes staged per batch; register "
             f"{lead['seconds']['register']:.3f} s, warm-up {lead['seconds']['warmup']:.3f} s; "
             f"compiles {json.dumps(snap['compiles'])}, cold restarts "
-            f"{json.dumps(snap['cold_restarts'])}, captures {lead['events']['captures']}; "
-            f"announced {json.dumps(lead['announced'])}")
+            f"{json.dumps(snap['cold_restarts'])}, captures {lead['events']['captures']}, "
+            f"graph replays {lead['replays']}; announced {json.dumps(lead['announced'])}")
         for k, v in lead["launches"].items():
             total[k] = total.get(k, 0) + v
     say(f"[{tag}] every response bitwise equal to the one-card ShardedServeEngine over "
@@ -3131,17 +3446,23 @@ def phase_dist_ranks(dev, nx=None):
     return out[0]["fusion"]["launches"], serve_counts, (b, o, ref, nx, parts)
 
 
-def phase_dist_nccl(dev, b, o4, ref, nx=400, parts=None):
+def phase_dist_nccl(dev, b, o4, ref, nx=400, parts=None, warm_b=None):
     """[dist-nccl]: with two cards or more, the fusion solve of [dist-ranks]
     over NCCL ranks, one card each (D = min(SHARDED_D, cards)), under the
     same requirements, held to ``ref`` ([dist-ranks]' one-card run) or, where
-    D differs from SHARDED_D, to a one-card run of D owners; with SHARDED_D
-    cards also [serve-ranks]' services (``parts``) over the NCCL ranks, held
-    to the one-card engine. With one card it says that it did not run, and
-    why."""
+    D differs from SHARDED_D, to a one-card run of D owners. With SHARDED_D
+    cards also, in the same ranks: (b) with ``warm_b``, warm_solve of
+    poisson_2d(DIST_WARM_NX) with each restart one replayed CUDA graph, held
+    with the eager ranked solve to the one-card run (:func:`dist_warm_check`);
+    (c) [serve-ranks]' services (``parts``) over the NCCL ranks, each
+    bucket's restart captured at warm-up, held to the one-card engine; then
+    in ranks of their own the ring's hops captured ([nccl-capture]'s graph
+    over the D ranks): what held is printed either way. With one card it
+    says that it did not run, and why."""
     import numpy as np
     import torch
 
+    from repro_torch.core.dist import RING_CAPTURE_REFUSED
     from repro_torch.core.matgen import poisson_2d
     from repro_torch.core.ordering import fusion_aware_ordering
     from repro_torch.launch.dist import run_ranks
@@ -3157,15 +3478,42 @@ def phase_dist_nccl(dev, b, o4, ref, nx=400, parts=None):
         ordering = fusion_aware_ordering(poisson_2d(nx), D, band_rows=BAND_ROWS)
         ref = fusion_reference(dev, b, ordering, D, nx)
     serve = parts is not None and D == SHARDED_D
+    warm = (DIST_WARM_NX, warm_b) if warm_b is not None and D == SHARDED_D else None
+    if warm is not None:
+        t0 = time.perf_counter()
+        warm_ref = dist_warm_reference(dev, warm_b, DIST_WARM_NX)
+        say(f"[dist-nccl warm] the one-card references: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     out = run_ranks(dist_ranks_body, D, "nccl", None, timeout_s=DIST_RANKS_TIMEOUT_S,
                     args=(nx, b, np.asarray(ordering.perm), None,
-                          [p["args"] for p in parts] if serve else ()))
+                          [p["args"] for p in parts] if serve else (), warm))
+    say(f"[dist-nccl] {D} NCCL ranks: {time.perf_counter() - t0:.1f} s with the spawn")
     dist_ranks_check("dist-nccl", out, ref)
     say(f"[dist-nccl] {D} NCCL ranks, one card each: x, steps, restarts, verdict and counts "
         "equal to the one-card run")
+    if warm is not None:
+        dist_warm_check("dist-nccl warm", out, warm_ref, SHARDED_D)
     if serve:
         serve_ranks_check("dist-nccl serve-ranks", out, parts,
                           serve_ranks_refs(dev, parts, out[0]["serve"]), backend="NCCL")
+    t0 = time.perf_counter()
+    try:
+        ring = run_ranks(nccl_capture_body, D, "nccl", None, timeout_s=180,
+                         args=(DIST_WARM_NX, ("ring",)))
+    except RuntimeError as e:
+        # only the ring's own refusal (DistBandGroup._ring) on every rank
+        # that failed is a finding; any other fault ends the run
+        failed = str(e).split("--- rank ")[1:]
+        if not failed or not all(RING_CAPTURE_REFUSED in part for part in failed):
+            raise
+        first = next(line for line in failed[0].splitlines() if RING_CAPTURE_REFUSED in line)
+        say(f"[dist-nccl ring] the ring's {D - 1} NCCL point-to-point hops were not captured "
+            f"in a CUDA graph on {len(failed)} of {D} ranks ({time.perf_counter() - t0:.1f} s): "
+            f"{first.strip()}")
+    else:
+        nccl_capture_check("dist-nccl ring", ring, ("ring",))
+        say(f"[dist-nccl ring] the ring's {D - 1} NCCL point-to-point hops captured and "
+            f"replayed over {D} ranks ({time.perf_counter() - t0:.1f} s with the spawn)")
 
 
 def engines_of(matvec):
@@ -4778,7 +5126,8 @@ def run(oracles):
     by_path["dist-ranks"], by_path["serve-ranks"], nccl_args = phase_dist_ranks(dev)
     lap("dist-ranks, serve-ranks")
     phase_dist_nccl(dev, *nccl_args)
-    lap("dist-nccl")
+    phase_nccl_capture(dev)
+    lap("dist-nccl, nccl-capture")
     by_path["pipeline-demo"] = phase_pipeline_demo(dev)
     lap("pipeline-demo")
     by_path.update(phase_warm(dev, b, single, multi, dist_cold, fused_cold, o4))
@@ -4817,8 +5166,9 @@ def run(oracles):
 def run_dist_nccl():
     """``python3 chip_smoke.py --dist-nccl``, on a machine with two cards or
     more: the build and [dist-nccl] alone (the NCCL ranks' fusion solve
-    against its one-card run on card 0), then a last line
-    ``{"dist_nccl": {"ok": true, "cards": N}}``."""
+    against its one-card run on card 0; with four cards the warm ranked
+    solves, the captured services and the ring's captured hops), then a
+    last line ``{"dist_nccl": {"ok": true, "cards": N}}``."""
     import numpy as np
     import torch
 
@@ -4837,8 +5187,10 @@ def run_dist_nccl():
     nx = DIST_RANKS_NX
     b = np.random.default_rng(SEED + 1).standard_normal(nx * nx).astype(np.float32)
     o4 = fusion_aware_ordering(poisson_2d(nx), SHARDED_D, band_rows=BAND_ROWS)
+    warm_b = np.random.default_rng(SEED + 61).standard_normal(
+        DIST_WARM_NX * DIST_WARM_NX).astype(np.float32)
     phase_dist_nccl(dev, b, o4, fusion_reference(dev, b, o4, SHARDED_D, nx), nx,
-                    serve_ranks_cases(nx))
+                    serve_ranks_cases(nx), warm_b)
     say(f"[time] dist-nccl: {time.perf_counter() - t0:.1f} s")
     say(json.dumps({"dist_nccl": {"ok": True, "cards": cards}}))
     return 0

@@ -29,9 +29,13 @@ device raises; nothing switches in silence):
   payload is staged through a pinned host buffer (``staged_bytes``);
 * ``"nccl"`` with one card per rank (NCCL refuses two ranks on one card).
 
-Collectives cannot be captured in a CUDA graph here (gloo runs on the
-host), so a warm restart over a :class:`DistBandGroup` is refused
-(``capturable`` is False).
+A CUDA graph may capture the exchanges of an NCCL group (``capturable``):
+NCCL's collectives are ordered on the stream, so while a capture runs an
+exchange issues its collective on the capturing stream, with no host
+synchronization, host clock or staging, and each replay of the graph runs
+it again (a warm restart over the ranks, :class:`repro_torch.core.solvers.WarmRestart`).
+gloo runs on the host: a gloo group is not ``capturable``, and an exchange
+inside a capture raises.
 
 A solve service over the ranks (``repro_torch.serve.ranks``) runs its
 refactorizations on a second group of the same ranks
@@ -51,6 +55,9 @@ from .device import resolve_device
 from .top_ilu import GroupCounts, _broadcast
 
 BACKENDS = ("gloo", "nccl")
+#: the words of the error an exchange raises where a CUDA graph capture
+#: refuses the ring's NCCL point-to-point hops
+RING_CAPTURE_REFUSED = "could not be captured in a CUDA graph"
 
 
 def _all_gather_into(out: torch.Tensor, src: torch.Tensor, group) -> None:
@@ -69,15 +76,16 @@ class DistBandGroup(GroupCounts):
 
     Beside the counts of :class:`~repro_torch.core.top_ilu.GroupCounts` it
     keeps ``staged_bytes`` (bytes copied between the card and pinned host
-    buffers for gloo) and ``exchange_seconds`` (wall seconds inside
-    exchanges and :meth:`gather_owners`; on a card the stream is
-    synchronized before and after each, so kernel time is not counted).
+    buffers for gloo) and ``exchange_seconds``, the eager wall: seconds
+    inside exchanges and :meth:`gather_owners` run outside a CUDA graph (on
+    a card the stream is synchronized before and after each, so kernel
+    time is not counted). An exchange replayed in a captured graph is
+    counted in :meth:`counts` but not timed.
 
     ``store`` (optional) is the key-value store the ranks joined through;
     it carries no exchange, only what a rank reports out of band."""
 
     kind = "ranks"
-    capturable = False
 
     def __init__(self, process_group=None, device=None, backend=None, store=None):
         if not (dist.is_available() and dist.is_initialized()):
@@ -104,6 +112,13 @@ class DistBandGroup(GroupCounts):
         self.reset_counts()
 
     @property
+    def capturable(self) -> bool:
+        """Whether a CUDA graph may capture this group's exchanges: True
+        over NCCL (stream-ordered collectives), False over gloo (host
+        collectives)."""
+        return self.backend == "nccl"
+
+    @property
     def global_ranks(self) -> list:
         """The group's ranks in the default process group, in owner order."""
         return list(self._peers)
@@ -123,16 +138,20 @@ class DistBandGroup(GroupCounts):
         self.staged_bytes = 0
         self.exchange_seconds = 0.0
 
-    def _check(self, name: str, local: torch.Tensor) -> None:
+    def _check(self, name: str, local: torch.Tensor) -> bool:
+        """Check a local block; returns whether a CUDA graph capture runs
+        on the current stream (only an NCCL group may be captured)."""
         if local.shape[0] != 1:
             raise ValueError(f"{name}: {local.shape[0]} owners' blocks on one rank, which holds "
                              "one owner")
         if local.device.type != self.device.type:
             raise ValueError(f"{name}: a tensor on {local.device}, the group's device is "
                              f"{self.device}")
-        if local.device.type == "cuda" and torch.cuda.is_current_stream_capturing():
-            raise RuntimeError(f"{name}: a CUDA graph cannot capture a collective of "
-                               "DistBandGroup")
+        capturing = local.device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+        if capturing and not self.capturable:
+            raise RuntimeError(f"{name}: a CUDA graph cannot capture a collective of a "
+                               f"{self.backend} DistBandGroup (its collectives run on the host)")
+        return capturing
 
     def _sync(self, t: torch.Tensor) -> None:
         if t.device.type == "cuda":
@@ -170,12 +189,20 @@ class DistBandGroup(GroupCounts):
                           pin_memory=self.staged)
         out[r] = cur
         nxt_peer, prv_peer = self._peers[(r + 1) % D], self._peers[(r - 1) % D]
+        capturing = cur.device.type == "cuda" and torch.cuda.is_current_stream_capturing()
         for hop in range(1, D):
             got = torch.empty_like(cur)
             ops = [dist.P2POp(dist.isend, cur, nxt_peer, self.process_group),
                    dist.P2POp(dist.irecv, got, prv_peer, self.process_group)]
-            for req in dist.batch_isend_irecv(ops):
-                req.wait()
+            try:
+                for req in dist.batch_isend_irecv(ops):
+                    req.wait()
+            except RuntimeError as e:
+                if not capturing:
+                    raise
+                raise RuntimeError(f"exchange: the ring's NCCL point-to-point hops "
+                                   f"(batch_isend_irecv) {RING_CAPTURE_REFUSED} ({e}); "
+                                   "capture broadcast='gather' instead") from e
             out[(r - hop) % D] = got
             cur = got
         return self._stage_out(out, src)
@@ -186,12 +213,15 @@ class DistBandGroup(GroupCounts):
         the layout of ``BandGroup.exchange`` for one local receiver. Counted
         as one exchange of ``payload[0]``'s bytes, one collective
         (``"gather"``) or D-1 hops (``"ring"``)."""
-        self._check("exchange", payload)
+        capturing = self._check("exchange", payload)
         broadcast = _broadcast(broadcast)
         self.record(1, payload[0].numel() * payload.element_size(), broadcast)
+        collect = self._gather if broadcast == "gather" else self._ring
+        if capturing:  # on the capturing stream: no host sync, no host clock
+            return collect(payload[0]).unsqueeze(0)
         self._sync(payload)
         t0 = time.perf_counter()
-        out = (self._gather if broadcast == "gather" else self._ring)(payload[0])
+        out = collect(payload[0])
         self._sync(out)
         self.exchange_seconds += time.perf_counter() - t0
         return out.unsqueeze(0)
@@ -202,7 +232,8 @@ class DistBandGroup(GroupCounts):
         One all-gather, so every rank must call it at the same point; not
         an exchange of the band schedule, so :meth:`counts` do not count it
         (as the one-device group's do not)."""
-        self._check("gather_owners", local)
+        if self._check("gather_owners", local):
+            return self._gather(local[0])
         self._sync(local)
         t0 = time.perf_counter()
         out = self._gather(local[0])

@@ -425,6 +425,111 @@ def _constants(m: int, device):
     return torch.tensor(1e-30, dtype=_F32, device=device), torch.arange(m, device=device)
 
 
+def _band_groups(*objs) -> list:
+    """The distinct band groups (``.group``) of the given operators."""
+    found = {}
+    for obj in objs:
+        group = getattr(obj, "group", None)
+        if group is not None:
+            found[id(group)] = group
+    return list(found.values())
+
+
+def check_capturable(groups) -> None:
+    """Raise unless a CUDA graph may capture every group's exchanges: a
+    gloo :class:`~repro_torch.core.dist.DistBandGroup` runs its
+    collectives on the host, so it refuses; one card's ``BandGroup`` and an
+    NCCL group pass."""
+    for group in groups:
+        if not group.capturable:
+            raise RuntimeError(f"a CUDA graph cannot capture the exchanges of a {group.backend} "
+                               f"{type(group).__name__} (its collectives run on the host); "
+                               "solve over it without warm_solve, or over NCCL")
+
+
+class CapturedStep:
+    """``step`` (a function of no arguments that reads and writes static
+    tensors) recorded once as a CUDA graph on ``device``, with the
+    exchanges of ``groups`` inside it.
+
+    A warm-up call first runs ``step`` eagerly on a side stream: it loads
+    every kernel and, over NCCL ranks, makes every communicator the body
+    uses (a communicator's first collective cannot run inside a capture).
+    Then the capture records the body. The capture launches nothing and
+    exchanges nothing, so the wrappers' launch counts and the groups'
+    counts are put back as they were; ``kernels`` holds what one replay
+    launches of each wrapper and ``exchanges`` each group's counts in one
+    replay, which :meth:`replay` adds. ``seconds`` is the time of the
+    warm-up, the capture and the graph's instantiation (its first replay,
+    whose results the caller's next write of the inputs replaces).
+
+    Over ranks every rank must capture the same body and replay it the
+    same number of times: a replay runs the body's collectives."""
+
+    #: ``torch.cuda.set_sync_debug_mode``'s mode while the body is recorded
+    #: (None leaves it as it is): ``"error"`` makes a call in the body that
+    #: synchronizes with the host raise where it is made. The mode is the
+    #: process's, so set it only where no other thread synchronizes then.
+    sync_debug_mode = None
+
+    def __init__(self, step, groups, device):
+        check_capturable(groups)
+        t0 = time.perf_counter()
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            step()
+        torch.cuda.current_stream(device).wait_stream(side)
+        before, group_before = ops.launch_counts(), [g.counts() for g in groups]
+        graph = torch.cuda.CUDAGraph()
+        # the collector must not run inside the capture: an unreachable
+        # engine it frees destroys its graph, a call that invalidates the
+        # capture in progress (engines sit in cycles through their matvec's
+        # store); so collect now and hold the collector off until the end
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            # capture vs. other threads: "thread_local" lets a thread that
+            # refactors on its own stream allocate and synchronize while
+            # this thread captures (the default "global" mode would
+            # invalidate the capture); the serve layer also joins its
+            # refactor workers before it warms
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                if self.sync_debug_mode is None:
+                    step()
+                else:
+                    mode = torch.cuda.get_sync_debug_mode()
+                    torch.cuda.set_sync_debug_mode(self.sync_debug_mode)
+                    try:
+                        step()
+                    finally:
+                        torch.cuda.set_sync_debug_mode(mode)
+        finally:
+            if collecting:
+                gc.enable()
+            after = ops.launch_counts()
+            ops.set_launch_counts(before)  # the capture launched nothing
+            group_after = [g.counts() for g in groups]
+            for g, c in zip(groups, group_before):
+                g.set_counts(c)
+        self.kernels = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        self.exchanges = [(g, {k: a[k] - c[k] for k in c})
+                          for g, c, a in zip(groups, group_before, group_after)]
+        graph.replay()  # the first replay uploads the graph
+        torch.cuda.synchronize(device)
+        self.graph = graph
+        self.seconds = time.perf_counter() - t0
+
+    def replay(self) -> None:
+        """Run the captured body once, counting its launches
+        (``ops.graph_counts()``) and its groups' exchanges."""
+        self.graph.replay()
+        ops.count_graph_replay(self.kernels)
+        for group, counts in self.exchanges:
+            group.add_counts(counts)
+
+
 class WarmRestart:
     """GMRES(m)'s restart body for nb right-hand sides over one (matvec,
     preconditioner) pair, on static tensors it owns: the inputs ``bs``,
@@ -433,10 +538,15 @@ class WarmRestart:
     restart's true residual norms.
 
     :meth:`capture` (a CUDA device only) records one restart as a CUDA
-    graph: a warm-up restart first loads every kernel of the body, then
-    the capture records them; the capture launches nothing, so the
-    wrappers' launch counts are left as they were and ``kernels`` holds
-    what one replay launches of each. :meth:`run` copies a solve's ``bs``,
+    graph (a :class:`CapturedStep`): a warm-up restart first loads every
+    kernel of the body and makes every communicator it uses, then the
+    capture records them; the capture launches nothing, so the wrappers'
+    launch counts are left as they were and ``kernels`` holds what one
+    replay launches of each. The exchanges of one card's ``BandGroup`` and
+    the collectives of an NCCL ``DistBandGroup`` go into the graph; a gloo
+    group refuses the capture. Over ranks every rank replays its own graph
+    once per restart: the verdict it reads is replicated bitwise, so the
+    ranks replay in lockstep. :meth:`run` copies a solve's ``bs``,
     ``bnorm``, ``tolb`` and initial state into the static tensors and
     replays the graph once per restart (on the CPU, and before a capture,
     it runs the body eagerly over the same tensors), reading the verdict
@@ -459,11 +569,27 @@ class WarmRestart:
                       zeros(nb, dtype=_I64), zeros(nb, dtype=_I64), zeros(nb, dtype=_I64))
         self.rtrue = zeros(nb)
         self.tiny, self.ks = _constants(self.m, self.device)
-        self.graph = None
-        self.kernels = {}  # wrapper name -> launches in one replay
-        self.exchanges = []  # (band group, its counts in one replay)
-        self.capture_seconds = 0.0
+        self._captured = None  # the CapturedStep of one restart, once captured
         _count_event("warm_builds")
+
+    @property
+    def graph(self):
+        """The captured restart's CUDA graph (None before a capture)."""
+        return None if self._captured is None else self._captured.graph
+
+    @property
+    def kernels(self) -> dict:
+        """Wrapper name -> its launches in one replay."""
+        return {} if self._captured is None else self._captured.kernels
+
+    @property
+    def exchanges(self) -> list:
+        """(band group, its counts in one replay) per group of the body."""
+        return [] if self._captured is None else self._captured.exchanges
+
+    @property
+    def capture_seconds(self) -> float:
+        return 0.0 if self._captured is None else self._captured.seconds
 
     def _step(self) -> None:
         new, rtrue = _restart(self.matvec, self.M, self.m, self.maxiter, self.tiny, self.ks,
@@ -472,75 +598,23 @@ class WarmRestart:
             dst.copy_(src)
         self.rtrue.copy_(rtrue)
 
-    def _groups(self) -> list:
-        found = {}
-        for obj in (self.matvec, self.M):
-            group = getattr(obj, "group", None)
-            if group is not None:
-                found[id(group)] = group
-        return list(found.values())
-
     def capture(self) -> float:
-        """Record one restart as a CUDA graph (nothing on the CPU); returns
-        the seconds the warm-up, the capture and the graph's instantiation
-        took. A CUDA call that cannot be captured raises here."""
-        if self.device.type != "cuda" or self.graph is not None:
+        """Record one restart as a CUDA graph (nothing on the CPU): a
+        :class:`CapturedStep` of the body over the groups of the matvec and
+        of the preconditioner. Returns the seconds the warm-up, the capture
+        and the graph's instantiation took. A CUDA call that cannot be
+        captured, or a group whose exchanges cannot be (gloo), raises."""
+        if self.device.type != "cuda" or self._captured is not None:
             return 0.0
-        for group in self._groups():
-            if not getattr(group, "capturable", True):
-                raise RuntimeError(f"a CUDA graph cannot capture the exchanges of a "
-                                   f"{type(group).__name__} (its collectives run on the host); "
-                                   "solve over it without warm_solve")
-        t0 = time.perf_counter()
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            self._step()
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        groups = self._groups()
-        before, group_before = ops.launch_counts(), [g.counts() for g in groups]
-        graph = torch.cuda.CUDAGraph()
-        # the collector must not run inside the capture: an unreachable
-        # engine it frees destroys its graph, a call that invalidates the
-        # capture in progress (engines sit in cycles through their matvec's
-        # store); so collect now and hold the collector off until the end
-        gc.collect()
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            # capture vs. other threads: "thread_local" lets a thread that
-            # refactors on its own stream allocate and synchronize while
-            # this thread captures (the default "global" mode would
-            # invalidate the capture); the serve layer also joins its
-            # refactor workers before it warms
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                self._step()
-        finally:
-            if collecting:
-                gc.enable()
-            after = ops.launch_counts()
-            ops.set_launch_counts(before)  # the capture launched nothing
-            group_after = [g.counts() for g in groups]
-            for g, c in zip(groups, group_before):
-                g.set_counts(c)
-        self.kernels = {k: after[k] - before[k] for k in after if after[k] != before[k]}
-        self.exchanges = [(g, {k: a[k] - c[k] for k in c})
-                          for g, c, a in zip(groups, group_before, group_after)]
-        graph.replay()  # the first replay uploads the graph; its state is reset by run()
-        torch.cuda.synchronize(self.device)
-        self.graph = graph
+        self._captured = CapturedStep(self._step, _band_groups(self.matvec, self.M), self.device)
         _count_event("captures")
-        self.capture_seconds = time.perf_counter() - t0
         return self.capture_seconds
 
     def replay(self) -> None:
-        if self.graph is None:
+        if self._captured is None:
             self._step()
             return
-        self.graph.replay()
-        ops.count_graph_replay(self.kernels)
-        for group, counts in self.exchanges:
-            group.add_counts(counts)
+        self._captured.replay()
 
     def run(self, bs, bnorm, tolb, verdict):
         """The restart loop of one solve over the static tensors; returns
@@ -663,8 +737,8 @@ def warm_gmres(matvec, nb: int, n: int, precond=None, restart=30, maxiter=20,
     """Make (once) the :class:`WarmRestart` of GMRES(``restart``) for ``nb``
     right-hand sides of length ``n`` over (matvec, precond) on ``device``,
     and on a CUDA device capture it unless ``capture`` is False (operators
-    whose exchanges are host collectives: the engine then runs each restart
-    eagerly over its static tensors); later :func:`gmres` /
+    whose exchanges are gloo's host collectives: the engine then runs each
+    restart eagerly over its static tensors); later :func:`gmres` /
     :func:`gmres_batched` calls with the same objects, nb, restart and
     maxiter run through it."""
     M = precond or _identity
@@ -1045,7 +1119,10 @@ def warm_solve(a, k=1, batch_sizes=(1,), band_rows=32, rule="sum", broadcast="ga
     CUDA device the restart body captured as one CUDA graph, which later
     solves with that key replay once per restart; on the CPU nothing is
     captured. A CUDA call that cannot be captured raises: nothing falls
-    back to the eager restart in silence.
+    back to the eager restart in silence. Over the ranks of an NCCL
+    :class:`~repro_torch.core.dist.DistBandGroup` every rank calls it with
+    the same arguments and captures its own graph with the collectives
+    inside; over gloo ranks the capture raises.
     """
     from .ordering import make_ordering, permuted_system
 

@@ -117,6 +117,8 @@ class BandGroup(GroupCounts):
     """
 
     kind = "card"
+    #: a CUDA graph may capture its exchanges (copies on the stream)
+    capturable = True
 
     def __init__(self, n_devices: int, device=None):
         if int(n_devices) < 1:

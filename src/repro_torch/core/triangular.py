@@ -512,7 +512,11 @@ class SweepSide:
     ``ing[L*D*ex_off[k]:]`` (L recv, D send, E_k) where each local receiver
     files them (pad: ``limit``), ``rep`` (D, E_k) every sender's global
     slots (pad: the output's scratch slot; U only). ``ex_base`` counts the
-    exchanges of the sweeps before this one."""
+    exchanges of the sweeps before this one. ``ex_after_host`` and
+    ``ex_off_host`` are ``ex_after`` and ``ex_off`` as tuples of ints, made
+    with the tables: the rank route loops over them on the host, so an
+    apply reads nothing back from the device (a CUDA graph may capture
+    it)."""
 
     cols: torch.Tensor
     rhs_idx: torch.Tensor
@@ -524,6 +528,8 @@ class SweepSide:
     ing: torch.Tensor
     rep: torch.Tensor
     ex_base: int
+    ex_after_host: tuple
+    ex_off_host: tuple
 
 
 @dataclasses.dataclass
@@ -556,8 +562,8 @@ class ShardedSweepTables:
         none): the ``epoch_sweep`` launches of one apply on the rank route."""
         out = 0
         for side in (self.l, self.u):
-            ex = side.ex_after.cpu().numpy()
-            out += int(np.count_nonzero(ex)) + int(ex.size > 0 and ex[-1] == 0)
+            ex = side.ex_after_host
+            out += sum(1 for k in ex if k) + int(len(ex) > 0 and ex[-1] == 0)
         return out
 
 
@@ -589,7 +595,8 @@ def _sweep_side(sched: SweepEpochSchedule, rhs_idx, rhs_len: int, ex_base: int, 
                      rhs_len=int(rhs_len),
                      limit=int(sched.scratch), ex_after=on(ex_after), ex_off=on(off),
                      eg=on(cat(eg)), ing=on(cat(ing)), rep=on(cat(rep), torch.int64),
-                     ex_base=int(ex_base))
+                     ex_base=int(ex_base), ex_after_host=tuple(int(k) for k in ex_after),
+                     ex_off_host=tuple(off))
 
 
 class ShardedTriangularEngine:

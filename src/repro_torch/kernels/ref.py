@@ -141,13 +141,15 @@ def _sweep_side_ref(x: torch.Tensor, side, vals, diag, rhs, group, broadcast, fo
     ``group.exchange``; each local receiver writes every sender's payload
     into its halo at its ingress addresses (pads at the scratch slot).
     ``fold`` (nb, slots + 1), U only: every payload is also written into
-    the replicated output vector at its global slots."""
+    the replicated output vector at its global slots. The loop runs over
+    the tables' host copies of ``ex_after`` and ``ex_off``: nothing is read
+    back from the device."""
     n_loc, nb, xlen = x.shape
     D = group.n_devices
-    off = side.ex_off.tolist()
+    off = side.ex_off_host
     rows = torch.arange(n_loc, device=x.device)[:, None] * nb + torch.arange(nb, device=x.device)
     lo = 0
-    for lev, k1 in enumerate(side.ex_after.tolist()):
+    for lev, k1 in enumerate(side.ex_after_host):
         if not k1:
             continue
         levels(x, side.cols, vals, rhs, diag, lo, lev + 1, side.limit)

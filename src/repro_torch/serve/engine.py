@@ -45,10 +45,12 @@ step). A binding refactors with ``ilu_sharded`` (one persistent
 ``superstep_factor`` launch on one card), reusing the structure's plan and
 engines; its values refill the sweep's slots in place, so it too captures
 nothing after warm-up (the JAX sharded engine recompiles its Krylov jits
-per rebind). Over ranks the restarts cannot be captured (the exchanges are
-host collectives): :meth:`ShardedServeEngine.warm` builds every plan, table
-and restart engine and warms the preconditioner, the restarts then run
-eagerly, and a refactorization (:meth:`ShardedServeEngine.refactoring`)
+per rebind). Over NCCL ranks each rank captures each bucket's restart,
+its collectives inside, as on one card; over gloo ranks the restarts
+cannot be captured (the exchanges are host collectives):
+:meth:`ShardedServeEngine.warm` builds every plan, table and restart
+engine and warms the preconditioner, and the restarts then run eagerly.
+Over either, a refactorization (:meth:`ShardedServeEngine.refactoring`)
 exchanges over a group of its own.
 
 Card hazards handled here and in the cache:
@@ -444,8 +446,11 @@ class ShardedServeEngine(_Engine):
     owners that the factorizations made inside :meth:`refactoring` exchange
     over: over ranks a refactor runs on a thread of its own beside the
     solves, and its collectives must not share their communicator. A
-    group that is not ``capturable`` (a ``DistBandGroup``) makes the engine
-    not capturable: :meth:`warm` then captures nothing.
+    group that is not ``capturable`` (a gloo ``DistBandGroup``) makes the
+    engine not capturable: :meth:`warm` then captures nothing, and each
+    bucket's restarts run eagerly. Over NCCL ranks the engine captures
+    like one card's: each rank records each bucket's restart, with its
+    collectives, as one CUDA graph.
     """
 
     def __init__(self, a: CSRMatrix, pattern: ILUPattern, vals_csr=None,
@@ -463,7 +468,7 @@ class ShardedServeEngine(_Engine):
             raise ValueError("ShardedServeEngine: the refactor group's owners differ from the "
                              "group's")
         self.device = self.group.device
-        self.capturable = bool(getattr(self.group, "capturable", True))
+        self.capturable = self.group.capturable
         self._lane = threading.local()
         self._init_common(a, pattern, restart, maxiter, precond_method, buckets)
         self.band_rows = int(band_rows)

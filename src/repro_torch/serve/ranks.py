@@ -40,6 +40,16 @@ follower a thread of its own, so a refactor's exchanges never interleave
 with a solve's on one communicator. Operations of one lane run one at a
 time (a lock held from the announcement to the end of the operation).
 
+**Warm-up.** Over NCCL every rank captures each bucket's restart as one
+CUDA graph with its collectives inside (gloo ranks capture nothing). The
+leader joins its refactor workers before it announces ``warm``, and
+names the refactor lane's operations announced so far; a follower runs
+the warm-up on its solve lane once its refactor lane has run that many,
+so no refactor of its own runs device work beside the capture. Every
+rank warms its engines and buckets in the leader's order, and every
+later solve replays the same graphs the same number of times (the
+verdicts read on the host are replicated bitwise).
+
 **Results.** The Krylov vectors are replicated on every rank, so a
 response is rank 0's ``x``. Every rank keeps a digest of each solve's
 lanes (x, iterations, verdicts); at stop the leader sends its digests and
@@ -195,6 +205,8 @@ class Leader:
         self.failure: Optional[RankFailure] = None
         self.digests: list = []
         self.announced = collections.Counter()
+        #: operations announced per lane ("solve", "refactor")
+        self.sent = collections.Counter()
         self._eids = itertools.count()
         self._releases = collections.deque()
         self._local = threading.local()
@@ -230,6 +242,7 @@ class Leader:
                     releases.append(self._releases.popleft())
                 lane.send((name, eid, inputs, releases))
                 self.announced[name] += 1
+                self.sent[lane.name] += 1
                 yield
             except BaseException as e:
                 if self.failure is None:
@@ -324,8 +337,11 @@ class LeaderEngine:
                                        self.engine.bind_degraded(a, shift, version=version))
 
     def warm(self, binding, buckets=None) -> dict:
+        # the service joined its refactor workers: a follower joins its
+        # refactor lane up to here before it captures
         with self._leader.op("warm", self.eid, version=binding.version,
-                             buckets=None if buckets is None else tuple(buckets)):
+                             buckets=None if buckets is None else tuple(buckets),
+                             refactor_ops=self._leader.sent["refactor"]):
             return self.engine.warm(binding, buckets)
 
     def solve(self, binding, bs, tols):
@@ -375,6 +391,7 @@ class _Follower:
         self.facts: dict = {}
         self.digests: list = []
         self.ops = collections.Counter()
+        self.ran = collections.Counter()  # operations run per lane
         self.cond = threading.Condition()
         self.failure: Optional[BaseException] = None
         self.verdict = None
@@ -388,6 +405,17 @@ class _Follower:
             if key not in table:
                 raise RuntimeError(f"rank {self.lanes.rank}: {what} {key} lost to a failure")
             return table[key]
+
+    def _join_lane(self, name: str, count: int) -> None:
+        """Wait (bounded) until lane ``name`` has run ``count`` operations."""
+        with self.cond:
+            if not self.cond.wait_for(lambda: self.ran[name] >= count
+                                      or self.failure is not None,
+                                      timeout=self.lanes.timeout_s):
+                raise TimeoutError(f"rank {self.lanes.rank}: the {name} lane ran "
+                                   f"{self.ran[name]} of {count} operations")
+            if self.ran[name] < count:
+                raise RuntimeError(f"rank {self.lanes.rank}: the {name} lane failed")
 
     def _keep_binding(self, eid, binding) -> None:
         if binding is None:
@@ -446,6 +474,7 @@ class _Follower:
                 return
             binding = self._wait(self.bindings, (eid, inp["version"]), "binding")
             if name == "warm":
+                self._join_lane("refactor", inp["refactor_ops"])
                 engine.warm(binding, inp["buckets"])
             elif name == "solve":
                 self.digests.append(_digest(engine.solve_bucket(binding, inp["bs"], inp["tols"])))
@@ -483,7 +512,10 @@ class _Follower:
                 if name == "abort":
                     raise RuntimeError(f"the leader (rank 0) failed: {inp['detail']}")
                 self._apply(lane, name, eid, inp)
-                self.ops[name] += 1
+                with self.cond:
+                    self.ops[name] += 1
+                    self.ran[lane.name] += 1
+                    self.cond.notify_all()
         except BaseException as e:
             first = self.lanes.report(f"{lane.name}:{name}", e)
             with self.cond:

@@ -207,6 +207,26 @@ def test_dist_band_group_checks_its_backend_and_payloads(tmp_path):
         dist.destroy_process_group()
 
 
+def test_a_gloo_group_refuses_a_cuda_graph_capture(tmp_path):
+    """gloo's collectives run on the host: a gloo group is not capturable,
+    and the capture check names it (one card's group passes)."""
+    from repro_torch.core.solvers import CapturedStep, check_capturable
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", world_size=1,
+                            rank=0, timeout=datetime.timedelta(seconds=60))
+    try:
+        g = DistBandGroup(device="cpu", backend="gloo")
+        assert g.capturable is False and BandGroup(2, "cpu").capturable is True
+        check_capturable([BandGroup(2, "cpu")])
+        msg = "cannot capture the exchanges of a gloo DistBandGroup"
+        with pytest.raises(RuntimeError, match=msg):
+            check_capturable([BandGroup(1, "cpu"), g])
+        with pytest.raises(RuntimeError, match=msg):  # before any CUDA call
+            CapturedStep(lambda: None, [g], torch.device("cpu"))
+    finally:
+        dist.destroy_process_group()
+
+
 @pytest.mark.parametrize("rank", [0, 1, 3])
 def test_one_owner_plan_tables_are_the_factorizer_local_tables(rank):
     from repro_torch.core.numeric import plan_device_arrays, plan_state_array

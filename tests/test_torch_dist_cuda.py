@@ -1,11 +1,14 @@
 """Band owners as processes on the card: gloo ranks sharing one GPU (each
 exchange staged through pinned host memory) against the one-device
-``BandGroup`` on the same card. ``cuda``-marked: each test skips from
-inside where no GPU is present. This file imports no JAX, so on the GPU
+``BandGroup`` on the same card, and NCCL ranks (one card each) whose
+exchanges a CUDA graph captures. ``cuda``-marked: each test skips from
+inside where no GPU is present, or too few cards. This file imports no JAX, so on the GPU
 machine ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_dist_cuda.py``
 runs it; the CPU twins are ``test_torch_dist.py`` and
 ``test_torch_dist_solve.py``.
 """
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -64,3 +67,46 @@ def test_gloo_ranks_on_one_card_solve_like_the_one_device_group(tmp_path):
         assert np.array_equal(r["x"][0].view(np.int32), want["x"][0].view(np.int32))
         assert (r["iterations"], r["verdict"], r["counts"]) == (
             want["iterations"], want["verdict"], want["counts"])
+
+
+def _cards(n):
+    _card()
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} CUDA devices (NCCL refuses two ranks on one card)")
+
+
+@pytest.fixture
+def smoke(monkeypatch):
+    """``chip_smoke.py``'s NCCL rank bodies and their checks (the spawned
+    ranks import the module from the repository's root)."""
+    monkeypatch.syspath_prepend(str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    return chip_smoke
+
+
+@pytest.mark.cuda
+def test_nccl_capture_of_an_exchange_replays_like_eager(smoke, tmp_path):
+    """One NCCL rank: a graph of a spmv_ell launch (4 right-hand sides) and
+    the exchange of its output, replayed on new inputs, equals the eager
+    call bitwise with the same counts per replay, one spmv_ell launch per
+    replay; a replay adds no exchange seconds."""
+    _cards(1)
+    got = run_ranks(smoke.nccl_capture_body, 1, "nccl", None, init_file=str(tmp_path / "store"),
+                    timeout_s=300, args=(16, ("gather", "ring"), 4))
+    smoke.nccl_capture_check("nccl-capture", got, ("gather", "ring"))
+
+
+@pytest.mark.cuda
+def test_warm_solve_over_nccl_ranks_equals_eager_and_the_one_card_group(smoke, tmp_path):
+    """warm_solve over 2 NCCL ranks: each restart one replayed graph with
+    its collectives inside (recorded under sync debug "error"); x, steps,
+    restarts, verdict and counts equal the eager ranked solve's and the
+    one-card BandGroup(2)'s, for the sweep under the fusion ordering and
+    for the inverse method."""
+    _cards(2)
+    nx = 16
+    b = np.random.default_rng(6).standard_normal(nx * nx).astype(np.float32)
+    got = run_ranks(smoke.dist_warm_body, 2, "nccl", None, init_file=str(tmp_path / "store"),
+                    timeout_s=300, args=(nx, b))
+    smoke.dist_warm_check("warm", got, smoke.dist_warm_reference(_card(), b, nx, 2), 2)

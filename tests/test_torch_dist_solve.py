@@ -14,7 +14,12 @@ the same cases over ``BandGroup(D)``. Held, as int32 views:
   every rank equal the one-device group's solve, and so do the counts;
 * a breakdown fixture (``singular_block_matrix``, ``on_breakdown="shift"``)
   settles on the same shift on every rank as on the one-device group, with
-  the same factor and the same solve.
+  the same factor and the same solve;
+* the GMRES restart body a CUDA graph captures (``WarmRestart._step``),
+  over the ranked matvec and the sweep (natural and fusion ordering,
+  gather and ring) or the inverse method, reads no tensor back to the
+  host (``torch_dist_ranks.no_host_reads``) and equals the one-device
+  group's restart.
 
 Against JAX ``solve_with_ilu(use_pallas=False)`` (the single-device JAX
 solve: its sharded ``x`` differs from its own single-device ``x`` on this
@@ -78,12 +83,23 @@ CASES = {
                              maxiter=2)),
 }
 JAX_CASES = ("gmres-natural-ring", "cg-natural")
+# name: the keywords of one ranked restart body (torch_dist_ranks.restart_case), on
+# POISSON with b of shape (2, 64)
+RESTART_CASES = {
+    f"restart-{pm}-{o}-{bc}": dict(k=1, band_rows=4, ordering=o, broadcast=bc, precond_method=pm,
+                                   restart=4, tol=TOL)
+    for pm, o, bc in (("sweep", "natural", "gather"), ("sweep", "natural", "ring"),
+                      ("sweep", "fusion", "gather"), ("sweep", "fusion", "ring"),
+                      ("inverse", "natural", "gather"))}
 
 
 def _cases():
     out = []
     for i, (name, (mat, shape, kw)) in enumerate(sorted(CASES.items())):
         out.append(dict(name=name, matrix=_arrays(mat()), b=_rhs(shape, 20 + i), kw=kw))
+    for i, (name, kw) in enumerate(sorted(RESTART_CASES.items())):
+        out.append(dict(name=name, kind="restart", matrix=_arrays(POISSON()),
+                        b=_rhs((2, 64), 40 + i), kw=kw))
     return out
 
 
@@ -96,7 +112,7 @@ def runs(request, tmp_path_factory):
     got = run_ranks(ranks.solve_cases, D, "gloo", ["cpu"] * D, init_file=str(store),
                     timeout_s=RANK_TIMEOUT_S, args=(cases,))
     wall = time.perf_counter() - t0
-    one = [ranks.solve_case(BandGroup(D, "cpu"), c) for c in cases]
+    one = [ranks.run_case(BandGroup(D, "cpu"), c) for c in cases]
     names = [c["name"] for c in cases]
     return dict(D=D, cases=dict(zip(names, cases)), wall=wall,
                 ranks=[dict(zip(names, r)) for r in got], one=dict(zip(names, one)))
@@ -117,6 +133,22 @@ def test_rank_solves_equal_the_one_device_group(runs, name):
         assert got["counts"] == want["counts"], f"rank {rank}"
         _bits_equal(got["vals"], want["vals"])
     assert runs["wall"] < RANK_TIMEOUT_S
+
+
+@pytest.mark.parametrize("name", sorted(RESTART_CASES))
+def test_ranked_restart_body_reads_nothing_back_to_the_host(runs, name):
+    """The restart body a CUDA graph captures, over the ranked matvec and
+    preconditioner, under a guard that makes every host read of a tensor
+    raise: none is made, and the restart equals the one-device group's."""
+    want = runs["one"][name]
+    for rank, got in enumerate(runs["ranks"]):
+        got = got[name]
+        assert got["host_read"] is None, f"rank {rank}: {got['host_read']}"
+        assert got["tables_ok"], f"rank {rank}: a sweep table's host copy != its tensor"
+        _bits_equal(got["x"], want["x"])
+        _bits_equal(got["rtrue"], want["rtrue"])
+        assert got["counts"] == want["counts"], f"rank {rank}"
+    assert want["counts"]["exchanges"] > 0
 
 
 def test_breakdown_settles_on_the_same_shift_on_every_rank(runs):

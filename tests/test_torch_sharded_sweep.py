@@ -13,7 +13,8 @@ exchanges are copies inside the card. Held here, every comparison bitwise
   for ``"gather"`` and ``"ring"``; the group's counts equal the plan's
   ``comm_summary()``;
 * the flattened exchange tables, applied with plain torch indexing, write
-  exactly what the per-epoch lists write (every slot of the sweep vector);
+  exactly what the per-epoch lists write (every slot of the sweep vector),
+  and their host copies (``ex_after_host``, ``ex_off_host``) equal them;
 * ``ops.epoch_sweep`` (the one-epoch form of the same kernel) on every
   epoch of a D = 4 plan (``poisson_2d(6)``) equals JAX's
   ``epoch_sweep_jnp`` per owner.
@@ -172,6 +173,29 @@ def test_flat_exchange_tables_write_what_per_epoch_lists_write(n_devices):
             k += 1
         assert k == sched.exchange_count() == len(off) - 1
         assert int((side.ex_after > 0).sum()) == k
+
+
+@pytest.mark.parametrize("broadcast", ["gather", "ring"])
+@pytest.mark.parametrize("n_devices", [1, 2, 3, 4])
+@pytest.mark.parametrize("name", ["poisson6", *MATRICES])
+def test_exchange_tables_host_copies_equal_their_tensors(name, n_devices, broadcast):
+    """The rank route loops over ``ex_after_host`` / ``ex_off_host`` (no
+    read back from the device): they are the tables' own values, for the
+    group's owners and for each one owner a rank keeps."""
+    from repro_torch.core.triangular import ShardedTriangularEngine
+
+    _, group, apply = _sharded(name, n_devices, broadcast)
+    tables = [apply.sweep.tables]
+    for r in range(n_devices):
+        one = BandGroup(n_devices, "cpu")
+        one.local_owners = (r,)
+        tables.append(ShardedTriangularEngine(apply.plan, one, broadcast=broadcast).tables)
+    for t in tables:
+        for side in (t.l, t.u):
+            assert side.ex_after_host == tuple(side.ex_after.tolist())
+            assert side.ex_off_host == tuple(side.ex_off.tolist())
+            assert all(type(k) is int for k in side.ex_after_host + side.ex_off_host)
+        assert t.runs() == tables[0].runs()
 
 
 @pytest.mark.parametrize("side", ["L", "U"])

@@ -8,7 +8,13 @@ imports torch and the port only, never jax, so a spawned rank (which
 imports the module that defines its function) loads no JAX and never the
 parent's test module. Matrices arrive as ``(n, indptr, indices, data)``.
 """
+import contextlib
+import traceback
+
 import torch
+
+#: the Tensor methods that read a tensor back to the host
+HOST_READS = ("tolist", "item", "cpu", "numpy", "__bool__", "__int__", "__float__", "__index__")
 
 
 def _csr(m):
@@ -77,8 +83,87 @@ def solve_case(group, case: dict) -> dict:
                 vals=fact.values_csr())
 
 
+@contextlib.contextmanager
+def no_host_reads():
+    """Within the block, every Tensor method of ``HOST_READS`` raises
+    ``HostRead`` (what a CUDA graph capture forbids: reading a device tensor
+    back to the host)."""
+    saved = {name: torch.Tensor.__dict__.get(name) for name in HOST_READS}
+
+    def refuse(name):
+        def method(self, *args, **kwargs):
+            raise HostRead(f"Tensor.{name}")
+        return method
+
+    for name in HOST_READS:
+        setattr(torch.Tensor, name, refuse(name))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            if fn is None:
+                delattr(torch.Tensor, name)
+            else:
+                setattr(torch.Tensor, name, fn)
+
+
+class HostRead(AssertionError):
+    pass
+
+
+def restart_case(group, case: dict) -> dict:
+    """One GMRES restart body (``WarmRestart._step``, what a CUDA graph
+    captures) over the ranked row-block matvec and preconditioner of one
+    case (``matrix``, ``b`` (nb, n), and in ``kw``: ``k``, ``band_rows``,
+    ``ordering``, ``broadcast``, ``precond_method``, ``restart``, ``tol``),
+    run under :func:`no_host_reads`. Returns ``x`` and the true residual
+    norms after it, the group's counts of the restart, the host read that
+    raised (``"Tensor.<name> at file:line"``, or None), and whether the
+    sweep tables' host copies equal their tensors."""
+    from repro_torch.core.api import ilu_sharded
+    from repro_torch.core.bitmath import bitnorm
+    from repro_torch.core.solvers import WarmRestart, make_sharded_ell_matvec
+
+    kw = case["kw"]
+    a = _csr(case["matrix"])
+    f = ilu_sharded(a, kw["k"], band_rows=kw["band_rows"], broadcast=kw["broadcast"],
+                    ordering=kw["ordering"], group=group)
+    M = f.precond(broadcast=kw["broadcast"], method=kw["precond_method"])
+    matvec = make_sharded_ell_matvec(f.a, group)
+    b = torch.as_tensor(case["b"], device=group.device)
+    eng = WarmRestart(matvec, M, b.shape[0], a.n, kw["restart"], 20, group.device)
+    bnorm = bitnorm(b)
+    # the state of a solve's first restart: x = 0, r = b, ‖r‖ = ‖b‖, running
+    for dst, src in zip((eng.bs, eng.bnorm, eng.tolb, eng.state[1], eng.state[3]),
+                        (b, bnorm, kw["tol"] * bnorm, b, bnorm)):
+        dst.copy_(src)
+    tables_ok = True
+    if kw["precond_method"] == "sweep":
+        for side in (M.sweep.tables.l, M.sweep.tables.u):
+            tables_ok &= (getattr(side, "ex_after_host", None) == tuple(side.ex_after.tolist())
+                          and getattr(side, "ex_off_host", None) == tuple(side.ex_off.tolist()))
+    group.reset_counts()
+    host_read = None
+    try:
+        with no_host_reads():
+            eng._step()
+    except HostRead as e:
+        frame = next((fr for fr in reversed(traceback.extract_tb(e.__traceback__))
+                      if "repro_torch" in fr.filename), None)
+        where = "" if frame is None else f" at {frame.filename.split('src/')[-1]}:{frame.lineno}"
+        host_read = f"{e}{where}"
+    return dict(x=eng.state[0].numpy(), rtrue=eng.rtrue.numpy(), counts=group.counts(),
+                host_read=host_read, tables_ok=tables_ok)
+
+
+def run_case(group, case: dict) -> dict:
+    """:func:`restart_case` for a case of ``kind`` "restart", else
+    :func:`solve_case`."""
+    return (restart_case if case.get("kind") == "restart" else solve_case)(group, case)
+
+
 def solve_cases(group, cases) -> list:
-    return [solve_case(group, c) for c in cases]
+    return [run_case(group, c) for c in cases]
 
 
 def fail_on_rank(group, bad_rank: int) -> int:
